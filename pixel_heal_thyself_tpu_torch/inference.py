@@ -1,0 +1,388 @@
+"""Full-frame tiled inference CLI (PyTorch port).
+
+Port of `pixel_heal_thyself_tpu/inference.py`, tiled paths only:
+
+    python -m pixel_heal_thyself_tpu_torch.inference -cn prod \
+        trainer.model_path=<params.npz> inference.images_dir=data/images \
+        [inference.out_dir=...] [inference.device=cuda]
+
+`trainer.model_path` names a flat `.npz` of the flax generator params
+(`tools/export_params_npz.py` writes one from a trainer checkpoint).
+Frames are denoised in overlapping tiles (tile 64 + margin 32 → 128²
+windows, 8 to a batch), stitched by cropping the margins, and scored with
+the training metrics into `<scene>_<spp>_evaluation.txt`.
+
+By default (`inference.fused=true`) the padding, window gather, batched
+model calls and stitching run on the device (`make_fused_frame_apply`);
+`inference.fused=false` takes the host loop (`denoise_frame`). Spatial
+sharding and exported artifacts (ROADMAP.md slice 6) and the Mamba
+generator (slice 4) are not ported yet and raise NotImplementedError.
+
+The config layer (pyyaml) and the scorers (`metrics`, OpenCV) are
+imported only by the functions that need them, so the denoising path
+needs only torch, numpy and scipy.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from pixel_heal_thyself_tpu.data.preprocessing import (
+    postprocess_specular,
+    preprocess_data,
+    preprocess_normal,
+    preprocess_specular,
+)
+from pixel_heal_thyself_tpu.logger import logger
+
+
+def extract_tiles(x: np.ndarray, tile: int, margin: int) -> tuple[np.ndarray, tuple]:
+    """Split [H, W, C] into overlapping (tile+2·margin)² tiles at stride
+    `tile`, replicate-padding the frame edges. Returns (tiles, meta)."""
+    h, w, c = x.shape
+    ht = -(-h // tile)
+    wt = -(-w // tile)
+    ph, pw = ht * tile, wt * tile
+    xp = np.pad(
+        x, ((margin, margin + ph - h), (margin, margin + pw - w), (0, 0)), mode="edge",
+    )
+    size = tile + 2 * margin
+    tiles = np.empty((ht * wt, size, size, c), np.float32)
+    idx = 0
+    for ty in range(ht):
+        for tx in range(wt):
+            y0, x0 = ty * tile, tx * tile
+            tiles[idx] = xp[y0 : y0 + size, x0 : x0 + size]
+            idx += 1
+    return tiles, (h, w, ht, wt)
+
+
+def stitch_tiles(tiles: np.ndarray, meta: tuple, tile: int, margin: int) -> np.ndarray:
+    """Inverse of extract_tiles: crop margins and reassemble to [H, W, C]."""
+    h, w, ht, wt = meta
+    c = tiles.shape[-1]
+    out = np.empty((ht * tile, wt * tile, c), np.float32)
+    idx = 0
+    for ty in range(ht):
+        for tx in range(wt):
+            out[ty * tile : (ty + 1) * tile, tx * tile : (tx + 1) * tile] = tiles[
+                idx, margin : margin + tile, margin : margin + tile
+            ]
+            idx += 1
+    return out[:h, :w]
+
+
+def _model_inputs(data: dict[str, np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
+    """Log-space noisy radiance and aux with remapped normals."""
+    noisy_log = preprocess_specular(data["noisy"]).astype(np.float32)
+    aux = data["aux"].astype(np.float32).copy()
+    aux[..., :3] = preprocess_normal(aux[..., :3])
+    return noisy_log, aux
+
+
+def denoise_frame(
+    apply_fn,
+    data: dict[str, np.ndarray],
+    tile: int = 64,
+    margin: int = 32,
+    batch_tiles: int = 8,
+    device: torch.device | str = "cpu",
+) -> np.ndarray:
+    """Denoise one preprocessed frame dict → linear-HDR output [H, W, 3]
+    through the host loop: every tile batch is copied to `device`, run by
+    `apply_fn(noisy [N,S,S,3], aux [N,S,S,C]) -> [N,S,S,3]` and copied back."""
+    noisy_log, aux = _model_inputs(data)
+    noisy_tiles, meta = extract_tiles(noisy_log, tile, margin)
+    aux_tiles, _ = extract_tiles(aux, tile, margin)
+    n = noisy_tiles.shape[0]
+    pad_n = (-n) % batch_tiles
+    if pad_n:
+        # wrap-around repeat: covers pad_n > n (fewer tiles than a batch)
+        reps = np.arange(pad_n) % n
+        noisy_tiles = np.concatenate([noisy_tiles, noisy_tiles[reps]], 0)
+        aux_tiles = np.concatenate([aux_tiles, aux_tiles[reps]], 0)
+    outs = []
+    with torch.inference_mode():
+        for i in range(0, len(noisy_tiles), batch_tiles):
+            o = apply_fn(
+                torch.from_numpy(noisy_tiles[i : i + batch_tiles]).to(device),
+                torch.from_numpy(aux_tiles[i : i + batch_tiles]).to(device),
+            )
+            outs.append(o.float().cpu().numpy())
+    out_tiles = np.concatenate(outs, 0)[:n]
+    return postprocess_specular(stitch_tiles(out_tiles, meta, tile, margin))
+
+
+def make_fused_frame_apply(
+    apply_fn,
+    frame_hw: tuple[int, int],
+    tile: int = 64,
+    margin: int = 32,
+    batch_tiles: int = 8,
+    device: torch.device | str = "cpu",
+):
+    """Build a whole-frame denoiser that keeps the frame on `device`:
+    edge-pad, gather each batch of overlapping windows, run the model per
+    batch, and write the margin-cropped tiles into the output frame.
+
+    Same windows, batches and edge padding as `denoise_frame`; the
+    wrap-around padding tiles are batched FIRST and the originals last,
+    so an original tile's output is always the one written last.
+
+    Returns `run(noisy_log [H,W,3] f32, aux [H,W,C] f32) -> [H,W,3] f32`,
+    all tensors on `device`, in the model's log space."""
+    h, w = frame_hw
+    size = tile + 2 * margin
+    ht, wt = -(-h // tile), -(-w // tile)
+    n = ht * wt
+    pad_n = (-n) % batch_tiles
+    coords = [(ty * tile, tx * tile) for ty in range(ht) for tx in range(wt)]
+    coords = [coords[i % n] for i in range(pad_n)] + coords
+    batches = [coords[i : i + batch_tiles] for i in range(0, len(coords), batch_tiles)]
+    device = torch.device(device)
+    # edge padding as clamped indices of the padded frame's rows/columns
+    rows = torch.arange(-margin, ht * tile + margin, device=device).clamp(0, h - 1)
+    cols = torch.arange(-margin, wt * tile + margin, device=device).clamp(0, w - 1)
+    win = torch.arange(size, device=device)
+    # per batch: window row indices [N, S, 1] and column indices [N, 1, S]
+    gathers = []
+    for batch in batches:
+        yx = torch.tensor(batch, device=device)
+        gathers.append(((yx[:, :1] + win)[:, :, None], (yx[:, 1:] + win)[:, None, :]))
+
+    def run(noisy_log: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
+        noisy_p = noisy_log[rows][:, cols]
+        aux_p = aux[rows][:, cols]
+        out = torch.zeros(ht * tile, wt * tile, noisy_log.shape[-1],
+                          dtype=torch.float32, device=device)
+        with torch.inference_mode():
+            for batch, (iy, ix) in zip(batches, gathers):
+                o = apply_fn(noisy_p[iy, ix], aux_p[iy, ix])
+                o = o[:, margin : margin + tile, margin : margin + tile].float()
+                for i, (y0, x0) in enumerate(batch):
+                    out[y0 : y0 + tile, x0 : x0 + tile] = o[i]
+        return out[:h, :w]
+
+    return run
+
+
+def denoise_frame_fused(fused_apply, data: dict[str, np.ndarray],
+                        device: torch.device | str = "cpu") -> np.ndarray:
+    """`denoise_frame` semantics through a `make_fused_frame_apply`
+    program: the host does only the log-space pre/post transforms."""
+    noisy_log, aux = _model_inputs(data)
+    out_log = fused_apply(
+        torch.from_numpy(noisy_log).to(device), torch.from_numpy(aux).to(device),
+    )
+    return postprocess_specular(out_log.cpu().numpy().astype(np.float32))
+
+
+def tensor2img(image: np.ndarray) -> np.ndarray:
+    """HWC linear HDR → tone-mapped uint8, as `pixel_heal_thyself_tpu.utils.
+    images.tensor2img` without post-processing. That module imports
+    matplotlib when loaded, which the scoring path does not need."""
+    img = np.clip(np.maximum(np.asarray(image, np.float64), 0.0) ** (1.0 / 2.2), 0, 1)
+    return np.clip(img * 255.0, 0, 255).astype(np.uint8)
+
+
+def find_frame_pairs(images_dir: str | Path, noisy_spp: int, gt_spp: int):
+    noisy_root = Path(images_dir) / f"{noisy_spp}spp"
+    gt_root = Path(images_dir) / f"{gt_spp}spp"
+    pairs = []
+    for f in sorted(os.listdir(gt_root)):
+        if not f.endswith(".exr"):
+            continue
+        # strip only the trailing `_<spp>.exr` — scene names may contain
+        # underscores themselves
+        stem = f[: -len(".exr")].rsplit("_", 1)[0]
+        pairs.append(
+            (stem, str(noisy_root / f"{stem}_{noisy_spp}"), str(gt_root / f"{stem}_{gt_spp}")),
+        )
+    return pairs
+
+
+def afgsa_kwargs_from_config(cfg) -> dict:
+    """`AFGSANet` kwargs from a `Config` (the JAX `AFGSATrainer.
+    create_generator` mapping; `use_pallas` selects the kernels)."""
+    m = cfg.model
+    kernels = bool(cfg.trainer.use_pallas)
+    if cfg.trainer.precision not in ("bf16", "fp32"):
+        raise ValueError(f"trainer.precision must be 'bf16' or 'fp32', got {cfg.trainer.precision!r}")
+    return dict(
+        input_channels=m.input_channels, aux_input_channels=m.aux_input_channels,
+        base_ch=m.feature_map_channels, enc_ch=m.enc_channels,
+        num_sa=m.self_attention.num_layers, block_size=m.self_attention.block_size,
+        halo_size=m.self_attention.halo_size, num_heads=m.self_attention.num_heads,
+        num_gcp=m.num_gradient_checkpoints,
+        padding_mode="replicate" if cfg.trainer.deterministic else "reflect",
+        curve_order=m.curve_order, use_film=m.use_film,
+        fold_qkv=kernels and cfg.trainer.fold_qkv, use_kernels=kernels,
+        use_block_kernel=kernels,
+        dtype=torch.bfloat16 if cfg.trainer.precision == "bf16" else torch.float32,
+    )
+
+
+def load_generator(cfg, device: torch.device | str = "cpu"):
+    """Build the generator from config and load its weights from
+    `trainer.model_path`, a flat params `.npz` (tools/export_params_npz.py)."""
+    from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet
+    from pixel_heal_thyself_tpu_torch.params import afgsa_state_from_flax, load_params_npz
+
+    if cfg.model.name == "mamba":
+        raise NotImplementedError(
+            "the Mamba generator is not ported to pixel_heal_thyself_tpu_torch yet "
+            "(ROADMAP.md slice 4)",
+        )
+    if cfg.model.name != "afgsa":
+        raise ValueError(f"Unsupported model: {cfg.model.name!r}")
+    kwargs = afgsa_kwargs_from_config(cfg)
+    if kwargs["dtype"] == torch.float32:
+        # fp32 is true float32, as the JAX trainer's HIGHEST matmul
+        # precision: on the GPU cuDNN convolutions default to TF32
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    model = AFGSANet(**kwargs, device=device)
+    model.load_state_dict(afgsa_state_from_flax(load_params_npz(cfg.trainer.model_path)))
+    return model.eval()
+
+
+def run_inference(
+    cfg,
+    images_dir: str,
+    out_dir: str,
+    tile: int = 64,
+    margin: int = 32,
+    batch_tiles: int = 8,
+    noisy_spp: int = 32,
+    gt_spp: int = 1024,
+    save_exr: bool = False,
+    scale: float = 1.0,
+    spatial: bool = False,
+    from_export: str | None = None,
+    fused: bool = True,
+    device: torch.device | str = "cpu",
+) -> list[dict]:
+    """Denoise and score every frame pair under `images_dir` with the
+    generator of `cfg` (`load_generator`)."""
+    from pixel_heal_thyself_tpu.data.exr import write_exr_groups
+    from pixel_heal_thyself_tpu.metrics import calculate_psnr, calculate_rmse, calculate_ssim
+
+    if from_export:
+        raise NotImplementedError(
+            "inference.from_export (exported serving artifacts) is not ported to "
+            "pixel_heal_thyself_tpu_torch yet (ROADMAP.md slice 6)",
+        )
+    if spatial:
+        raise NotImplementedError(
+            "inference.spatial (multi-GPU frame sharding) is not ported to "
+            "pixel_heal_thyself_tpu_torch yet (ROADMAP.md slice 6)",
+        )
+    model = load_generator(cfg, device)
+    os.makedirs(out_dir, exist_ok=True)
+
+    results = []
+    fused_cache: dict[tuple[int, int], object] = {}
+    for stem, noisy_path, gt_path in find_frame_pairs(images_dir, noisy_spp, gt_spp):
+        start = time.time()
+        data = preprocess_data(noisy_path, gt_path, scale=scale)
+        if fused:
+            hw = data["noisy"].shape[:2]
+            if hw not in fused_cache:
+                fused_cache[hw] = make_fused_frame_apply(
+                    model, hw, tile=tile, margin=margin, batch_tiles=batch_tiles,
+                    device=device,
+                )
+            out_lin = denoise_frame_fused(fused_cache[hw], data, device=device)
+        else:
+            out_lin = denoise_frame(
+                model, data, tile=tile, margin=margin, batch_tiles=batch_tiles,
+                device=device,
+            )
+        gt_lin = data["gt"].astype(np.float64)
+
+        rmse = calculate_rmse(out_lin.astype(np.float64), gt_lin)
+        out_255 = tensor2img(out_lin)
+        gt_255 = tensor2img(gt_lin)
+        psnr = calculate_psnr(out_255, gt_255)
+        ssim = calculate_ssim(out_255, gt_255)
+
+        eval_path = Path(out_dir) / f"{stem}_{noisy_spp}_evaluation.txt"
+        with open(eval_path, "w") as f:
+            f.write(f"RMSE: {rmse:.6f}\nPSNR: {psnr:.4f}\n1-SSIM: {1 - ssim:.6f}\n")
+        if save_exr:
+            write_exr_groups(
+                Path(out_dir) / f"{stem}_{noisy_spp}_denoised.exr",
+                {"default": out_lin.astype(np.float32)},
+                pixel_type="half",
+            )
+        logger.info(
+            f"[Infer] {stem}: rmse={rmse:.6f} psnr={psnr:.2f} "
+            f"1-ssim={1 - ssim:.4f} time={time.time() - start:.1f}s",
+        )
+        results.append({"scene": stem, "rmse": rmse, "psnr": psnr, "ssim": ssim})
+    return results
+
+
+def main(argv=None) -> None:
+    from pixel_heal_thyself_tpu.config import ConfigRegistry, compose
+    from pixel_heal_thyself_tpu.config.run_dirs import register_run_dirs_resolver
+
+    register_run_dirs_resolver()
+    parser = argparse.ArgumentParser(prog="pixel_heal_thyself_tpu_torch.inference")
+    parser.add_argument("-cn", "--config-name", default="default")
+    parser.add_argument("overrides", nargs="*")
+    args = parser.parse_args(argv)
+
+    # inference.* overrides are consumed here, the rest go to the config
+    infer_opts = {"tile": 64, "margin": 32, "batch_tiles": 8, "save_exr": False,
+                  "images_dir": None, "out_dir": None, "noisy_spp": 32,
+                  "gt_spp": 1024, "spatial": False, "from_export": None,
+                  "fused": True,
+                  "device": "cuda" if torch.cuda.is_available() else "cpu"}
+    cfg_overrides = []
+    for ov in args.overrides:
+        key, _, val = ov.partition("=")
+        if key.startswith("inference."):
+            name = key.split(".", 1)[1]
+            cur = infer_opts.get(name)
+            infer_opts[name] = (
+                val.lower() in ("1", "true", "yes")
+                if isinstance(cur, bool)
+                else type(cur)(val) if cur is not None else val
+            )
+        else:
+            cfg_overrides.append(ov)
+
+    cfg = ConfigRegistry.create_config(compose(args.config_name, cfg_overrides))
+    logger.setup_logger(cfg.logging.level)
+    if not cfg.trainer.model_path:
+        raise SystemExit("set trainer.model_path=<params .npz> (tools/export_params_npz.py)")
+    images_dir = infer_opts["images_dir"] or cfg.data.images.dir
+    out_dir = infer_opts["out_dir"] or os.path.join(cfg.paths.output_dir, "inference")
+    run_inference(
+        cfg,
+        images_dir,
+        out_dir,
+        tile=infer_opts["tile"],
+        margin=infer_opts["margin"],
+        batch_tiles=infer_opts["batch_tiles"],
+        noisy_spp=infer_opts["noisy_spp"],
+        gt_spp=infer_opts["gt_spp"],
+        save_exr=infer_opts["save_exr"],
+        scale=cfg.data.images.scale,
+        spatial=infer_opts["spatial"],
+        from_export=infer_opts["from_export"],
+        fused=infer_opts["fused"],
+        device=infer_opts["device"],
+    )
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

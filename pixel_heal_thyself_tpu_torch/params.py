@@ -1,0 +1,114 @@
+"""Weights bridge: the JAX package's flax AFGSANet params → the port's state_dict.
+
+`afgsa_state_from_flax(tree)` takes the flax param tree (nested dicts of
+numpy arrays, the `params` collection of `AFGSANet.init`) and returns a
+`state_dict` for `models.afgsa.AFGSANet`. Conv kernels are transposed from
+flax's HWIO to torch's OIHW (`transpose(3, 2, 0, 1)`); the block route
+re-lays them out for its kernels at call time (`TransformerBlock.
+kernel_weights`). rel_h/rel_w `[window, head_ch//2]` map as they are.
+
+flax names the last `num_gcp` blocks `CheckpointTransformerBlock_<j>`
+(`nn.remat` prefixes the class name and counts separately), after the
+plain `TransformerBlock_<i>`s — see tools/import_torch_checkpoint.py
+`_block_name`. Both map onto `blocks.<n>` in model order.
+
+`load_params_npz(path)` reads the flat `.npz` that
+`tools/export_params_npz.py` writes (keys such as
+`"ConvBlock_0/Conv_0/kernel"`) back into the nested tree.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+# flax ConvBlock name → port module path (outside the TransformerBlocks)
+_CONV_BLOCKS = {
+    "ConvBlock_0": "noisy_enc.branches.0",
+    "ConvBlock_1": "noisy_enc.branches.1",
+    "ConvBlock_2": "noisy_enc.branches.2",
+    "ConvBlock_3": "noisy_proj.conv",
+    "ConvBlock_4": "aux_enc.branches.0",
+    "ConvBlock_5": "aux_enc.branches.1",
+    "ConvBlock_6": "aux_enc.branches.2",
+    "ConvBlock_7": "aux_proj1.conv",
+    "ConvBlock_8": "aux_proj2.conv",
+    "ConvBlock_9": "decoder.0.conv",
+    "ConvBlock_10": "decoder.1.conv",
+    "ConvBlock_11": "decoder.2.conv",
+}
+# inside a TransformerBlock: flax name → port module path
+_FFN = {"ConvBlock_0": "ffn1.conv", "ConvBlock_1": "ffn2.conv"}
+_PROJ = {"q_conv": "q_weight", "k_conv": "k_weight", "v_conv": "v_weight"}
+_BLOCK_NAME = re.compile(r"^(Checkpoint)?TransformerBlock_(\d+)$")
+
+
+def _tensor(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _conv(dst: dict, prefix: str, node: dict) -> None:
+    """A flax Conv {kernel HWIO, bias} → `<prefix>.weight` OIHW, `.bias`."""
+    for name, val in node.items():
+        if name == "kernel":
+            dst[f"{prefix}.weight"] = _tensor(np.transpose(val, (3, 2, 0, 1)))
+        elif name == "bias":
+            dst[f"{prefix}.bias"] = _tensor(val)
+        else:
+            raise KeyError(f"unexpected conv param {prefix}/{name}")
+
+
+def _block(dst: dict, prefix: str, node: dict) -> None:
+    for name, sub in node.items():
+        if name == "attention":
+            for aname, aval in sub.items():
+                if aname in _PROJ:
+                    dst[f"{prefix}attention.{_PROJ[aname]}"] = _tensor(
+                        np.transpose(aval["kernel"], (3, 2, 0, 1)),
+                    )
+                elif aname in ("rel_h", "rel_w"):
+                    dst[f"{prefix}attention.{aname}"] = _tensor(aval)
+                elif aname == "ConvBlock_0":
+                    _conv(dst, prefix + "attention.fuse.conv", aval["Conv_0"])
+                else:
+                    raise KeyError(f"unexpected attention param {aname}")
+        elif name in _FFN:
+            _conv(dst, prefix + _FFN[name], sub["Conv_0"])
+        else:
+            raise KeyError(f"unexpected TransformerBlock param {name}")
+
+
+def afgsa_state_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """flax AFGSANet `params` tree → port `state_dict` (float32 tensors)."""
+    tree = tree.get("params", tree)
+    state: dict[str, torch.Tensor] = {}
+    plain, remat = {}, {}
+    for name, node in tree.items():
+        if name in _CONV_BLOCKS:
+            _conv(state, _CONV_BLOCKS[name], node["Conv_0"])
+            continue
+        m = _BLOCK_NAME.match(name)
+        if m is None:
+            raise KeyError(f"unexpected AFGSANet param {name}")
+        (remat if m.group(1) else plain)[int(m.group(2))] = node
+    blocks = [plain[i] for i in sorted(plain)] + [remat[j] for j in sorted(remat)]
+    if sorted(plain) != list(range(len(plain))) or sorted(remat) != list(range(len(remat))):
+        raise KeyError(f"non-contiguous TransformerBlock names: {sorted(plain)} {sorted(remat)}")
+    for n, node in enumerate(blocks):
+        _block(state, f"blocks.{n}.", node)
+    return state
+
+
+def load_params_npz(path: str) -> dict:
+    """Flat `.npz` keyed `"a/b/c"` → nested dict of numpy arrays."""
+    tree: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+    return tree
