@@ -7,11 +7,12 @@ TPU kernel on the ported path is a hand-written CUDA kernel for Hopper
 (`csrc/`, built by `_build.py` on first use).
 
 Ported so far: the tiled full-frame AFGSA inference path
-(`inference.py`), with the block-halo attention kernel
-(`ops/attention_cuda.py`) and the whole-TransformerBlock forward
-(`ops/block_cuda.py`). Host-side code (config, EXR IO, preprocessing,
-metrics) is shared with the JAX package, whose modules of those names
-import no JAX.
+(`inference.py`) and the prod GAN training step
+(`training/train_step.py`), with the block-halo attention kernels,
+forward and backward (`ops/attention_cuda.py`), and the whole
+TransformerBlock, forward and backward (`ops/block_cuda.py`). Host-side
+code (config, EXR IO, preprocessing, metrics) is shared with the JAX
+package, whose modules of those names import no JAX.
 
 This package imports `torch`, `numpy` and `scipy`, never `jax` or `flax`.
 """

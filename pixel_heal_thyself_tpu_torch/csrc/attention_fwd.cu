@@ -31,42 +31,146 @@
 // products run as scalar FMAs from shared memory, register-blocked over 8
 // query rows so each key/value element read from shared memory feeds 8
 // FMAs. Tensor cores (mma.sync / wgmma) are left for a later optimisation.
+//
+// Windows whose one-stage plan exceeds 227 KB (bf16 halo >= 7 or fp32
+// halo >= 5 at head_ch 64) take the key-chunked two-pass kernel: pass 1
+// walks the key chunks for the row max and sum (online), pass 2 recomputes
+// each chunk's logits, normalises and rounds the probabilities as above
+// and accumulates p . v in f32 in shared memory. Only f32 summation order
+// differs from the one-stage kernel. The two stay separate kernels: one
+// templated kernel serving both plans (as K4 does) computed the same bits
+// but, in five variants, ran the one-stage plan (the serving path) 6-24%
+// slower in bf16 on an H100 at 700 W: nvcc scheduled the shared body
+// differently (48-64 registers, some variants spilling).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace pht;
 
 constexpr int kThreads = 256;
 constexpr int kRows = 8;  // query rows per work item (register blocking)
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as XLA's convert
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 size_t smem_bytes(int bs, int halo, int hd, size_t elem) {
   const size_t nq = (size_t)bs * bs;
   const size_t nk = (size_t)(bs + 2 * halo) * (bs + 2 * halo);
   return nq * nk * sizeof(float) + (nq * hd + 2 * nk * hd) * elem;
+}
+
+// chunked plan: q [nq][hd] T, acc [nq][hd] f32, row max/sum [2][nq] f32,
+// then per key of a chunk: k and v columns (T) and one f32 logit per row
+size_t chunk_fixed_bytes(int nq, int hd, size_t elem) {
+  return (size_t)nq * hd * (elem + sizeof(float)) + 2 * nq * sizeof(float);
+}
+size_t chunk_key_bytes(int nq, int hd, size_t elem) {
+  return 2 * (size_t)hd * elem + (size_t)nq * sizeof(float);
+}
+
+struct Geom {
+  int H, W, C, bs, halo, heads, hd, half, window, nq, nk, wb, hb;
+  int b, by, bx, c0;
+};
+
+__device__ __forceinline__ Geom geom(int H, int W, int C, int bs, int halo, int heads) {
+  Geom g;
+  g.H = H; g.W = W; g.C = C; g.bs = bs; g.halo = halo; g.heads = heads;
+  g.hd = C / heads;
+  g.half = g.hd / 2;
+  g.window = bs + 2 * halo;
+  g.nq = bs * bs;
+  g.nk = g.window * g.window;
+  g.wb = W / bs;
+  g.hb = H / bs;
+  int t = blockIdx.x;  // (b * hb + by) * wb + bx
+  g.bx = t % g.wb;
+  t /= g.wb;
+  g.by = t % g.hb;
+  g.b = t / g.hb;
+  g.c0 = blockIdx.y * g.hd;
+  return g;
+}
+
+__device__ __forceinline__ int64_t query_off(const Geom& g, int i, int d) {
+  const int y = g.by * g.bs + i / g.bs, x = g.bx * g.bs + i % g.bs;
+  return (((int64_t)g.b * g.H + y) * g.W + x) * g.C + g.c0 + d;
+}
+
+// Stage keys [j0, j0 + n) of the window: kt[d * ld + jj] = round(k + bias)
+// (transposed) and, when v_dst is given, v_dst[jj * hd + d] = v.
+template <typename T>
+__device__ void stage_keys(const Geom& g, const T* k, const T* v, const float* rel_h,
+                           const float* rel_w, int j0, int n, int ld, T* kt, T* v_dst) {
+  for (int idx = threadIdx.x; idx < n * g.hd; idx += kThreads) {
+    const int jj = idx / g.hd, d = idx - jj * g.hd;
+    const int j = j0 + jj;
+    const int wy = j / g.window, wx = j - wy * g.window;
+    const int y = g.by * g.bs - g.halo + wy, x = g.bx * g.bs - g.halo + wx;
+    const bool inside = y >= 0 && y < g.H && x >= 0 && x < g.W;
+    const int64_t off = (((int64_t)g.b * g.H + y) * g.W + x) * g.C + g.c0 + d;
+    const float kval = inside ? to_f32(k[off]) : 0.f;
+    const float bias = d < g.half ? rel_h[wy * g.half + d] : rel_w[wx * g.half + d - g.half];
+    kt[d * ld + jj] = from_f32<T>(kval + bias);
+    if (v_dst) v_dst[jj * g.hd + d] = inside ? v[off] : from_f32<T>(0.f);
+  }
+}
+
+// s_p[i * ld + jj] = (q_i . kt[:, jj]) * scale for jj < n
+template <typename T>
+__device__ void logits(const Geom& g, const T* s_q, const T* s_kt, int n, int ld,
+                       float scale, float* s_p) {
+  const int ngroups = (g.nq + kRows - 1) / kRows;
+  for (int item = threadIdx.x; item < ngroups * n; item += kThreads) {
+    const int grp = item / n, j = item - grp * n;
+    const int i0 = grp * kRows;
+    float acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+    for (int d = 0; d < g.hd; ++d) {
+      const float kv = to_f32(s_kt[d * ld + j]);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int i = min(i0 + r, g.nq - 1);  // clamped rows are discarded
+        acc[r] = fmaf(to_f32(s_q[i * g.hd + d]), kv, acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+      if (i0 + r < g.nq) s_p[(i0 + r) * ld + j] = acc[r] * scale;
+  }
+}
+
+// acc_r = sum_{jj < n} s_p[i * ld + jj] * s_v[jj * hd + d] for 8 rows
+template <typename T>
+__device__ __forceinline__ void pv_rows(const Geom& g, const float* s_p, const T* s_v,
+                                        int n, int ld, int i0, int d, float (&acc)[kRows]) {
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
+  for (int j = 0; j < n; ++j) {
+    const float vv = to_f32(s_v[j * g.hd + d]);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int i = min(i0 + r, g.nq - 1);
+      acc[r] = fmaf(s_p[i * ld + j], vv, acc[r]);
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_out(const Geom& g, const T* res, T* out, int i, int d,
+                                          float acc) {
+  const int64_t off = query_off(g, i, d);
+  T o = from_f32<T>(acc);
+  if (res != nullptr) o = from_f32<T>(to_f32(res[off]) + to_f32(o));
+  out[off] = o;
+}
+
+template <typename T>
+__device__ void stage_queries(const Geom& g, const T* q, T* s_q) {
+  for (int idx = threadIdx.x; idx < g.nq * g.hd; idx += kThreads) {
+    const int i = idx / g.hd, d = idx - (idx / g.hd) * g.hd;
+    s_q[idx] = q[query_off(g, i, d)];
+  }
 }
 
 template <typename T>
@@ -75,118 +179,131 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_kernel(
     const float* __restrict__ rel_h, const float* __restrict__ rel_w,
     const T* __restrict__ res, T* __restrict__ out,
     int H, int W, int C, int bs, int halo, int heads, float scale) {
-  const int hd = C / heads;
-  const int half = hd / 2;
-  const int window = bs + 2 * halo;
-  const int nq = bs * bs;
-  const int nk = window * window;
-  const int wb = W / bs;
-  const int hb = H / bs;
-  const int head = blockIdx.y;
-  int t = blockIdx.x;  // (b * hb + by) * wb + bx
-  const int bx = t % wb;
-  t /= wb;
-  const int by = t % hb;
-  const int b = t / hb;
-  const int c0 = head * hd;
+  const Geom g = geom(H, W, C, bs, halo, heads);
   const int tid = threadIdx.x;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  float* s_p = reinterpret_cast<float*>(smem);  // [nq][nk] logits, then probs
-  T* s_q = reinterpret_cast<T*>(s_p + (size_t)nq * nk);  // [nq][hd]
-  T* s_kt = s_q + (size_t)nq * hd;                        // [hd][nk]
-  T* s_v = s_kt + (size_t)hd * nk;                        // [nk][hd]
+  float* s_p = reinterpret_cast<float*>(smem);                // [nq][nk] logits, probs
+  T* s_q = reinterpret_cast<T*>(s_p + (size_t)g.nq * g.nk);  // [nq][hd]
+  T* s_kt = s_q + (size_t)g.nq * g.hd;                        // [hd][nk]
+  T* s_v = s_kt + (size_t)g.hd * g.nk;                        // [nk][hd]
 
-  const int64_t plane = (int64_t)H * W;
-  // ---- stage q, k + rel bias (transposed), v --------------------------
-  for (int idx = tid; idx < nq * hd; idx += kThreads) {
-    const int i = idx / hd, d = idx - (idx / hd) * hd;
-    const int y = by * bs + i / bs, x = bx * bs + i % bs;
-    s_q[idx] = q[((b * plane) + (int64_t)y * W + x) * C + c0 + d];
-  }
-  for (int idx = tid; idx < nk * hd; idx += kThreads) {
-    const int j = idx / hd, d = idx - (idx / hd) * hd;
-    const int wy = j / window, wx = j - (j / window) * window;
-    const int y = by * bs - halo + wy, x = bx * bs - halo + wx;
-    const bool inside = y >= 0 && y < H && x >= 0 && x < W;
-    float kval = 0.f;
-    T vval = from_f32<T>(0.f);
-    if (inside) {
-      const int64_t off = ((b * plane) + (int64_t)y * W + x) * C + c0 + d;
-      kval = to_f32(k[off]);
-      vval = v[off];
-    }
-    const float bias = d < half ? rel_h[wy * half + d] : rel_w[wx * half + d - half];
-    s_kt[d * nk + j] = from_f32<T>(kval + bias);
-    s_v[j * hd + d] = vval;
-  }
+  stage_queries(g, q, s_q);
+  stage_keys(g, k, v, rel_h, rel_w, 0, g.nk, g.nk, s_kt, s_v);
   __syncthreads();
-
-  // ---- logits = q . k_eff * scale --------------------------------------
-  const int ngroups = (nq + kRows - 1) / kRows;
-  for (int item = tid; item < ngroups * nk; item += kThreads) {
-    const int g = item / nk, j = item - (item / nk) * nk;
-    const int i0 = g * kRows;
-    float acc[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int d = 0; d < hd; ++d) {
-      const float kv = to_f32(s_kt[d * nk + j]);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int i = min(i0 + r, nq - 1);  // clamped rows are discarded
-        acc[r] = fmaf(to_f32(s_q[i * hd + d]), kv, acc[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (i0 + r < nq) s_p[(i0 + r) * nk + j] = acc[r] * scale;
-  }
+  logits(g, s_q, s_kt, g.nk, g.nk, scale, s_p);
   __syncthreads();
 
   // ---- softmax per query row (one warp per row), probs rounded to T ----
   const int warp = tid / 32, lane = tid % 32;
-  for (int i = warp; i < nq; i += kThreads / 32) {
-    float* row = s_p + (size_t)i * nk;
+  for (int i = warp; i < g.nq; i += kThreads / 32) {
+    float* row = s_p + (size_t)i * g.nk;
     float m = -INFINITY;
-    for (int j = lane; j < nk; j += 32) m = fmaxf(m, row[j]);
+    for (int j = lane; j < g.nk; j += 32) m = fmaxf(m, row[j]);
     m = warp_max(m);
     float s = 0.f;
-    for (int j = lane; j < nk; j += 32) {
+    for (int j = lane; j < g.nk; j += 32) {
       const float e = expf(row[j] - m);
       row[j] = e;
       s += e;
     }
     s = warp_sum(s);
-    for (int j = lane; j < nk; j += 32) row[j] = to_f32(from_f32<T>(row[j] / s));
+    for (int j = lane; j < g.nk; j += 32) row[j] = round_to<T>(row[j] / s);
   }
   __syncthreads();
 
   // ---- out = p . v (+ residual) ----------------------------------------
-  for (int item = tid; item < ngroups * hd; item += kThreads) {
-    const int g = item / hd, d = item - (item / hd) * hd;
-    const int i0 = g * kRows;
+  const int ngroups = (g.nq + kRows - 1) / kRows;
+  for (int item = tid; item < ngroups * g.hd; item += kThreads) {
+    const int grp = item / g.hd, d = item - grp * g.hd;
+    const int i0 = grp * kRows;
     float acc[kRows];
+    pv_rows(g, s_p, s_v, g.nk, g.nk, i0, d, acc);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int j = 0; j < nk; ++j) {
-      const float vv = to_f32(s_v[j * hd + d]);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int i = min(i0 + r, nq - 1);
-        acc[r] = fmaf(s_p[i * nk + j], vv, acc[r]);
+    for (int r = 0; r < kRows; ++r)
+      if (i0 + r < g.nq) store_out(g, res, out, i0 + r, d, acc[r]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) attention_fwd_chunked_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ rel_h, const float* __restrict__ rel_w,
+    const T* __restrict__ res, T* __restrict__ out,
+    int H, int W, int C, int bs, int halo, int heads, float scale, int kc) {
+  const Geom g = geom(H, W, C, bs, halo, heads);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_p = reinterpret_cast<float*>(smem);      // [nq][kc] logits, probs
+  float* s_acc = s_p + (size_t)g.nq * kc;            // [nq][hd] f32 p . v
+  float* s_m = s_acc + (size_t)g.nq * g.hd;          // [nq] row max
+  float* s_l = s_m + g.nq;                           // [nq] row sum
+  T* s_q = reinterpret_cast<T*>(s_l + g.nq);         // [nq][hd]
+  T* s_kt = s_q + (size_t)g.nq * g.hd;               // [hd][kc]
+  T* s_v = s_kt + (size_t)g.hd * kc;                 // [kc][hd]
+
+  stage_queries(g, q, s_q);
+  for (int idx = tid; idx < g.nq * g.hd; idx += kThreads) s_acc[idx] = 0.f;
+  for (int i = tid; i < g.nq; i += kThreads) {
+    s_m[i] = -INFINITY;
+    s_l[i] = 0.f;
+  }
+
+  // ---- pass 1: row max and sum over the key chunks (online) ------------
+  for (int j0 = 0; j0 < g.nk; j0 += kc) {
+    const int n = min(kc, g.nk - j0);
+    __syncthreads();  // the previous chunk's readers are done
+    stage_keys(g, k, v, rel_h, rel_w, j0, n, kc, s_kt, (T*)nullptr);
+    __syncthreads();
+    logits(g, s_q, s_kt, n, kc, scale, s_p);
+    __syncthreads();
+    for (int i = warp; i < g.nq; i += kThreads / 32) {
+      const float* row = s_p + (size_t)i * kc;
+      float cm = -INFINITY;
+      for (int j = lane; j < n; j += 32) cm = fmaxf(cm, row[j]);
+      cm = warp_max(cm);
+      const float m_new = fmaxf(s_m[i], cm);
+      float s = 0.f;
+      for (int j = lane; j < n; j += 32) s += expf(row[j] - m_new);
+      s = warp_sum(s);
+      if (lane == 0) {
+        s_l[i] = s_l[i] * expf(s_m[i] - m_new) + s;
+        s_m[i] = m_new;
       }
     }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = i0 + r;
-      if (i >= nq) break;
-      const int y = by * bs + i / bs, x = bx * bs + i % bs;
-      const int64_t off = ((b * plane) + (int64_t)y * W + x) * C + c0 + d;
-      T o = from_f32<T>(acc[r]);
-      if (res != nullptr) o = from_f32<T>(to_f32(res[off]) + to_f32(o));
-      out[off] = o;
+  }
+
+  // ---- pass 2: probabilities rounded to T, acc += p . v -----------------
+  const int ngroups = (g.nq + kRows - 1) / kRows;
+  for (int j0 = 0; j0 < g.nk; j0 += kc) {
+    const int n = min(kc, g.nk - j0);
+    __syncthreads();
+    stage_keys(g, k, v, rel_h, rel_w, j0, n, kc, s_kt, s_v);
+    __syncthreads();
+    logits(g, s_q, s_kt, n, kc, scale, s_p);
+    __syncthreads();
+    for (int idx = tid; idx < g.nq * n; idx += kThreads) {
+      const int i = idx / n, j = idx - i * n;
+      float* p = s_p + (size_t)i * kc + j;
+      *p = round_to<T>(expf(*p - s_m[i]) / s_l[i]);
     }
+    __syncthreads();
+    for (int item = tid; item < ngroups * g.hd; item += kThreads) {
+      const int grp = item / g.hd, d = item - grp * g.hd;
+      const int i0 = grp * kRows;
+      float acc[kRows];
+      pv_rows(g, s_p, s_v, n, kc, i0, d, acc);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+        if (i0 + r < g.nq) s_acc[(i0 + r) * g.hd + d] += acc[r];
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < g.nq * g.hd; idx += kThreads) {
+    const int i = idx / g.hd, d = idx - i * g.hd;
+    store_out(g, res, out, i, d, s_acc[idx]);
   }
 }
 
@@ -194,15 +311,34 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* rel_h,
            const float* rel_w, const void* res, void* out, int B, int H, int W,
            int C, int bs, int halo, int heads, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(bs, halo, C / heads, sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  const int hd = C / heads;
+  const int nq = bs * bs, nk = (bs + 2 * halo) * (bs + 2 * halo);
   const dim3 grid((unsigned)(B * (H / bs) * (W / bs)), (unsigned)heads);
-  attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      rel_h, rel_w, static_cast<const T*>(res), static_cast<T*>(out), H, W, C, bs,
-      halo, heads, scale);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* rt = static_cast<const T*>(res);
+  T* ot = static_cast<T*>(out);
+  size_t smem = smem_bytes(bs, halo, hd, sizeof(T));
+  cudaError_t err;
+  if (smem <= kMaxSmem) {
+    err = cudaFuncSetAttribute(attention_fwd_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    attention_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+        qt, kt, vt, rel_h, rel_w, rt, ot, H, W, C, bs, halo, heads, scale);
+    return (int)cudaGetLastError();
+  }
+  const size_t fixed = chunk_fixed_bytes(nq, hd, sizeof(T));
+  const size_t per_key = chunk_key_bytes(nq, hd, sizeof(T));
+  if (fixed + per_key > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int kc = (int)std::min<size_t>((size_t)nk, (kMaxSmem - fixed) / per_key);
+  smem = fixed + per_key * kc;
+  err = cudaFuncSetAttribute(attention_fwd_chunked_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_fwd_chunked_kernel<T><<<grid, kThreads, smem, stream>>>(
+      qt, kt, vt, rel_h, rel_w, rt, ot, H, W, C, bs, halo, heads, scale, kc);
   return (int)cudaGetLastError();
 }
 

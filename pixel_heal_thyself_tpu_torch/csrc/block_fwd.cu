@@ -18,6 +18,11 @@
 // Epilogue, in the order of block_mega.py:473-475 and _conv3x3_stripe
 //   (:206-233): round the f32 sum to bf16 once; add the bf16 bias (rounded);
 //   ReLU; then for K3 optionally out = round(residual + out).
+// Training extras: K2 takes an optional bf16 `pre_res` added to the f32
+//   sum before its single rounding (the backward's dx = round(dx1 + dv.Wv^T
+//   + dz.Wcat[:C]^T), block_mega.py:931-935); K3 optionally also writes
+//   f2 = relu(...) before the residual, whose > 0 mask is the backward's
+//   conv2 ReLU mask (the TPU kernel's `m2`, block_mega.py:548-556).
 //
 // What bounds it on the H100: tensor-core throughput. At prod (M = 8 x
 // 128 x 128 pixels, C = 256) a 1x1 map is 17 GFLOP against 64 MB of
@@ -28,48 +33,34 @@
 // the widths allow and element-wise with bounds checks otherwise. There
 // is no cp.async pipelining, TMA or wgmma yet: those are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using namespace pht;
 
 constexpr int BM = 128, BN = 128, BK = 32;
 constexpr int kThreads = 256;  // 8 warps: 4 along M x 2 along N
 constexpr int A_LD = BK + 8;   // smem row pitches (bf16), multiples of 8
 constexpr int B_LD = BN + 8;
 
-enum PadMode { kZeros = 0, kReflect = 1, kReplicate = 2 };
-
 struct Params {
   const bf16* a1; const bf16* w1; int k1;  // operand 1 (conv: the image)
   const bf16* a2; const bf16* w2; int k2;  // operand 2 (K2 only, may be null)
   const bf16* bias;                        // [N] or null
-  const bf16* res;                         // [M, N] or null
+  const bf16* pre_res;                     // [M, N] or null, added before rounding
+  const bf16* res;                         // [M, N] or null, added after ReLU
   bf16* out;                               // [M, N]
+  bf16* out2;                              // [M, N] or null: out before `res`
   int relu;
   int M, N;
   int H, W, C, pad_mode;                   // conv geometry (K3)
 };
 
 __device__ __forceinline__ float bf(bf16 x) { return __bfloat162float(x); }
-
-__device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-// Map a tap coordinate into the frame; false for a zero-padding tap.
-__device__ __forceinline__ bool pad_index(int& p, int n, int mode) {
-  if (p >= 0 && p < n) return true;
-  if (mode == kZeros) return false;
-  if (mode == kReflect) p = p < 0 ? -p : 2 * n - 2 - p;
-  else p = p < 0 ? 0 : n - 1;
-  return true;
-}
 
 // Address of im2col element (pixel m, tap-channel kk) of the conv input,
 // or null for a zero-padding tap. m < M and kk < 9 C are the caller's.
@@ -158,11 +149,16 @@ __device__ void accumulate(Acc (&acc)[2][4], const Params& p, const bf16* a,
   }
 }
 
-__device__ __forceinline__ bf16 epilogue(const Params& p, float acc, int m, int n) {
+// The epilogue of output (m, n): returns the output, and the value before
+// the residual in `pre` (K3's f2).
+__device__ __forceinline__ bf16 epilogue(const Params& p, float acc, int m, int n, bf16& pre) {
+  const int64_t off = (int64_t)m * p.N + n;
+  if (p.pre_res) acc += bf(p.pre_res[off]);
   bf16 y = __float2bfloat16(acc);
   if (p.bias) y = __float2bfloat16(bf(y) + bf(p.bias[n]));
   if (p.relu) y = __float2bfloat16(fmaxf(bf(y), 0.f));
-  if (p.res) y = __float2bfloat16(bf(p.res[(int64_t)m * p.N + n]) + bf(y));
+  pre = y;
+  if (p.res) y = __float2bfloat16(bf(p.res[off]) + bf(y));
   return y;
 }
 
@@ -189,7 +185,8 @@ __global__ void __launch_bounds__(kThreads) gemm_bf16_kernel(Params p) {
   // 8 consecutive columns of one row
   float* cs = Cs[warp];
   const int r = lane / 2, cb = (lane % 2) * 8;
-  const bool vec_out = p.N % 8 == 0 && aligned16(p.out) && (!p.res || aligned16(p.res));
+  const bool vec_out = p.N % 8 == 0 && aligned16(p.out) && (!p.res || aligned16(p.res)) &&
+                       (!p.out2 || aligned16(p.out2));
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -199,15 +196,20 @@ __global__ void __launch_bounds__(kThreads) gemm_bf16_kernel(Params p) {
       const int m = m0 + wm * 32 + i * 16 + r;
       const int n = n0 + wn * 64 + j * 16 + cb;
       if (m < p.M) {
+        const int64_t off = (int64_t)m * p.N + n;
         if (vec_out && n + 8 <= p.N) {
           __align__(16) bf16 y[8];
+          __align__(16) bf16 pre[8];
 #pragma unroll
-          for (int e = 0; e < 8; ++e) y[e] = epilogue(p, cs[r * 16 + cb + e], m, n + e);
-          *reinterpret_cast<uint4*>(p.out + (int64_t)m * p.N + n) =
-              *reinterpret_cast<const uint4*>(y);
+          for (int e = 0; e < 8; ++e) y[e] = epilogue(p, cs[r * 16 + cb + e], m, n + e, pre[e]);
+          *reinterpret_cast<uint4*>(p.out + off) = *reinterpret_cast<const uint4*>(y);
+          if (p.out2) *reinterpret_cast<uint4*>(p.out2 + off) = *reinterpret_cast<const uint4*>(pre);
         } else {
-          for (int e = 0; e < 8 && n + e < p.N; ++e)
-            p.out[(int64_t)m * p.N + n + e] = epilogue(p, cs[r * 16 + cb + e], m, n + e);
+          for (int e = 0; e < 8 && n + e < p.N; ++e) {
+            bf16 pre;
+            p.out[off + e] = epilogue(p, cs[r * 16 + cb + e], m, n + e, pre);
+            if (p.out2) p.out2[off + e] = pre;
+          }
         }
       }
       __syncwarp();
@@ -227,8 +229,8 @@ int launch(const Params& p, cudaStream_t stream) {
 extern "C" {
 
 int pht_pointwise_gemm(const void* a1, const void* w1, int k1, const void* a2,
-                       const void* w2, int k2, const void* bias, int relu, void* out,
-                       int M, int N, void* stream) {
+                       const void* w2, int k2, const void* bias, int relu,
+                       const void* pre_res, void* out, int M, int N, void* stream) {
   Params p = {};
   p.a1 = static_cast<const bf16*>(a1);
   p.w1 = static_cast<const bf16*>(w1);
@@ -237,7 +239,7 @@ int pht_pointwise_gemm(const void* a1, const void* w1, int k1, const void* a2,
   p.w2 = static_cast<const bf16*>(w2);
   p.k2 = k2;
   p.bias = static_cast<const bf16*>(bias);
-  p.res = nullptr;
+  p.pre_res = static_cast<const bf16*>(pre_res);
   p.out = static_cast<bf16*>(out);
   p.relu = relu;
   p.M = M;
@@ -246,8 +248,8 @@ int pht_pointwise_gemm(const void* a1, const void* w1, int k1, const void* a2,
 }
 
 int pht_conv3x3(const void* x, const void* w, const void* bias, int relu,
-                const void* res, void* out, int B, int H, int W, int C, int N,
-                int pad_mode, void* stream) {
+                const void* res, void* out, void* out2, int B, int H, int W, int C,
+                int N, int pad_mode, void* stream) {
   Params p = {};
   p.a1 = static_cast<const bf16*>(x);
   p.w1 = static_cast<const bf16*>(w);
@@ -255,6 +257,7 @@ int pht_conv3x3(const void* x, const void* w, const void* bias, int relu,
   p.bias = static_cast<const bf16*>(bias);
   p.res = static_cast<const bf16*>(res);
   p.out = static_cast<bf16*>(out);
+  p.out2 = static_cast<bf16*>(out2);
   p.relu = relu;
   p.M = B * H * W;
   p.N = N;

@@ -1,4 +1,4 @@
-"""AFGSA windowed-attention denoiser, forward only (PyTorch, NHWC).
+"""AFGSA windowed-attention denoiser (PyTorch, NHWC).
 
 Port of `pixel_heal_thyself_tpu/models/afgsa.py`: multi-scale 1/3/5
 encoders for the noisy and aux branches, N TransformerBlocks (attention
@@ -17,24 +17,37 @@ package:
   versions directly on any device — the reference the kernels are held
   against on the card.
 
-Not ported yet: FiLM conditioning (ROADMAP.md slice 2) and the `fold_qkv`
-variant (slice 5) raise NotImplementedError. `num_gcp` (gradient checkpointing)
-only names parameters in the flax tree and has no effect on a forward;
-it is accepted and ignored.
+In grad mode the kernel routes run through the differentiable ops whose
+backward is a kernel too: `TransformerBlockFn` (K6/K5/K4/K2) on the block
+route, `BlockHaloAttentionFn` (K1 forward, K4 backward) on the literal
+route. The block route with `use_kernels=False` runs the same Function on
+the plain versions, so the two routes share one algorithm.
+
+`num_gcp` checkpoints the last `num_gcp` blocks with
+`torch.utils.checkpoint` (flax `nn.remat` in the JAX package): their
+activations are recomputed in the backward instead of kept.
+
+Not ported yet: FiLM conditioning (ROADMAP.md slice 3) and the `fold_qkv`
+variant (slice 5) raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pixel_heal_thyself_tpu.ops.curves import CurveOrder
 from pixel_heal_thyself_tpu_torch.models.layers import Conv, ConvBlock, apply_act, conv_nhwc
 from pixel_heal_thyself_tpu_torch.ops.attention import (
+    BlockHaloAttentionFn,
     block_halo_attention,
     block_halo_attention_torch,
 )
 from pixel_heal_thyself_tpu_torch.ops.block_cuda import (
+    BlockConfig,
+    TransformerBlockFn,
+    kernel_layout,
     supports_shapes,
     transformer_block_fwd,
     transformer_block_torch,
@@ -115,7 +128,7 @@ class AFGSA(nn.Module):
     ) -> None:
         super().__init__()
         if use_film:
-            raise _not_ported("FiLM conditioning (use_film)", 2)
+            raise _not_ported("FiLM conditioning (use_film)", 3)
         if fold_qkv:
             raise _not_ported("the fold_qkv attention variant", 5)
         if ch % num_heads:
@@ -141,15 +154,19 @@ class AFGSA(nn.Module):
     def forward(self, noisy: torch.Tensor, aux: torch.Tensor,
                 residual: torch.Tensor | None = None) -> torch.Tensor:
         n_aux = self.fuse(torch.cat([noisy, aux], dim=-1))
-        q = conv_nhwc(n_aux, self.q_weight, self.dtype)
-        k = conv_nhwc(n_aux, self.k_weight, self.dtype)
-        v = conv_nhwc(noisy, self.v_weight, self.dtype)
+        q = conv_nhwc(n_aux, self.q_weight, self.dtype).contiguous()
+        k = conv_nhwc(n_aux, self.k_weight, self.dtype).contiguous()
+        v = conv_nhwc(noisy, self.v_weight, self.dtype).contiguous()
+        residual = None if residual is None else residual.contiguous()
+        if self.use_kernels and torch.is_grad_enabled():
+            return BlockHaloAttentionFn.apply(
+                q, k, v, self.rel_h, self.rel_w, residual,
+                self.block_size, self.halo_size, self.num_heads,
+            )
         attn = block_halo_attention if self.use_kernels else block_halo_attention_torch
         return attn(
-            q.contiguous(), k.contiguous(), v.contiguous(), self.rel_h, self.rel_w,
-            block_size=self.block_size, halo_size=self.halo_size,
-            num_heads=self.num_heads,
-            residual=None if residual is None else residual.contiguous(),
+            q, k, v, self.rel_h, self.rel_w, block_size=self.block_size,
+            halo_size=self.halo_size, num_heads=self.num_heads, residual=residual,
         )
 
 
@@ -178,33 +195,32 @@ class TransformerBlock(nn.Module):
         self.ffn1 = ConvBlock(ch, ch, 3, **conv)
         self.ffn2 = ConvBlock(ch, ch, 3, **conv)
 
+    def block_params(self) -> tuple:
+        """The block's parameters in `ops.block_cuda.PARAM_NAMES` order."""
+        att = self.attention
+        return (
+            att.fuse.conv.weight, att.fuse.conv.bias, att.q_weight, att.k_weight,
+            att.v_weight, att.rel_h, att.rel_w, self.ffn1.conv.weight,
+            self.ffn1.conv.bias, self.ffn2.conv.weight, self.ffn2.conv.bias,
+        )
+
     def kernel_weights(self) -> dict:
         """The block's weights in the layout `ops/block_cuda.py` takes."""
-        dt = self.dtype
-        att = self.attention
-
-        def mat(w):  # OIHW 1×1 → [in, out]
-            return w[:, :, 0, 0].t().to(dt).contiguous()
-
-        def taps(w):  # OIHW 3×3 → HWIO → [9·in, out]
-            return w.permute(2, 3, 1, 0).reshape(-1, w.shape[0]).to(dt).contiguous()
-
-        return dict(
-            wcat=mat(att.fuse.conv.weight), bcat=att.fuse.conv.bias.to(dt),
-            wq=mat(att.q_weight), wk=mat(att.k_weight), wv=mat(att.v_weight),
-            rel_h=att.rel_h.float(), rel_w=att.rel_w.float(),
-            w1=taps(self.ffn1.conv.weight), b1=self.ffn1.conv.bias.to(dt),
-            w2=taps(self.ffn2.conv.weight), b2=self.ffn2.conv.bias.to(dt),
-        )
+        return kernel_layout(self.dtype, *self.block_params())
 
     def forward(self, noisy: torch.Tensor, aux: torch.Tensor, *,
                 use_block_kernel: bool = False):
         att = self.attention
         if use_block_kernel:
+            x = noisy.to(self.dtype).contiguous()
+            a = aux.to(self.dtype).contiguous()
+            cfg = BlockConfig(att.block_size, att.halo_size, att.num_heads,
+                              self.padding_mode, self.use_kernels)
+            if torch.is_grad_enabled():
+                return TransformerBlockFn.apply(cfg, x, a, *self.block_params()), aux
             block = transformer_block_fwd if self.use_kernels else transformer_block_torch
             out = block(
-                noisy.to(self.dtype).contiguous(), aux.to(self.dtype).contiguous(),
-                **self.kernel_weights(), block_size=att.block_size,
+                x, a, **self.kernel_weights(), block_size=att.block_size,
                 halo_size=att.halo_size, num_heads=att.num_heads,
                 padding_mode=self.padding_mode,
             )
@@ -215,7 +231,8 @@ class TransformerBlock(nn.Module):
 
 class AFGSANet(nn.Module):
     """The AFGSA generator: multi-scale encoders → N TransformerBlocks →
-    decoder with a global residual. Forward only."""
+    decoder with a global residual; the last `num_gcp` blocks are
+    gradient-checkpointed in grad mode."""
 
     def __init__(
         self, input_channels=3, aux_input_channels=7, base_ch=256, num_sa=5,
@@ -228,8 +245,9 @@ class AFGSANet(nn.Module):
         if num_gcp > num_sa:
             raise ValueError(f"num_gcp={num_gcp} > num_sa={num_sa}")
         if use_film:
-            raise _not_ported("FiLM conditioning (use_film)", 2)
+            raise _not_ported("FiLM conditioning (use_film)", 3)
         self.base_ch = base_ch
+        self.num_gcp = num_gcp
         self.block_size, self.halo_size, self.num_heads = block_size, halo_size, num_heads
         self.use_block_kernel = use_block_kernel
         self.dtype = dtype
@@ -274,8 +292,13 @@ class AFGSANet(nn.Module):
         out = self.noisy_proj(self.noisy_enc(x))
         a = self.aux_proj2(self.aux_proj1(self.aux_enc(aux)))
         use_block = self.block_route(*out.shape[:3])
-        for blk in self.blocks:
-            out, a = blk(out, a, use_block_kernel=use_block)
+        first_gcp = len(self.blocks) - self.num_gcp
+        for i, blk in enumerate(self.blocks):
+            if i >= first_gcp and torch.is_grad_enabled():
+                out, a = checkpoint(blk, out, a, use_block_kernel=use_block,
+                                    use_reentrant=False)
+            else:
+                out, a = blk(out, a, use_block_kernel=use_block)
         for conv in self.decoder:
             out = conv(out)
         # global residual in fp32

@@ -19,16 +19,30 @@ rounding.) Query curve orderings are an exact no-op for attention, which
 treats query rows independently; the arguments are accepted and ignored,
 as the Pallas path does.
 
-`block_halo_attention` is the dispatching entry point: the CUDA kernel for
-a CUDA tensor, this plain version for a CPU tensor.
+`block_halo_attention_bwd_torch` is the plain backward with the rounding
+points of the TPU backward (`ops/attention_pallas.py:383` `_bwd_kernel`)
+and its CUDA port K4, except that each key's window gradients are summed
+in f32 and rounded once (the TPU kernel adds bf16-rounded window
+gradients in bf16).
+
+`block_halo_attention` / `block_halo_attention_bwd` are the dispatching
+entry points: the CUDA kernel for a CUDA tensor, the plain version for a
+CPU tensor. Neither is differentiable and both refuse inputs that require
+grad in grad mode; `BlockHaloAttentionFn` is the differentiable op whose
+forward and backward run them.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
-from pixel_heal_thyself_tpu_torch.ops.attention_cuda import block_halo_attention_cuda
+from pixel_heal_thyself_tpu_torch._build import dispatch
+from pixel_heal_thyself_tpu_torch.ops.attention_cuda import (
+    block_halo_attention_bwd_cuda,
+    block_halo_attention_cuda,
+)
 
 
 def extract_halo_windows(x: torch.Tensor, block_size: int, halo_size: int) -> torch.Tensor:
@@ -56,6 +70,17 @@ def image_from_blocks(x: torch.Tensor, block_size: int) -> torch.Tensor:
     b, hb, wb, _, c = x.shape
     x = x.reshape(b, hb, wb, block_size, block_size, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(b, hb * block_size, wb * block_size, c)
+
+
+def overlap_add_windows(wins: torch.Tensor, h: int, w: int, block_size: int,
+                        halo_size: int) -> torch.Tensor:
+    """Inverse gather of `extract_halo_windows`: [B, hb, wb, window, window,
+    C] → [B, H, W, C], summing the windows that overlap each pixel and
+    dropping values that fall outside the frame."""
+    b, hb, wb, window, _, c = wins.shape
+    cols = wins.permute(0, 5, 3, 4, 1, 2).reshape(b, c * window * window, hb * wb)
+    img = F.fold(cols, (h, w), window, stride=block_size, padding=halo_size)
+    return img.permute(0, 2, 3, 1)
 
 
 def rel_bias(rel_h: torch.Tensor, rel_w: torch.Tensor) -> torch.Tensor:
@@ -122,6 +147,72 @@ def block_halo_attention_torch(
     return out
 
 
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """[B, hb, wb, n, C] → f32 [B, hb, wb, heads, n, hd]."""
+    b, hb, wb, n, c = x.shape
+    return x.reshape(b, hb, wb, n, num_heads, c // num_heads).permute(0, 1, 2, 4, 3, 5).float()
+
+
+def _unheads(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of `_heads` (keeps the dtype)."""
+    b, hb, wb, heads, n, hd = x.shape
+    return x.permute(0, 1, 2, 4, 3, 5).reshape(b, hb, wb, n, heads * hd)
+
+
+def block_halo_attention_bwd_torch(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    rel_h: torch.Tensor,
+    rel_w: torch.Tensor,
+    do: torch.Tensor,
+    *,
+    block_size: int,
+    halo_size: int,
+    num_heads: int,
+) -> tuple[torch.Tensor, ...]:
+    """Plain backward of `block_halo_attention_torch` (not autograd).
+
+    Returns (dq, dk, dv) in q's dtype and (drel_h, drel_w) in f32:
+    probabilities recomputed in f32; dattn = do·vᵀ; dl = round(P·(dattn −
+    Σ dattn·P)); dq = round(dl·k_eff·scale); window gradients dk_w =
+    dlᵀ·q·scale and dv_w = round(P)ᵀ·do in f32, overlap-added in f32 and
+    rounded once. The bias gradient sums the f32 dk_w of every key, inside
+    the frame or not, over windows and heads."""
+    b, h, w, c = q.shape
+    bs = block_size
+    window = bs + 2 * halo_size
+    hd = c // num_heads
+    half = hd // 2
+    dtype = q.dtype
+    hb, wb = h // bs, w // bs
+
+    qh = _heads(blocks_from_image(q, bs), num_heads)
+    doh = _heads(blocks_from_image(do, bs), num_heads)
+    kw = extract_halo_windows(k, bs, halo_size).reshape(b, hb, wb, window, window, num_heads, hd)
+    kw = (kw.float() + rel_bias(rel_h, rel_w)[:, :, None, :]).to(dtype)
+    kh = _heads(kw.reshape(b, hb, wb, window * window, c), num_heads)
+    vh = _heads(extract_halo_windows(v, bs, halo_size).reshape(b, hb, wb, -1, c), num_heads)
+
+    scale = torch.tensor(hd, dtype=torch.float32) ** -0.5
+    attn = torch.softmax(torch.matmul(qh, kh.transpose(-1, -2)) * scale, dim=-1)
+    dattn = torch.matmul(doh, vh.transpose(-1, -2))
+    dl = (attn * (dattn - (dattn * attn).sum(-1, keepdim=True))).to(dtype).float()
+    dq = (torch.matmul(dl, kh) * scale).to(dtype)
+    dk_w = torch.matmul(dl.transpose(-1, -2), qh) * scale  # [B,hb,wb,heads,nk,hd]
+    dv_w = torch.matmul(attn.to(dtype).float().transpose(-1, -2), doh)
+
+    dbias = dk_w.sum(dim=(0, 1, 2, 3)).reshape(window, window, hd)
+
+    def image(win: torch.Tensor) -> torch.Tensor:
+        win = _unheads(win).reshape(b, hb, wb, window, window, c)
+        return overlap_add_windows(win, h, w, bs, halo_size).to(dtype)
+
+    dq = image_from_blocks(_unheads(dq), bs)
+    return (dq, image(dk_w), image(dv_w),
+            dbias[..., :half].sum(1), dbias[..., half:].sum(0))
+
+
 def block_halo_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -137,7 +228,7 @@ def block_halo_attention(
     residual: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Dispatching entry point: the CUDA kernel for CUDA tensors (launch or
-    raise), the plain version for CPU tensors."""
+    raise), the plain version for CPU tensors. Not differentiable."""
     _, h, w, _ = q.shape
     if h % block_size != 0 or w % block_size != 0:
         raise ValueError(
@@ -149,8 +240,42 @@ def block_halo_attention(
         block_size=block_size, halo_size=halo_size, num_heads=num_heads,
         residual=residual,
     )
-    if q.device.type == "cuda":
-        return block_halo_attention_cuda(q, k, v, rel_h, rel_w, **kw)
-    if q.device.type == "cpu":
-        return block_halo_attention_torch(q, k, v, rel_h, rel_w, **kw)
-    raise ValueError(f"block_halo_attention: unsupported device {q.device}")
+    return dispatch("block_halo_attention", q, block_halo_attention_cuda,
+                    block_halo_attention_torch, q, k, v, rel_h, rel_w, **kw)
+
+
+def block_halo_attention_bwd(q, k, v, rel_h, rel_w, do, *, block_size: int, halo_size: int,
+                             num_heads: int) -> tuple[torch.Tensor, ...]:
+    """Backward dispatcher: K4 for CUDA tensors (launch or raise), the plain
+    version for CPU tensors. Returns (dq, dk, dv, drel_h, drel_w)."""
+    return dispatch("block_halo_attention_bwd", q, block_halo_attention_bwd_cuda,
+                    block_halo_attention_bwd_torch, q, k, v, rel_h, rel_w, do,
+                    block_size=block_size, halo_size=halo_size, num_heads=num_heads)
+
+
+class BlockHaloAttentionFn(torch.autograd.Function):
+    """Differentiable block-halo attention (port of the TPU custom VJP
+    `_attention_core`, `ops/attention_pallas.py:654-682`).
+
+    `apply(q, k, v, rel_h, rel_w, residual, block_size, halo_size,
+    num_heads)`: the forward runs `block_halo_attention` (K1 on the card),
+    the backward `block_halo_attention_bwd` (K4); the residual's gradient
+    is the incoming gradient itself. First-order only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rel_h, rel_w, residual, block_size, halo_size, num_heads):
+        ctx.cfg = dict(block_size=block_size, halo_size=halo_size, num_heads=num_heads)
+        ctx.has_residual = residual is not None
+        ctx.save_for_backward(q, k, v, rel_h, rel_w)
+        return block_halo_attention(q, k, v, rel_h, rel_w, residual=residual, **ctx.cfg)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, rel_h, rel_w = ctx.saved_tensors
+        dq, dk, dv, drel_h, drel_w = block_halo_attention_bwd(
+            q, k, v, rel_h, rel_w, do.contiguous(), **ctx.cfg,
+        )
+        dres = do if ctx.has_residual else None
+        return (dq, dk, dv, drel_h.to(rel_h.dtype), drel_w.to(rel_w.dtype), dres,
+                None, None, None)

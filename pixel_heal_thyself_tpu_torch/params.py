@@ -1,8 +1,11 @@
-"""Weights bridge: the JAX package's flax AFGSANet params → the port's state_dict.
+"""Weights bridge: the JAX package's flax params → the port's state_dicts.
 
 `afgsa_state_from_flax(tree)` takes the flax param tree (nested dicts of
 numpy arrays, the `params` collection of `AFGSANet.init`) and returns a
-`state_dict` for `models.afgsa.AFGSANet`. Conv kernels are transposed from
+`state_dict` for `models.afgsa.AFGSANet`; `discriminator_state_from_flax`
+does the same for `models.discriminators.DiscriminatorVGG` (BatchNorm
+`scale`/`bias` as they are, Dense kernels `[in, out]` transposed to the
+torch Linear layout). Conv kernels are transposed from
 flax's HWIO to torch's OIHW (`transpose(3, 2, 0, 1)`); the block route
 re-lays them out for its kernels at call time (`TransformerBlock.
 kernel_weights`). rel_h/rel_w `[window, head_ch//2]` map as they are.
@@ -98,6 +101,34 @@ def afgsa_state_from_flax(tree: dict) -> dict[str, torch.Tensor]:
         raise KeyError(f"non-contiguous TransformerBlock names: {sorted(plain)} {sorted(remat)}")
     for n, node in enumerate(blocks):
         _block(state, f"blocks.{n}.", node)
+    return state
+
+
+_DENSE = {"Dense_0": "dense0", "Dense_1": "dense1"}
+_CONV_BLOCK_NAME = re.compile(r"^ConvBlock_(\d+)$")
+
+
+def discriminator_state_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """flax DiscriminatorVGG `params` tree → port `state_dict`."""
+    tree = tree.get("params", tree)
+    state: dict[str, torch.Tensor] = {}
+    for name, node in tree.items():
+        m = _CONV_BLOCK_NAME.match(name)
+        if m is not None:
+            prefix = f"blocks.{m.group(1)}"
+            for sub, val in node.items():
+                if sub == "Conv_0":
+                    _conv(state, prefix + ".conv", val)
+                elif sub == "BatchNorm2d_0":
+                    state[f"{prefix}.norm.scale"] = _tensor(val["scale"])
+                    state[f"{prefix}.norm.bias"] = _tensor(val["bias"])
+                else:
+                    raise KeyError(f"unexpected ConvBlock param {name}/{sub}")
+        elif name in _DENSE:
+            state[f"{_DENSE[name]}.weight"] = _tensor(np.asarray(node["kernel"]).T)
+            state[f"{_DENSE[name]}.bias"] = _tensor(node["bias"])
+        else:
+            raise KeyError(f"unexpected DiscriminatorVGG param {name}")
     return state
 
 

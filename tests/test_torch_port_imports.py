@@ -61,6 +61,19 @@ def test_port_modules_import_no_jax():
     assert _imported_frameworks(modules + ["chip_smoke"]) == []
 
 
+TRAINING = [
+    "pixel_heal_thyself_tpu_torch.training.train_step",
+    "pixel_heal_thyself_tpu_torch.losses",
+    "pixel_heal_thyself_tpu_torch.models.discriminators",
+    "pixel_heal_thyself_tpu_torch.ops.transforms",
+]
+
+
+def test_training_modules_import_no_jax():
+    assert set(TRAINING) <= set(_port_modules())
+    assert _imported_frameworks(TRAINING) == []
+
+
 @pytest.mark.parametrize("module", SHARED)
 def test_shared_host_modules_import_no_jax(module):
     assert _imported_frameworks([module]) == []
