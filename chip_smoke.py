@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Run from the repository root on a machine with one CUDA card and nvcc.
-It imports torch, numpy, scipy and the port (`pixel_heal_thyself_tpu_torch`
-plus the JAX package's jax-free host modules), never JAX, and fails loudly:
-any mismatch or exception exits non-zero. Phases:
+It imports torch, numpy, scipy and the port (`pixel_heal_thyself_tpu_torch`),
+never JAX or the JAX package, and fails loudly: any mismatch or exception
+exits non-zero. Phases:
 
 1. Device: the card's name and `nvidia-smi` name/power limit.
 2. Build: compile `pixel_heal_thyself_tpu_torch/csrc/*.cu` into
@@ -38,9 +38,23 @@ any mismatch or exception exits non-zero. Phases:
 6. A small fp32 literal-route step (2 blocks, 64² patches, batch 2): K1
    fp32 forward and K4 backward through `BlockHaloAttentionFn`, against
    the plain route.
+7. Mamba serving: the fused Mamba2 interior K7 against its plain version
+   at the prod serving shape (8 windows of 128² = 16,384 tokens, d_inner
+   1024, d_state 64, 16 heads, chunk 128) in bf16 and fp32, beside a
+   control that the bf16 bound must fail (the plain chain with xBC and y
+   rounded to bf16, which the TPU kernel never does); then three
+   synthetic 512² frames denoised by the prod-width MambaDenoiserNet
+   (seeded random weights, bf16, replicate padding) through the device
+   tiler. Checks the outputs, that every layer of every batch went through
+   K7 (launch counter), and frame 0 against the model's plain path.
 
-Before the last line it prints one JSON line of per-kernel results; the
-last line is `{"ok": true, "device": {...}}`.
+Every kernel row states its bound (the least time the card could take:
+the larger of the bytes its function must move over 3.35 TB/s and its
+operations over the peak rate of their type, `measure.bound` of the
+port) and, where one PyTorch call
+computes the same function, that call's time. Before the last line it
+prints one JSON line of per-kernel results; the last line is
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -49,11 +63,11 @@ import contextlib
 import json
 import math
 import subprocess
-import tempfile
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SHAPE = (8, 128, 128, 256)  # prod: 8 tiles of 128² at base_ch 256
 BS, HALO, HEADS = 8, 3, 4
@@ -117,6 +131,17 @@ STEP_GRAD_TOL = (2.5e-2, 5e-2)
 # 1.4e-6 and 1.6e-6, rms 2.4e-7, against a same-route floor of 1.5e-6
 # (H100 runs, PERF.md Findings). Losses 1e-4; gradients max 1e-3, rms 1e-4
 FP32_STEP_TOL = (1e-4, (1e-3, 1e-4))
+# K7 (the fused Mamba2 interior) against its plain version: both keep every
+# intermediate in f32 and round once, at the output. In fp32 only the
+# summation order differs. In bf16 an f32 value next to a rounding boundary
+# may round the other way (max: two bf16 ulps of the largest output, 8e-3);
+# such flips are rare, so the rms stays small: 3.9e-7 at the prod shape,
+# while the plain chain with xBC and y rounded to bf16 (which the TPU kernel
+# never does) reads about 1e-4 (H100 runs, PERF.md Findings). The rms bound
+# 1e-5 sits between, and phase 7 fails if that control passes it
+MAMBA_TOL = {"bf16": (8e-3, 1e-5), "fp32": (1e-4, 1e-5)}
+# phase 7: 8 windows of 128² = 16,384 tokens per Mamba2 layer call
+MAMBA = dict(batch=8, tokens=128 * 128)
 _SRC = "pixel_heal_thyself_tpu_torch/csrc/"
 _TPU = "pixel_heal_thyself_tpu/ops/"
 # kernel → (name, source, TPU kernel it replaces)
@@ -129,6 +154,7 @@ KERNELS = {
            _TPU + "attention_pallas.py:383"),
     "K5": ("conv3x3_dgrad (K5)", _SRC + "block_bwd.cu", _TPU + "block_mega.py:662"),
     "K6": ("weight_grad (K6)", _SRC + "block_bwd.cu", _TPU + "block_mega.py:662"),
+    "K7": ("fused_mamba_chain (K7)", _SRC + "ssd_fwd.cu", _TPU + "ssd_mega.py:256"),
 }
 KERNEL_NAMES = tuple(KERNELS)
 
@@ -208,10 +234,12 @@ def counters() -> dict:
         pointwise_gemm_cuda,
         weight_grad_cuda,
     )
+    from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import fused_mamba_chain_cuda
 
     return dict(zip(KERNEL_NAMES, (block_halo_attention_cuda, pointwise_gemm_cuda,
                                    conv3x3_cuda, block_halo_attention_bwd_cuda,
-                                   conv3x3_dgrad_cuda, weight_grad_cuda)))
+                                   conv3x3_dgrad_cuda, weight_grad_cuda,
+                                   fused_mamba_chain_cuda)))
 
 
 def reset_counts() -> None:
@@ -221,6 +249,41 @@ def reset_counts() -> None:
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in counters().items()}
+
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors, each counted once."""
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def compare(name, kernel, plain, tol, iters=10, plain_iters=3, grads=None, work=None,
+            library=None):
+    """A kernel against its plain version on the same inputs: deviation
+    (checked against `tol`, or the gradient bounds), CUDA-event times of
+    both, the bound from `work` = (bytes, flops, dtype) and the time of
+    `library`, one PyTorch call computing the same function."""
+    from pixel_heal_thyself_tpu_torch.measure import bound
+
+    got, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    if grads is None:
+        dev = deviation(got, ref)
+        check(name, dev, tol)
+    else:
+        dev = check_grads(name, got, ref, grads)
+    del got, ref
+    ms, plain_ms = cuda_ms(kernel, iters), cuda_ms(plain, plain_iters, warmup=1)
+    res = {**dev, "ms": ms, "plain_ms": plain_ms, "library_ms": None}
+    if work is not None:
+        res.update(bound(*work))
+    if library is not None:
+        res["library_ms"] = cuda_ms(library, iters)
+    log(f"[kernels] {name}: max_abs_err {dev['max_abs_err']:.6g} "
+        f"max_rel {dev['max_rel']:.6g} rms_rel {dev['rms_rel']:.6g} | "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+        + (f", bound {res['bound_ms']:.4f} ms ({res['bound_by']})" if work else "")
+        + (f", library {res['library_ms']:.4f} ms" if library else ""))
+    return res
 
 
 def phase_kernels(device) -> dict:
@@ -248,6 +311,7 @@ def phase_kernels(device) -> dict:
         weight_grad_cuda,
         weight_grad_torch,
     )
+    from pixel_heal_thyself_tpu_torch.ops.padding import pad2d
 
     g = torch.Generator(device=device).manual_seed(1234)
     bf = torch.bfloat16
@@ -268,27 +332,24 @@ def phase_kernels(device) -> dict:
         w2=rand((9 * c, c), (9 * c) ** -0.5), b2=rand((c,), 0.1),
     )
     att = dict(block_size=BS, halo_size=HALO, num_heads=HEADS)
-
-    def compare(name, kernel, plain, tol, iters=10, plain_iters=3, grads=None):
-        got, ref = kernel(), plain()
-        torch.cuda.synchronize()
-        if grads is None:
-            dev = deviation(got, ref)
-            check(name, dev, tol)
-        else:
-            dev = check_grads(name, got, ref, grads)
-        ms, plain_ms = cuda_ms(kernel, iters), cuda_ms(plain, plain_iters, warmup=1)
-        log(f"[kernels] {name}: max_abs_err {dev['max_abs_err']:.6g} "
-            f"max_rel {dev['max_rel']:.6g} rms_rel {dev['rms_rel']:.6g} | "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        return {**dev, "ms": ms, "plain_ms": plain_ms}
+    pixels = b * h * w
+    conv_flops = 2 * pixels * 9 * c * c  # one 3×3 conv, its dgrad or wgrad
+    attn_flops = 2 * 2 * pixels * window**2 * c  # q·k and p·v over every window
+    # the library yardsticks (never called by the port): NCHW views of the
+    # NHWC tensors (channels-last memory) for cuDNN
+    nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
+    oihw = lambda wt: wt.reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous(  # noqa: E731
+        memory_format=torch.channels_last)
+    xa = torch.cat([x, a], dim=-1).reshape(pixels, 2 * c)
+    xp = pad2d(x, 1, "replicate")
+    w1k, w2k = oihw(wts["w1"]), oihw(wts["w2"])
 
     res = {}
     res["K1"] = compare(
         "K1 attention bf16",
         lambda: block_halo_attention_cuda(q, k, v, wts["rel_h"], wts["rel_w"], **att),
         lambda: block_halo_attention_torch(q, k, v, wts["rel_h"], wts["rel_w"], **att),
-        TOL["bf16"],
+        TOL["bf16"], work=(nbytes(q, k, v, wts["rel_h"], wts["rel_w"], q), attn_flops, bf),
     )
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     compare(
@@ -313,11 +374,15 @@ def phase_kernels(device) -> dict:
     res["K2"] = compare(
         "K2 pointwise GEMM (n_aux: [x;a]·Wcat + b, relu)",
         lambda: pointwise_gemm_cuda(*nx), lambda: pointwise_gemm_torch(*nx), TOL["bf16"],
+        work=(nbytes(x, a, wts["wcat"], wts["bcat"], x), 2 * pixels * 2 * c * c, bf),
+        library=lambda: torch.addmm(wts["bcat"], xa, wts["wcat"]),
     )
     cv = (x, wts["w1"], wts["b1"], "replicate", True, a)
     res["K3"] = compare(
         "K3 conv3x3 (replicate, relu, residual)",
         lambda: conv3x3_cuda(*cv), lambda: conv3x3_torch(*cv), TOL["bf16"],
+        work=(nbytes(x, wts["w1"], wts["b1"], a, x), conv_flops, bf),
+        library=lambda: F.conv2d(nchw(xp), w1k, wts["b1"]),
     )
     for mode in MODES:
         blk = dict(att, padding_mode=mode)
@@ -334,6 +399,8 @@ def phase_kernels(device) -> dict:
         lambda: block_halo_attention_bwd_cuda(q, k, v, *ab, do, **att),
         lambda: block_halo_attention_bwd_torch(q, k, v, *ab, do, **att),
         TOL["bf16"], iters=5, plain_iters=2,
+        # five window products: logits, dP, dV, dQ, dK
+        work=(nbytes(q, k, v, do, *ab) + nbytes(q, k, v, *ab), attn_flops * 5 // 2, bf),
     )
     compare(
         "K4 attention backward fp32",
@@ -345,12 +412,16 @@ def phase_kernels(device) -> dict:
     res["K5"] = compare(
         "K5 conv3x3 input gradient (replicate, ReLU mask, residual)",
         lambda: conv3x3_dgrad_cuda(*dg), lambda: conv3x3_dgrad_torch(*dg), TOL["bf16"],
+        work=(nbytes(do, a, wts["w2"], x, x), conv_flops, bf),
+        library=lambda: torch.nn.grad.conv2d_input(tuple(nchw(xp).shape), w2k, nchw(do)),
     )
     wg9 = dict(taps=9, padding_mode="replicate", colsum=True)
     res["K6"] = compare(
         "K6 weight gradient, 9 taps (replicate, ReLU mask, db)",
         lambda: weight_grad_cuda(x, do, a, **wg9), lambda: weight_grad_torch(x, do, a, **wg9),
         WGRAD_TOL,
+        work=(nbytes(x, do, a) + 4 * (9 * c * c + c), conv_flops, bf),
+        library=lambda: torch.nn.grad.conv2d_weight(nchw(xp), w1k.shape, nchw(do)),
     )
     compare(
         "K6 weight gradient, 1 tap ([x; a]ᵀ·dz, db)",
@@ -372,30 +443,22 @@ def phase_kernels(device) -> dict:
     return res
 
 
-def phase_serving(device) -> dict:
-    """Phase 4. Returns the launch counts of the serving run."""
-    from pixel_heal_thyself_tpu.data.preprocessing import preprocess_data
-    from pixel_heal_thyself_tpu.data.synthetic import generate_dataset
-    from pixel_heal_thyself_tpu_torch.inference import (
-        denoise_frame_fused,
-        find_frame_pairs,
-        make_fused_frame_apply,
-    )
-    from pixel_heal_thyself_tpu_torch.models.afgsa import (
-        AFGSANet,
-        afgsa_prod_kwargs,
-        count_params,
-    )
+SERVE = dict(size=512, frames=3, tile=64, margin=32, batch=8)
 
-    size, n_frames, tile, margin, batch = 512, 3, 64, 32, 8
-    kwargs = afgsa_prod_kwargs()
-    model = AFGSANet(**kwargs, device=device, generator=torch.Generator().manual_seed(0)).eval()
-    with tempfile.TemporaryDirectory() as tmp:
-        generate_dataset(tmp, scenes=[f"scene{i}_0" for i in range(n_frames)],
-                         height=size, width=size, seed=0)
-        frames = [preprocess_data(n, g) for _, n, g in find_frame_pairs(tmp, 32, 1024)]
-    log(f"[slice] AFGSANet prod width: {count_params(model)} params, "
-        f"{n_frames} synthetic {size}² frames, tile {tile} + margin {margin}, batch {batch}")
+
+def serve(device, frames, net, kwargs, layers: int, names: tuple, tag: str) -> dict:
+    """Denoise `frames` with `net(**kwargs)` (seeded random weights) through
+    the device tiler, the path `inference.run_inference` takes: checks the
+    outputs, that each kernel in `names` ran for every one of `layers`
+    layers of every batch (launch counters), and frame 0 against the
+    model's plain path on the card. Returns the launch counts."""
+    from pixel_heal_thyself_tpu_torch.inference import denoise_frame_fused, make_fused_frame_apply
+    from pixel_heal_thyself_tpu_torch.models.afgsa import count_params
+
+    size, tile, margin, batch = (SERVE[k] for k in ("size", "tile", "margin", "batch"))
+    model = net(**kwargs, device=device, generator=torch.Generator().manual_seed(0)).eval()
+    log(f"[{tag}] {net.__name__} prod width: {count_params(model)} params, "
+        f"{len(frames)} synthetic {size}² frames, tile {tile} + margin {margin}, batch {batch}")
 
     fused = make_fused_frame_apply(model, (size, size), tile=tile, margin=margin,
                                    batch_tiles=batch, device=device)
@@ -411,21 +474,21 @@ def phase_serving(device) -> dict:
     peak = torch.cuda.max_memory_allocated()
 
     n_batches = math.ceil((size // tile) ** 2 / batch)
-    need = kwargs["num_sa"] * n_batches * n_frames
+    need = layers * n_batches * len(frames)
     for out in outs:
         if out.shape != (size, size, 3) or not np.isfinite(out).all():
             raise AssertionError(f"bad frame output {out.shape}, finite={np.isfinite(out).all()}")
-    for name in ("K1", "K2", "K3"):
+    for name in names:
         if launches[name] < need:
-            raise AssertionError(
-                f"{name} launched {launches[name]} times < {need} (5 blocks × batches × frames)")
-    log(f"[slice] launches {launches} (need ≥ {need} each of K1, K2, K3)")
+            raise AssertionError(f"{name} launched {launches[name]} times < {need} "
+                                 f"({layers} layers × {n_batches} batches × {len(frames)} frames)")
+    log(f"[{tag}] launches {launches} (need ≥ {need} each of {', '.join(names)})")
     steady = float(np.mean(secs[1:]))
-    log(f"[slice] seconds per frame {[round(s, 4) for s in secs]} (first includes warm-up); "
+    log(f"[{tag}] seconds per frame {[round(s, 4) for s in secs]} (first includes warm-up); "
         f"steady {steady:.4f} s/frame = {1 / steady:.3f} frames/s; "
         f"peak memory {peak} B ({peak / 2**30:.3f} GiB)")
 
-    plain = AFGSANet(**dict(kwargs, use_kernels=False), device=device).eval()
+    plain = net(**dict(kwargs, use_kernels=False), device=device).eval()
     plain.load_state_dict(model.state_dict())
     t0 = time.perf_counter()
     ref = denoise_frame_fused(
@@ -435,11 +498,81 @@ def phase_serving(device) -> dict:
     )
     plain_s = time.perf_counter() - t0
     dev = deviation(torch.from_numpy(outs[0]), torch.from_numpy(ref))
-    log(f"[slice] frame 0 kernel path vs plain path on the card: "
+    log(f"[{tag}] frame 0 kernel path vs plain path on the card: "
         f"max_rel {dev['max_rel']:.6g} rms_rel {dev['rms_rel']:.6g} "
         f"(bound {FRAME_TOL}); plain path {plain_s:.4f} s/frame")
     check("frame 0", dev, FRAME_TOL)
     return launches
+
+
+def phase_serving(device, frames) -> dict:
+    """Phase 4. Returns the launch counts of the serving run."""
+    from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet, afgsa_prod_kwargs
+
+    kwargs = afgsa_prod_kwargs()
+    return serve(device, frames, AFGSANet, kwargs, kwargs["num_sa"], ("K1", "K2", "K3"), "slice")
+
+
+def bf16_intermediates_chain(zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w,
+                             d_inner, d_state, headdim, chunk):
+    """The plain fused chain with xBC and y rounded to bf16 between its
+    stages: the precision loss K7's bf16 bound must catch."""
+    from pixel_heal_thyself_tpu_torch.ops.ssd_mega import chain_norm, chain_prologue, chain_scan
+
+    zx = zxbcdt.float()
+    xbc, dt, cum = chain_prologue(zx, conv_w, conv_b, dt_bias, A, d_inner, chunk)
+    y = chain_scan(xbc.bfloat16().float(), dt, cum, D, d_inner, d_state, headdim)
+    return chain_norm(y.bfloat16().float(), zx[..., :d_inner], norm_w, zxbcdt.dtype)
+
+
+def phase_mamba(device, frames) -> tuple[dict, dict]:
+    """Phase 7. Returns (K7's row at the prod serving shape, the launch
+    counts of the Mamba serving run)."""
+    from pixel_heal_thyself_tpu_torch.models.mamba import MambaDenoiserNet, mamba_prod_kwargs
+    from pixel_heal_thyself_tpu_torch.ops.ssd_mega import fused_mamba_chain_torch
+    from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import fused_mamba_chain_cuda
+
+    kwargs = mamba_prod_kwargs()
+    di, n, p = kwargs["expansion"] * kwargs["base_ch"], kwargs["d_state"], kwargs["headdim"]
+    h, q, k = di // p, 128, kwargs["d_conv"]
+    b, l = MAMBA["batch"], MAMBA["tokens"]
+    g = torch.Generator(device=device).manual_seed(4321)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    # the inputs of tests/test_ssd_mega.py `_make_inputs`
+    zx = (rand(b, l, 2 * di + 2 * n + h) * 0.5).bfloat16()
+    params = (rand(k, di + 2 * n) * 0.2, rand(di + 2 * n) * 0.1,
+              torch.rand(h, generator=g, device=device) * 3 - 4,
+              -torch.exp(torch.rand(h, generator=g, device=device) * 1.5),
+              rand(h), 1 + 0.1 * rand(di))
+    dims = dict(d_inner=di, d_state=n, headdim=p, chunk=q)
+    # per (batch, chunk): C·Bᵀ 2q²n, the intra-chunk products 2hq²p, the
+    # state's readout and update 4qn·di
+    flops = b * (l // q) * (2 * q * q * n + 2 * h * q * q * p + 4 * q * n * di)
+    rows = {}
+    for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        args = (zx.to(dtype), *params)
+        out_bytes = b * l * di * args[0].element_size()
+        rows[label] = compare(
+            f"K7 fused Mamba2 interior {label} ({b} × {l} tokens, d_inner {di}, d_state {n})",
+            lambda args=args: fused_mamba_chain_cuda(*args, **dims),
+            lambda args=args: fused_mamba_chain_torch(*args, **dims),
+            MAMBA_TOL[label], iters=10, plain_iters=2,
+            work=(nbytes(*args) + out_bytes, flops, dtype),
+        )
+    ctl = deviation(bf16_intermediates_chain(zx, *params, **dims),
+                    fused_mamba_chain_torch(zx, *params, **dims))
+    log(f"[kernels] control: plain chain with xBC and y rounded to bf16 vs plain: "
+        f"max_rel {ctl['max_rel']:.6g} rms_rel {ctl['rms_rel']:.6g} "
+        f"(must exceed K7's bf16 rms bound {MAMBA_TOL['bf16'][1]})")
+    if ctl["rms_rel"] <= MAMBA_TOL["bf16"][1]:
+        raise AssertionError("K7's bf16 bound passes a chain with bf16 intermediates")
+    del zx, params
+    launches = serve(device, frames, MambaDenoiserNet, kwargs, kwargs["num_blocks"], ("K7",),
+                     "mamba")
+    return rows["bf16"], launches
 
 
 def _train_state(device, d_dtype, g_kwargs, patch, batch, seed):
@@ -541,7 +674,7 @@ def phase_training(device) -> dict:
         if not all(math.isfinite(val) for val in m.values()):
             raise AssertionError(f"step {i}: non-finite losses {m}")
     need = kwargs["num_sa"] * (warmup + timed)
-    for name in KERNEL_NAMES:
+    for name in ("K1", "K2", "K3", "K4", "K5", "K6"):
         if launches[name] < need:
             raise AssertionError(f"{name} launched {launches[name]} times < {need} "
                                  "(5 blocks × 7 steps)")
@@ -646,6 +779,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     from pixel_heal_thyself_tpu_torch import _build
+    from pixel_heal_thyself_tpu_torch.measure import synthetic_frames
 
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -661,18 +795,23 @@ def main() -> None:
         "(nvcc build or load)")
 
     results = phase_kernels(device)
-    serving = phase_serving(device)
+    frames = synthetic_frames(SERVE["frames"], SERVE["size"])
+    serving = phase_serving(device, frames)
     training = phase_training(device)
     phase_literal(device)
+    results["K7"], mamba = phase_mamba(device, frames)
+    # each kernel's count from the path it was ported for
+    path = {"K1": serving, "K2": serving, "K3": serving, "K4": training, "K5": training,
+            "K6": training, "K7": mamba}
     line = []
     for name, info in KERNELS.items():
         res = results[name]
-        # each kernel's count from the path it was ported for
-        launches = serving[name] if name in ("K1", "K2", "K3") else training[name]
         line.append({"name": info[0], "route": "cuda", "source": info[1],
-                     "replaces": info[2], "launches": launches,
+                     "replaces": info[2], "launches": path[name][name],
                      "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-                     "plain_ms": res["plain_ms"]})
+                     "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+                     "bound_by": res["bound_by"], "library_ms": res["library_ms"]})
+    log(smi)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -6,15 +6,17 @@ here mirrors the module of the same name there and is held against it in
 TPU kernel on the ported path is a hand-written CUDA kernel for Hopper
 (`csrc/`, built by `_build.py` on first use).
 
-Ported so far: the tiled full-frame AFGSA inference path
-(`inference.py`) and the prod GAN training step
+Ported so far: tiled full-frame inference of the AFGSA and Mamba
+generators (`inference.py`) and the prod AFGSA GAN training step
 (`training/train_step.py`), with the block-halo attention kernels,
-forward and backward (`ops/attention_cuda.py`), and the whole
-TransformerBlock, forward and backward (`ops/block_cuda.py`). Host-side
-code (config, EXR IO, preprocessing, metrics) is shared with the JAX
-package, whose modules of those names import no JAX.
+forward and backward (`ops/attention_cuda.py`), the whole
+TransformerBlock, forward and backward (`ops/block_cuda.py`), and the
+fused Mamba2 layer interior, forward (`ops/ssd_mega_cuda.py`). The
+host-side modules (config and its YAML tree, EXR IO, preprocessing,
+synthetic data, metrics, logger) are the port's own copies.
 
-This package imports `torch`, `numpy` and `scipy`, never `jax` or `flax`.
+This package imports `torch`, `numpy` and `scipy`, never `jax`, `flax` or
+the JAX package.
 """
 
 __version__ = "0.1.0"

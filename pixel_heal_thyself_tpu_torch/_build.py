@@ -61,6 +61,9 @@ _SIGNATURES = {
     "pht_weight_grad": [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 8 + [_P],
     # part, out, len, splits, stream
     "pht_sum_splits": [_P, _P, ctypes.c_longlong, _I, _P],
+    # zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w, xbc, dt, cum, states,
+    # y, out, B, L, d_inner, d_state, heads, d_conv, chunk, is_bf16, stream
+    "pht_ssd_chain_fwd": [_P] * 13 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

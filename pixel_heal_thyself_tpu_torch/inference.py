@@ -14,13 +14,16 @@ the training metrics into `<scene>_<spp>_evaluation.txt`.
 
 By default (`inference.fused=true`) the padding, window gather, batched
 model calls and stitching run on the device (`make_fused_frame_apply`);
-`inference.fused=false` takes the host loop (`denoise_frame`). Spatial
-sharding and exported artifacts (ROADMAP.md slice 6) and the Mamba
-generator (slice 4) are not ported yet and raise NotImplementedError.
+`inference.fused=false` takes the host loop (`denoise_frame`). Both
+generators are served: `model=afgsa` (AFGSANet) and `model=mamba`
+(MambaDenoiserNet). Spatial sharding and exported artifacts (ROADMAP.md)
+are not ported yet and raise NotImplementedError.
 
-The config layer (pyyaml) and the scorers (`metrics`, OpenCV) are
-imported only by the functions that need them, so the denoising path
-needs only torch, numpy and scipy.
+Everything runs on the card (`inference.device=cuda`, the default) unless
+the caller asks for the CPU (`inference.device=cpu`); with no card the
+CLI raises rather than fall back. The config layer (pyyaml) and the
+scorers (`metrics`, OpenCV) are imported only by the functions that need
+them, so the denoising path needs only torch, numpy and scipy.
 """
 
 from __future__ import annotations
@@ -34,13 +37,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from pixel_heal_thyself_tpu.data.preprocessing import (
+from pixel_heal_thyself_tpu_torch.data.preprocessing import (
     postprocess_specular,
     preprocess_data,
     preprocess_normal,
     preprocess_specular,
 )
-from pixel_heal_thyself_tpu.logger import logger
+from pixel_heal_thyself_tpu_torch.logger import logger
 
 
 def extract_tiles(x: np.ndarray, tile: int, margin: int) -> tuple[np.ndarray, tuple]:
@@ -93,7 +96,7 @@ def denoise_frame(
     tile: int = 64,
     margin: int = 32,
     batch_tiles: int = 8,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> np.ndarray:
     """Denoise one preprocessed frame dict → linear-HDR output [H, W, 3]
     through the host loop: every tile batch is copied to `device`, run by
@@ -126,7 +129,7 @@ def make_fused_frame_apply(
     tile: int = 64,
     margin: int = 32,
     batch_tiles: int = 8,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ):
     """Build a whole-frame denoiser that keeps the frame on `device`:
     edge-pad, gather each batch of overlapping windows, run the model per
@@ -174,7 +177,7 @@ def make_fused_frame_apply(
 
 
 def denoise_frame_fused(fused_apply, data: dict[str, np.ndarray],
-                        device: torch.device | str = "cpu") -> np.ndarray:
+                        device: torch.device | str = "cuda") -> np.ndarray:
     """`denoise_frame` semantics through a `make_fused_frame_apply`
     program: the host does only the log-space pre/post transforms."""
     noisy_log, aux = _model_inputs(data)
@@ -213,8 +216,6 @@ def afgsa_kwargs_from_config(cfg) -> dict:
     create_generator` mapping; `use_pallas` selects the kernels)."""
     m = cfg.model
     kernels = bool(cfg.trainer.use_pallas)
-    if cfg.trainer.precision not in ("bf16", "fp32"):
-        raise ValueError(f"trainer.precision must be 'bf16' or 'fp32', got {cfg.trainer.precision!r}")
     return dict(
         input_channels=m.input_channels, aux_input_channels=m.aux_input_channels,
         base_ch=m.feature_map_channels, enc_ch=m.enc_channels,
@@ -224,32 +225,57 @@ def afgsa_kwargs_from_config(cfg) -> dict:
         padding_mode="replicate" if cfg.trainer.deterministic else "reflect",
         curve_order=m.curve_order, use_film=m.use_film,
         fold_qkv=kernels and cfg.trainer.fold_qkv, use_kernels=kernels,
-        use_block_kernel=kernels,
-        dtype=torch.bfloat16 if cfg.trainer.precision == "bf16" else torch.float32,
+        use_block_kernel=kernels, dtype=_dtype(cfg),
     )
 
 
-def load_generator(cfg, device: torch.device | str = "cpu"):
+def mamba_kwargs_from_config(cfg) -> dict:
+    """`MambaDenoiserNet` kwargs from a `Config` (the JAX `MambaTrainer.
+    create_generator` mapping; `use_pallas` selects the fused interior
+    through its kernel)."""
+    m = cfg.model
+    kernels = bool(cfg.trainer.use_pallas)
+    return dict(
+        input_channels=m.input_channels, aux_input_channels=m.aux_input_channels,
+        base_ch=m.feature_map_channels, enc_ch=m.enc_channels, num_blocks=m.num_layers,
+        d_state=m.d_state, d_conv=m.d_conv, expansion=m.expansion, headdim=m.headdim,
+        num_gcp=m.num_gradient_checkpoints,
+        padding_mode="replicate" if cfg.trainer.deterministic else "reflect",
+        use_kernels=kernels, use_megakernel=kernels, dtype=_dtype(cfg),
+    )
+
+
+def _dtype(cfg) -> torch.dtype:
+    if cfg.trainer.precision not in ("bf16", "fp32"):
+        raise ValueError(f"trainer.precision must be 'bf16' or 'fp32', got {cfg.trainer.precision!r}")
+    return torch.bfloat16 if cfg.trainer.precision == "bf16" else torch.float32
+
+
+def load_generator(cfg, device: torch.device | str = "cuda"):
     """Build the generator from config and load its weights from
     `trainer.model_path`, a flat params `.npz` (tools/export_params_npz.py)."""
     from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet
-    from pixel_heal_thyself_tpu_torch.params import afgsa_state_from_flax, load_params_npz
+    from pixel_heal_thyself_tpu_torch.models.mamba import MambaDenoiserNet
+    from pixel_heal_thyself_tpu_torch.params import (
+        afgsa_state_from_flax,
+        load_params_npz,
+        mamba_state_from_flax,
+    )
 
-    if cfg.model.name == "mamba":
-        raise NotImplementedError(
-            "the Mamba generator is not ported to pixel_heal_thyself_tpu_torch yet "
-            "(ROADMAP.md slice 4)",
-        )
-    if cfg.model.name != "afgsa":
+    if cfg.model.name == "afgsa":
+        kwargs, net, to_state = afgsa_kwargs_from_config(cfg), AFGSANet, afgsa_state_from_flax
+    elif cfg.model.name == "mamba":
+        kwargs, net, to_state = (mamba_kwargs_from_config(cfg), MambaDenoiserNet,
+                                 mamba_state_from_flax)
+    else:
         raise ValueError(f"Unsupported model: {cfg.model.name!r}")
-    kwargs = afgsa_kwargs_from_config(cfg)
     if kwargs["dtype"] == torch.float32:
         # fp32 is true float32, as the JAX trainer's HIGHEST matmul
         # precision: on the GPU cuDNN convolutions default to TF32
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    model = AFGSANet(**kwargs, device=device)
-    model.load_state_dict(afgsa_state_from_flax(load_params_npz(cfg.trainer.model_path)))
+    model = net(**kwargs, device=device)
+    model.load_state_dict(to_state(load_params_npz(cfg.trainer.model_path)))
     return model.eval()
 
 
@@ -267,12 +293,16 @@ def run_inference(
     spatial: bool = False,
     from_export: str | None = None,
     fused: bool = True,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> list[dict]:
     """Denoise and score every frame pair under `images_dir` with the
     generator of `cfg` (`load_generator`)."""
-    from pixel_heal_thyself_tpu.data.exr import write_exr_groups
-    from pixel_heal_thyself_tpu.metrics import calculate_psnr, calculate_rmse, calculate_ssim
+    from pixel_heal_thyself_tpu_torch.data.exr import write_exr_groups
+    from pixel_heal_thyself_tpu_torch.metrics import (
+        calculate_psnr,
+        calculate_rmse,
+        calculate_ssim,
+    )
 
     if from_export:
         raise NotImplementedError(
@@ -331,8 +361,8 @@ def run_inference(
 
 
 def main(argv=None) -> None:
-    from pixel_heal_thyself_tpu.config import ConfigRegistry, compose
-    from pixel_heal_thyself_tpu.config.run_dirs import register_run_dirs_resolver
+    from pixel_heal_thyself_tpu_torch.config import ConfigRegistry, compose
+    from pixel_heal_thyself_tpu_torch.config.run_dirs import register_run_dirs_resolver
 
     register_run_dirs_resolver()
     parser = argparse.ArgumentParser(prog="pixel_heal_thyself_tpu_torch.inference")
@@ -344,8 +374,7 @@ def main(argv=None) -> None:
     infer_opts = {"tile": 64, "margin": 32, "batch_tiles": 8, "save_exr": False,
                   "images_dir": None, "out_dir": None, "noisy_spp": 32,
                   "gt_spp": 1024, "spatial": False, "from_export": None,
-                  "fused": True,
-                  "device": "cuda" if torch.cuda.is_available() else "cpu"}
+                  "fused": True, "device": "cuda"}
     cfg_overrides = []
     for ov in args.overrides:
         key, _, val = ov.partition("=")
@@ -360,6 +389,9 @@ def main(argv=None) -> None:
         else:
             cfg_overrides.append(ov)
 
+    if torch.device(infer_opts["device"]).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("inference.device=cuda (the default) but no CUDA device is available; "
+                         "pass inference.device=cpu to denoise on the CPU")
     cfg = ConfigRegistry.create_config(compose(args.config_name, cfg_overrides))
     logger.setup_logger(cfg.logging.level)
     if not cfg.trainer.model_path:

@@ -37,7 +37,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from pixel_heal_thyself_tpu.ops.curves import CurveOrder
+from pixel_heal_thyself_tpu_torch.ops.curves import CurveOrder
 from pixel_heal_thyself_tpu_torch.models.layers import Conv, ConvBlock, apply_act, conv_nhwc
 from pixel_heal_thyself_tpu_torch.ops.attention import (
     BlockHaloAttentionFn,

@@ -15,6 +15,10 @@ flax names the last `num_gcp` blocks `CheckpointTransformerBlock_<j>`
 plain `TransformerBlock_<i>`s — see tools/import_torch_checkpoint.py
 `_block_name`. Both map onto `blocks.<n>` in model order.
 
+`mamba_state_from_flax` maps a MambaDenoiserNet tree onto
+`models.mamba.MambaDenoiserNet` (Dense kernels transposed, the rest of
+the Mamba2 layer as it is).
+
 `load_params_npz(path)` reads the flat `.npz` that
 `tools/export_params_npz.py` writes (keys such as
 `"ConvBlock_0/Conv_0/kernel"`) back into the nested tree.
@@ -129,6 +133,57 @@ def discriminator_state_from_flax(tree: dict) -> dict[str, torch.Tensor]:
             state[f"{_DENSE[name]}.bias"] = _tensor(node["bias"])
         else:
             raise KeyError(f"unexpected DiscriminatorVGG param {name}")
+    return state
+
+
+_MAMBA_BLOCK_NAME = re.compile(r"^(Checkpoint)?MambaBlock_(\d+)$")
+# Mamba2Layer params kept as they are: conv1d_weight [k, c] stays in the
+# JAX layout, which is the one the port's conv and kernel take
+_MAMBA_AS_IS = ("conv1d_weight", "conv1d_bias", "dt_bias", "A_log", "D")
+
+
+def _mamba_block(dst: dict, prefix: str, node: dict) -> None:
+    for name, sub in node.items():
+        if name == "norm1":
+            dst[f"{prefix}norm1.scale"] = _tensor(sub["scale"])
+            dst[f"{prefix}norm1.bias"] = _tensor(sub["bias"])
+        elif name == "mamba":
+            for mname, mval in sub.items():
+                if mname in ("in_proj", "out_proj"):  # Dense [in, out] → Linear [out, in]
+                    dst[f"{prefix}mamba.{mname}.weight"] = _tensor(np.asarray(mval["kernel"]).T)
+                elif mname == "norm":  # RMSNormGated or the fused route's holder
+                    dst[f"{prefix}mamba.norm.weight"] = _tensor(mval["weight"])
+                elif mname in _MAMBA_AS_IS:
+                    dst[f"{prefix}mamba.{mname}"] = _tensor(mval)
+                else:
+                    raise KeyError(f"unexpected Mamba2Layer param {mname}")
+        elif name in _FFN:
+            _conv(dst, prefix + _FFN[name], sub["Conv_0"])
+        else:
+            raise KeyError(f"unexpected MambaBlock param {name}")
+
+
+def mamba_state_from_flax(tree: dict) -> dict[str, torch.Tensor]:
+    """flax MambaDenoiserNet `params` tree → port `state_dict`. The encoder
+    and decoder ConvBlocks are named as AFGSANet's; the blocks are
+    `MambaBlock_<i>`, then the `nn.remat` ones `CheckpointMambaBlock_<j>`,
+    in model order."""
+    tree = tree.get("params", tree)
+    state: dict[str, torch.Tensor] = {}
+    plain, remat = {}, {}
+    for name, node in tree.items():
+        if name in _CONV_BLOCKS:
+            _conv(state, _CONV_BLOCKS[name], node["Conv_0"])
+            continue
+        m = _MAMBA_BLOCK_NAME.match(name)
+        if m is None:
+            raise KeyError(f"unexpected MambaDenoiserNet param {name}")
+        (remat if m.group(1) else plain)[int(m.group(2))] = node
+    if sorted(plain) != list(range(len(plain))) or sorted(remat) != list(range(len(remat))):
+        raise KeyError(f"non-contiguous MambaBlock names: {sorted(plain)} {sorted(remat)}")
+    blocks = [plain[i] for i in sorted(plain)] + [remat[j] for j in sorted(remat)]
+    for n, node in enumerate(blocks):
+        _mamba_block(state, f"blocks.{n}.", node)
     return state
 
 

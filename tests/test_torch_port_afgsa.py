@@ -19,7 +19,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
-from pixel_heal_thyself_tpu.config import ConfigRegistry, compose  # noqa: E402
+from pixel_heal_thyself_tpu_torch.config import ConfigRegistry, compose  # noqa: E402
 from pixel_heal_thyself_tpu.models.afgsa import AFGSANet as JAFGSANet  # noqa: E402
 from pixel_heal_thyself_tpu_torch.inference import afgsa_kwargs_from_config  # noqa: E402
 from pixel_heal_thyself_tpu_torch.models.afgsa import (  # noqa: E402

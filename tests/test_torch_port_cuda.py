@@ -18,7 +18,15 @@ float32. Tolerances (relative to the reference's largest magnitude):
 - whole-block gradients: the bounds of tests/test_block_mega.py:238-260
   (images max 1e-1, rms 8e-3; weights rms 2.5e-2, total-mass fingerprint
   2e-2), because a pre-activation within one bf16 ulp of zero can land on
-  the other side of a ReLU and move a full-size contribution.
+  the other side of a ReLU and move a full-size contribution;
+- the fused Mamba2 interior (K7): every intermediate in f32 in both, one
+  rounding at the output: fp32 1e-4 max, 1e-5 rms (summation order); bf16
+  max 8e-3 (two bf16 ulps), rms 1e-4: at these small shapes one flip of
+  the largest output moves the rms by up to 2**-7 / sqrt(16,384) = 6e-5,
+  while the plain chain with xBC and y rounded to bf16 (which the TPU
+  kernel never does) fails 1e-4 at every one of them
+  (tests/test_torch_port_mamba_ops.py); chip_smoke.py holds the prod shape
+  to 1e-5.
 """
 
 from __future__ import annotations
@@ -55,6 +63,10 @@ from pixel_heal_thyself_tpu_torch.ops.block_cuda import (
     weight_grad_cuda,
     weight_grad_torch,
 )
+
+from pixel_heal_thyself_tpu_torch.models.mamba import MambaDenoiserNet
+from pixel_heal_thyself_tpu_torch.ops.ssd_mega import fused_mamba_chain, fused_mamba_chain_torch
+from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import fused_mamba_chain_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -403,3 +415,79 @@ def test_cuda_wrappers_refuse_autograd(dev):
         block_halo_attention_cuda(q, q, q, rel, rel, block_size=8, halo_size=3, num_heads=2)
     with torch.no_grad():
         block_halo_attention_cuda(q, q, q, rel, rel, block_size=8, halo_size=3, num_heads=2)
+
+
+def _chain_inputs(rng, dev, dtype, b, l, d_inner, d_state, headdim, k=4):
+    """tests/test_ssd_mega.py `_make_inputs`, on the card."""
+    h = d_inner // headdim
+    dc = d_inner + 2 * d_state
+    f32 = torch.float32
+    return (
+        _rand(rng, (b, l, 2 * d_inner + 2 * d_state + h), dev, dtype, 0.5),
+        _rand(rng, (k, dc), dev, f32, 0.2), _rand(rng, (dc,), dev, f32, 0.1),
+        torch.as_tensor(rng.uniform(-4.0, -1.0, h), dtype=f32, device=dev),
+        torch.as_tensor(-np.exp(rng.uniform(0.0, 1.5, h)), dtype=f32, device=dev),
+        _rand(rng, (h,), dev, f32), 1.0 + _rand(rng, (d_inner,), dev, f32, 0.1),
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cfg", [(2, 256, 128, 64, 64, 64), (1, 128, 128, 32, 32, 32),
+                                 (2, 192, 256, 64, 64, 64), (2, 1024, 128, 16, 32, 128),
+                                 (1, 512, 256, 8, 128, 128), (1, 256, 128, 32, 8, 16)])
+def test_fused_mamba_chain_kernel(dev, dtype, cfg):
+    b, l, d_inner, d_state, headdim, chunk = cfg
+    args = _chain_inputs(np.random.default_rng(0), dev, dtype, b, l, d_inner, d_state, headdim)
+    dims = dict(d_inner=d_inner, d_state=d_state, headdim=headdim, chunk=chunk)
+    before = fused_mamba_chain_cuda.launches
+    got = fused_mamba_chain(*args, **dims)
+    assert fused_mamba_chain_cuda.launches == before + 1
+    ref = fused_mamba_chain_torch(*args, **dims)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, l, d_inner)
+    if dtype == torch.float32:
+        _assert_close(got, ref, 1e-4, 1e-5)
+    else:
+        _assert_close(got, ref, 8e-3, 1e-4)
+
+
+def test_fused_mamba_chain_kernel_refuses(dev):
+    args = _chain_inputs(np.random.default_rng(1), dev, torch.float32, 1, 128, 128, 16, 32)
+    dims = dict(d_inner=128, d_state=16, headdim=32, chunk=128)
+    args[1].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        fused_mamba_chain_cuda(*args, **dims)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="unsupported shape"):
+            fused_mamba_chain_cuda(*args, **dict(dims, chunk=96))
+        with pytest.raises(ValueError, match="CUDA"):
+            fused_mamba_chain_cuda(*(t.cpu() for t in args), **dims)
+        # a shape the gate admits whose chunk needs more than 227 KB of
+        # shared memory: the C entry refuses it before it launches
+        big = _chain_inputs(np.random.default_rng(1), dev, torch.float32, 1, 128, 128, 128, 64)
+        before = fused_mamba_chain_cuda.launches
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            fused_mamba_chain_cuda(*big, d_inner=128, d_state=128, headdim=64, chunk=128)
+        assert fused_mamba_chain_cuda.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mamba_denoiser_kernel_route(dev, dtype):
+    """A small MambaDenoiserNet: the kernel route against the plain one."""
+    kw = dict(base_ch=32, enc_ch=32, num_blocks=2, d_state=16, headdim=32, expansion=4,
+              num_gcp=0, padding_mode="replicate", use_megakernel=True, dtype=dtype)
+    model = MambaDenoiserNet(**kw, use_kernels=True, device=dev,
+                             generator=torch.Generator().manual_seed(0)).eval()
+    plain = MambaDenoiserNet(**kw, use_kernels=False, device=dev).eval()
+    plain.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(2)
+    x = _rand(rng, (2, 32, 32, 3), dev, torch.float32).abs()
+    aux = _rand(rng, (2, 32, 32, 7), dev, torch.float32)
+    before = fused_mamba_chain_cuda.launches
+    with torch.no_grad():
+        got, ref = model(x, aux), plain(x, aux)
+    assert fused_mamba_chain_cuda.launches == before + 2
+    if dtype == torch.float32:
+        _assert_close(got, ref, 1e-4, 1e-5)
+    else:
+        _assert_close(got, ref, 3e-2, 4e-3)

@@ -1,15 +1,19 @@
-"""The PyTorch port never imports JAX or flax.
+"""The PyTorch port never imports JAX, flax or the JAX package.
 
 A fresh interpreter imports every module of `pixel_heal_thyself_tpu_torch`
-(and the JAX package's host-side modules the port shares) and reports
-which of jax/flax ended up in `sys.modules`. The check runs in a
-subprocess because this test process has JAX loaded already.
+(and `chip_smoke`) and reports which of jax/flax/jaxlib and which modules
+of `pixel_heal_thyself_tpu` ended up in `sys.modules`. The port keeps its
+own copies of the host-side modules it needs (config, curves, logger,
+run-once helpers, EXR IO, preprocessing, synthetic data, metrics). The
+check runs in a subprocess because this test process has JAX loaded
+already.
 """
 
 from __future__ import annotations
 
 import json
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -19,15 +23,16 @@ import pytest
 pytest.importorskip("jax")
 
 REPO = Path(__file__).resolve().parent.parent
+# the port's own copies of the JAX package's host modules
 SHARED = [
-    "pixel_heal_thyself_tpu.config",
-    "pixel_heal_thyself_tpu.ops.curves",
-    "pixel_heal_thyself_tpu.logger",
-    "pixel_heal_thyself_tpu.utils.run_once",
-    "pixel_heal_thyself_tpu.data.exr",
-    "pixel_heal_thyself_tpu.data.preprocessing",
-    "pixel_heal_thyself_tpu.data.synthetic",
-    "pixel_heal_thyself_tpu.metrics",
+    "pixel_heal_thyself_tpu_torch.config",
+    "pixel_heal_thyself_tpu_torch.ops.curves",
+    "pixel_heal_thyself_tpu_torch.logger",
+    "pixel_heal_thyself_tpu_torch.utils.run_once",
+    "pixel_heal_thyself_tpu_torch.data.exr",
+    "pixel_heal_thyself_tpu_torch.data.preprocessing",
+    "pixel_heal_thyself_tpu_torch.data.synthetic",
+    "pixel_heal_thyself_tpu_torch.metrics",
 ]
 
 
@@ -45,7 +50,8 @@ def _imported_frameworks(modules: list[str]) -> list[str]:
         "import importlib, json, sys\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
-        "print(json.dumps(sorted(m for m in ('jax', 'flax', 'jaxlib') if m in sys.modules)))\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m in ('jax', 'flax', 'jaxlib')\n"
+        "    or m == 'pixel_heal_thyself_tpu' or m.startswith('pixel_heal_thyself_tpu.'))))\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -58,7 +64,20 @@ def test_port_modules_import_no_jax():
     modules = _port_modules()
     assert "pixel_heal_thyself_tpu_torch.ops.attention_cuda" in modules
     assert "pixel_heal_thyself_tpu_torch.inference" in modules
+    assert set(SHARED) <= set(modules)
     assert _imported_frameworks(modules + ["chip_smoke"]) == []
+
+
+_JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import) pixel_heal_thyself_tpu(\.|\s|$)", re.M)
+
+
+def test_no_source_imports_the_jax_package():
+    """Lazy imports inside functions included."""
+    sources = sorted((REPO / "pixel_heal_thyself_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(sources) > 20
+    hits = [f"{src.relative_to(REPO)}: {m.group(0).strip()}" for src in sources
+            for m in _JAX_PACKAGE_IMPORT.finditer(src.read_text())]
+    assert hits == []
 
 
 TRAINING = [

@@ -9,7 +9,11 @@
   exactly;
 - `run_inference` end to end: a params `.npz` exported from an Orbax
   checkpoint by `tools/export_params_npz.py`, synthetic EXRs, and
-  `evaluation.txt` in the JAX package's byte format.
+  `evaluation.txt` in the JAX package's byte format;
+- the entry points run on the card unless asked for the CPU, and the CLI
+  never falls back to the CPU on its own.
+
+The Mamba generator's frames: tests/test_torch_port_mamba_inference.py.
 """
 
 from __future__ import annotations
@@ -24,12 +28,14 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
-from pixel_heal_thyself_tpu.config import ConfigRegistry, compose  # noqa: E402
-from pixel_heal_thyself_tpu.data.synthetic import generate_dataset  # noqa: E402
 from pixel_heal_thyself_tpu.inference import denoise_frame as jdenoise_frame  # noqa: E402
 from pixel_heal_thyself_tpu.models.afgsa import AFGSANet as JAFGSANet  # noqa: E402
 from pixel_heal_thyself_tpu.training import checkpoints  # noqa: E402
 from pixel_heal_thyself_tpu.utils.images import tensor2img as jtensor2img  # noqa: E402
+from pixel_heal_thyself_tpu_torch import inference  # noqa: E402
+from pixel_heal_thyself_tpu_torch.config import ConfigRegistry, compose  # noqa: E402
+from pixel_heal_thyself_tpu_torch.config.run_dirs import reset_run_dirs_cache  # noqa: E402
+from pixel_heal_thyself_tpu_torch.data.synthetic import generate_dataset  # noqa: E402
 from pixel_heal_thyself_tpu_torch.inference import (  # noqa: E402
     denoise_frame,
     denoise_frame_fused,
@@ -52,6 +58,15 @@ SMALL_CFG = [
     "model.afgsa.self_attention.num_layers=1",
     "model.afgsa.self_attention.num_heads=2", "trainer.precision=fp32",
 ]
+
+
+@pytest.fixture(autouse=True)
+def _reset_port_run_dirs_cache():
+    """The port's run-dirs cache is a process singleton of its own (the
+    suite's conftest resets only the JAX package's); isolate tests."""
+    reset_run_dirs_cache()
+    yield
+    reset_run_dirs_cache()
 
 
 def _frame(seed, h, w):
@@ -104,7 +119,7 @@ def test_denoise_frame_matches_jax():
             jax.jit(lambda n, a: jmodel.apply({"params": params}, n, a)),
             data, tile=16, margin=8, batch_tiles=4,
         )
-    got = denoise_frame(model, data, tile=16, margin=8, batch_tiles=4)
+    got = denoise_frame(model, data, tile=16, margin=8, batch_tiles=4, device="cpu")
     assert got.shape == want.shape == (48, 80, 3)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
 
@@ -115,9 +130,10 @@ def test_fused_matches_host_loop(hw, batch):
     batch 8 is all padding but two) must never overwrite real output."""
     _, _, model = _small_models()
     data = _frame(2, *hw)
-    want = denoise_frame(model, data, tile=16, margin=8, batch_tiles=batch)
-    fused = make_fused_frame_apply(model, hw, tile=16, margin=8, batch_tiles=batch)
-    got = denoise_frame_fused(fused, data)
+    want = denoise_frame(model, data, tile=16, margin=8, batch_tiles=batch, device="cpu")
+    fused = make_fused_frame_apply(model, hw, tile=16, margin=8, batch_tiles=batch,
+                                   device="cpu")
+    got = denoise_frame_fused(fused, data, device="cpu")
     np.testing.assert_array_equal(got, want)
 
 
@@ -138,13 +154,13 @@ def test_run_inference_end_to_end(tmp_path, tmp_cwd):
     cfg = ConfigRegistry.create_config(compose(
         "prod", [*SMALL_CFG, f"trainer.model_path={npz}"], resolve_interpolations=False,
     ))
-    loaded = load_generator(cfg)
+    loaded = load_generator(cfg, device="cpu")
     for p, q in zip(loaded.state_dict().values(), model.state_dict().values()):
         assert torch.equal(p, q)
 
     out = tmp_path / "out"
     results = run_inference(cfg, str(images), str(out), tile=16, margin=8, batch_tiles=4,
-                            save_exr=True)
+                            save_exr=True, device="cpu")
     assert [r["scene"] for r in results] == ["fftle0_0", "taccturb_1_0"]
     text = (out / "taccturb_1_0_32_evaluation.txt").read_text()
     assert re.fullmatch(r"RMSE: \d+\.\d{6}\nPSNR: \d+\.\d{4}\n1-SSIM: -?\d+\.\d{6}\n", text)
@@ -161,11 +177,23 @@ def test_run_inference_end_to_end(tmp_path, tmp_cwd):
 
 
 def test_unported_paths_raise(tmp_path):
-    cfg = ConfigRegistry.create_config(compose("prod", resolve_interpolations=False))
-    for kw in ({"spatial": True}, {"from_export": "artifact"}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            run_inference(cfg, str(tmp_path), str(tmp_path / "o"), **kw)
-    mamba = ConfigRegistry.create_config(compose("prod", ["model=mamba"],
-                                                 resolve_interpolations=False))
-    with pytest.raises(NotImplementedError, match="Mamba"):
-        load_generator(mamba)
+    for model in ("afgsa", "mamba"):
+        cfg = ConfigRegistry.create_config(compose("prod", [f"model={model}"],
+                                                   resolve_interpolations=False))
+        for kw in ({"spatial": True}, {"from_export": "artifact"}):
+            with pytest.raises(NotImplementedError, match="not ported"):
+                run_inference(cfg, str(tmp_path), str(tmp_path / "o"), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("fn", ["denoise_frame", "make_fused_frame_apply",
+                                "denoise_frame_fused", "load_generator", "run_inference"])
+def test_entry_points_default_to_cuda(fn):
+    import inspect
+
+    assert inspect.signature(getattr(inference, fn)).parameters["device"].default == "cuda"
+
+
+def test_cli_never_falls_back_to_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="inference.device=cpu"):
+        main(["-cn", "prod", "trainer.model_path=absent.npz"])
