@@ -18,7 +18,8 @@ exits non-zero. Phases:
    padding modes; the attention backward K4 (bf16, fp32), the conv input
    gradient K5, the weight gradient K6 (9 taps and 1 tap) and the whole
    block backward in the three padding modes. Prints deviations and
-   CUDA-event times of kernel and plain version.
+   CUDA-event times of kernel and plain version. (K7's rows run in phase
+   7, K7-emit's and K8's in phase 8, beside the paths they serve.)
 4. Serving: three synthetic 512² frame pairs denoised by the prod-width
    AFGSANet (seeded random weights, bf16, replicate padding) through
    `preprocess_data` and the device tiler (tile 64, margin 32, batch 8),
@@ -47,6 +48,15 @@ exits non-zero. Phases:
    (seeded random weights, bf16, replicate padding) through the device
    tiler. Checks the outputs, that every layer of every batch went through
    K7 (launch counter), and frame 0 against the model's plain path.
+8. Mamba training: K7's emit variant and the fused Mamba2 backward K8
+   against their plain versions at the prod shape in bf16 and fp32 (every
+   gradient at its bound, MAMBA_BWD_TOL), beside a control that the bounds
+   must fail (the plain backward with the reverse carry of the state
+   gradient cut); then the prod GAN step of phase 5 with the prod-width
+   MambaDenoiserNet as the generator: 2 warm-up and 5 timed steps, every
+   layer of every step through K7-emit and K8 (launch counters), and one
+   step through the kernel and plain routes beside the witnesses that set
+   MAMBA_STEP_GRAD_TOL.
 
 Every kernel row states its bound (the least time the card could take:
 the larger of the bytes its function must move over 3.35 TB/s and its
@@ -104,7 +114,10 @@ PARAM_GRAD_TOL = (2.5e-2, 2e-2)
 # double backward re-rolls bf16 rounding for any change of its input, and
 # d_loss moved 2.7% between the routes while a route repeated gave the
 # same bits (H100 run, PERF.md Findings), which would test the critic, not
-# the generator's kernels
+# the generator's kernels. Even through the float32 critic the GP carries
+# the generator output's bf16 flips into d_loss: the one-ulp witnesses move
+# it 1.04% (AFGSA) and 0.64% (Mamba), the Mamba kernel route 0.85% (H100
+# runs), so this bound sits at that floor; both routes are deterministic
 STEP_LOSS_TOL = 1e-2
 # ... and the generator's gradients of that step: rms 2.5e-2 (the block
 # bound) for every one; total mass 5e-2. Through 5 blocks, encoders and
@@ -140,8 +153,33 @@ FP32_STEP_TOL = (1e-4, (1e-3, 1e-4))
 # never does) reads about 1e-4 (H100 runs, PERF.md Findings). The rms bound
 # 1e-5 sits between, and phase 7 fails if that control passes it
 MAMBA_TOL = {"bf16": (8e-3, 1e-5), "fp32": (1e-4, 1e-5)}
-# phase 7: 8 windows of 128² = 16,384 tokens per Mamba2 layer call
+# phase 7: 8 windows of 128² = 16,384 tokens per Mamba2 layer call; phase 8
+# trains at TRAIN's geometry, the same 8 × 16,384 tokens per layer call
 MAMBA = dict(batch=8, tokens=128 * 128)
+# K8 (the fused Mamba2 backward) against its plain version, per gradient:
+# both keep every intermediate in f32. dzx rounds once, at the output:
+# K7's bounds (a bf16 value next to a rounding boundary may flip). The
+# parameter gradients never round: f32 sums over 131,072 tokens in another
+# order (WGRAD_TOL's reason); dt_bias and A are sums of cancelling terms
+# and have one entry per head, so their rms is about their max
+MAMBA_BWD_TOL = {
+    label: {"dzx": MAMBA_TOL[label], "conv_w": WGRAD_TOL, "conv_b": WGRAD_TOL,
+            "dt_bias": (1e-4, 1e-4), "A": (1e-4, 1e-4), "D": (1e-4, 1e-4), "norm_w": WGRAD_TOL}
+    for label in ("bf16", "fp32")
+}
+# the prod Mamba step, kernel route vs plain route (phase 8): rms 5e-2, total
+# mass 5e-2 for every generator gradient, read from the witnesses phase 8
+# prints (H100 runs, PERF.md Findings). The kernel route reads worst
+# rms 2.41e-2 and mass 2.58e-2 (blocks.2.mamba.A_log); the plain literal
+# route rms 2.31e-2, mass 3.05e-2; the plain route with the inputs one bf16
+# ulp up rms 3.48e-2, mass 4.67e-2 (dt_bias); the plain route repeated rms
+# 4.8e-4. The worst are the per-head dt_bias and A_log gradients: sums over
+# 131,072 tokens of cancelling terms, where one flip moves the sum most.
+# AFGSA's rms 2.5e-2 sits below this model's flip floor; 5e-2 sits at it,
+# and still fails a gradient that is missing, doubled, or computed without
+# the state carry (the phase-8 control moves A's gradient by rms 1e-1 in a
+# single layer)
+MAMBA_STEP_GRAD_TOL = (5e-2, 5e-2)
 _SRC = "pixel_heal_thyself_tpu_torch/csrc/"
 _TPU = "pixel_heal_thyself_tpu/ops/"
 # kernel → (name, source, TPU kernel it replaces)
@@ -155,6 +193,8 @@ KERNELS = {
     "K5": ("conv3x3_dgrad (K5)", _SRC + "block_bwd.cu", _TPU + "block_mega.py:662"),
     "K6": ("weight_grad (K6)", _SRC + "block_bwd.cu", _TPU + "block_mega.py:662"),
     "K7": ("fused_mamba_chain (K7)", _SRC + "ssd_fwd.cu", _TPU + "ssd_mega.py:256"),
+    "K7e": ("fused_mamba_chain_emit (K7 emit)", _SRC + "ssd_fwd.cu", _TPU + "ssd_mega.py:252"),
+    "K8": ("fused_mamba_chain_bwd (K8)", _SRC + "ssd_bwd.cu", _TPU + "ssd_mega.py:260"),
 }
 KERNEL_NAMES = tuple(KERNELS)
 
@@ -234,12 +274,17 @@ def counters() -> dict:
         pointwise_gemm_cuda,
         weight_grad_cuda,
     )
-    from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import fused_mamba_chain_cuda
+    from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import (
+        fused_mamba_chain_bwd_cuda,
+        fused_mamba_chain_cuda,
+        fused_mamba_chain_emit_cuda,
+    )
 
     return dict(zip(KERNEL_NAMES, (block_halo_attention_cuda, pointwise_gemm_cuda,
                                    conv3x3_cuda, block_halo_attention_bwd_cuda,
                                    conv3x3_dgrad_cuda, weight_grad_cuda,
-                                   fused_mamba_chain_cuda)))
+                                   fused_mamba_chain_cuda, fused_mamba_chain_emit_cuda,
+                                   fused_mamba_chain_bwd_cuda)))
 
 
 def reset_counts() -> None:
@@ -257,16 +302,19 @@ def nbytes(*tensors) -> int:
 
 
 def compare(name, kernel, plain, tol, iters=10, plain_iters=3, grads=None, work=None,
-            library=None):
+            library=None, check_fn=None):
     """A kernel against its plain version on the same inputs: deviation
-    (checked against `tol`, or the gradient bounds), CUDA-event times of
-    both, the bound from `work` = (bytes, flops, dtype) and the time of
-    `library`, one PyTorch call computing the same function."""
+    (checked against `tol`, the gradient bounds, or by `check_fn(name, got,
+    ref)`), CUDA-event times of both, the bound from `work` = (bytes,
+    flops, dtype) and the time of `library`, one PyTorch call computing the
+    same function."""
     from pixel_heal_thyself_tpu_torch.measure import bound
 
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
-    if grads is None:
+    if check_fn is not None:
+        dev = check_fn(name, got, ref)
+    elif grads is None:
         dev = deviation(got, ref)
         check(name, dev, tol)
     else:
@@ -521,16 +569,15 @@ def bf16_intermediates_chain(zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w,
 
     zx = zxbcdt.float()
     xbc, dt, cum = chain_prologue(zx, conv_w, conv_b, dt_bias, A, d_inner, chunk)
-    y = chain_scan(xbc.bfloat16().float(), dt, cum, D, d_inner, d_state, headdim)
+    y, _ = chain_scan(xbc.bfloat16().float(), dt, cum, D, d_inner, d_state, headdim)
     return chain_norm(y.bfloat16().float(), zx[..., :d_inner], norm_w, zxbcdt.dtype)
 
 
-def phase_mamba(device, frames) -> tuple[dict, dict]:
-    """Phase 7. Returns (K7's row at the prod serving shape, the launch
-    counts of the Mamba serving run)."""
-    from pixel_heal_thyself_tpu_torch.models.mamba import MambaDenoiserNet, mamba_prod_kwargs
-    from pixel_heal_thyself_tpu_torch.ops.ssd_mega import fused_mamba_chain_torch
-    from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import fused_mamba_chain_cuda
+def mamba_inputs(device) -> tuple:
+    """(bf16 zxbcdt, f32 parameters, dims) of one prod Mamba2 layer call at
+    8 × 16,384 tokens, seeded: the inputs of tests/test_ssd_mega.py
+    `_make_inputs`."""
+    from pixel_heal_thyself_tpu_torch.models.mamba import mamba_prod_kwargs
 
     kwargs = mamba_prod_kwargs()
     di, n, p = kwargs["expansion"] * kwargs["base_ch"], kwargs["d_state"], kwargs["headdim"]
@@ -541,16 +588,27 @@ def phase_mamba(device, frames) -> tuple[dict, dict]:
     def rand(*shape):
         return torch.randn(shape, generator=g, device=device)
 
-    # the inputs of tests/test_ssd_mega.py `_make_inputs`
     zx = (rand(b, l, 2 * di + 2 * n + h) * 0.5).bfloat16()
     params = (rand(k, di + 2 * n) * 0.2, rand(di + 2 * n) * 0.1,
               torch.rand(h, generator=g, device=device) * 3 - 4,
               -torch.exp(torch.rand(h, generator=g, device=device) * 1.5),
               rand(h), 1 + 0.1 * rand(di))
-    dims = dict(d_inner=di, d_state=n, headdim=p, chunk=q)
-    # per (batch, chunk): C·Bᵀ 2q²n, the intra-chunk products 2hq²p, the
-    # state's readout and update 4qn·di
-    flops = b * (l // q) * (2 * q * q * n + 2 * h * q * q * p + 4 * q * n * di)
+    return zx, params, dict(d_inner=di, d_state=n, headdim=p, chunk=q)
+
+
+def phase_mamba(device, frames) -> tuple[dict, dict]:
+    """Phase 7. Returns (K7's row at the prod serving shape, the launch
+    counts of the Mamba serving run)."""
+    from pixel_heal_thyself_tpu_torch.measure import mamba_chain_flops
+    from pixel_heal_thyself_tpu_torch.models.mamba import MambaDenoiserNet, mamba_prod_kwargs
+    from pixel_heal_thyself_tpu_torch.ops.ssd_mega import fused_mamba_chain_torch
+    from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import fused_mamba_chain_cuda
+
+    kwargs = mamba_prod_kwargs()
+    zx, params, dims = mamba_inputs(device)
+    b, l, _ = zx.shape
+    di, n, p, q = (dims[key] for key in ("d_inner", "d_state", "headdim", "chunk"))
+    flops = mamba_chain_flops(b, l, di, n, di // p, q)[0]
     rows = {}
     for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
         args = (zx.to(dtype), *params)
@@ -575,13 +633,128 @@ def phase_mamba(device, frames) -> tuple[dict, dict]:
     return rows["bf16"], launches
 
 
-def _train_state(device, d_dtype, g_kwargs, patch, batch, seed):
-    """Seeded G and D (D in `d_dtype`), and one numpy batch
-    (bench.py:107-118) on the card."""
+CHAIN_GRADS = ("dzx", "conv_w", "conv_b", "dt_bias", "A", "D", "norm_w")
+
+
+def chain_grad_devs(got, ref) -> dict:
+    """Each of K8's seven gradients' deviation from the reference's."""
+    return {name: deviation(g, r) for name, g, r in zip(CHAIN_GRADS, got, ref)}
+
+
+def chain_grads_fail(devs: dict, label: str) -> list:
+    """The gradients outside their MAMBA_BWD_TOL bounds."""
+    return [name for name, dev in devs.items()
+            if dev["max_rel"] > MAMBA_BWD_TOL[label][name][0]
+            or dev["rms_rel"] > MAMBA_BWD_TOL[label][name][1]]
+
+
+def check_chain_grads(name: str, got, ref, label: str) -> dict:
+    """K8's gradients against the plain backward's, each at its bound;
+    prints every one; returns the worst deviation."""
+    devs = chain_grad_devs(got, ref)
+    log(f"[kernels] {name}: " + ", ".join(
+        f"{g} {d['max_rel']:.3e}/{d['rms_rel']:.3e}" for g, d in devs.items())
+        + " (max_rel/rms_rel)")
+    bad = chain_grads_fail(devs, label)
+    if bad:
+        raise AssertionError(f"{name}: {bad} exceed {MAMBA_BWD_TOL[label]}")
+    return {k: max(d[k] for d in devs.values()) for k in ("max_abs_err", "max_rel", "rms_rel")}
+
+
+def carry_cut_chain_bwd(zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w, states, dy,
+                        d_inner, d_state, headdim, chunk):
+    """The plain backward with the reverse carry of the state gradient cut
+    (every chunk's leaving-state gradient zeroed): the fault K8's bounds
+    must catch."""
+    from pixel_heal_thyself_tpu_torch.ops.ssd_mega import (
+        chain_norm_bwd,
+        chain_prologue,
+        chain_prologue_bwd,
+        chain_scan,
+        chain_scan_bwd,
+    )
+
+    zx = zxbcdt.float()
+    xbc, dt, cum = chain_prologue(zx, conv_w, conv_b, dt_bias, A, d_inner, chunk)
+    y, _ = chain_scan(xbc, dt, cum, D, d_inner, d_state, headdim, states=states)
+    dy_ssd, dz, dnw = chain_norm_bwd(y, zx[..., :d_inner], norm_w, dy.float())
+    dst_out = torch.zeros(states.shape, dtype=torch.float32, device=states.device)
+    dxbc, ddt, dA, dD = chain_scan_bwd(xbc, dt, cum, A, D, states, dst_out, dy_ssd,
+                                       d_inner, d_state, headdim)
+    dxr, dw, db, ddtr, dbias = chain_prologue_bwd(zx, conv_w, conv_b, dt_bias, dxbc, ddt,
+                                                  d_inner)
+    return torch.cat([dz, dxr, ddtr], dim=-1).to(zxbcdt.dtype), dw, db, dbias, dA, dD, dnw
+
+
+def phase_mamba_kernels(device) -> dict:
+    """Phase 8, kernels: K7's emit variant and K8 against their plain
+    versions at 8 × 16,384 tokens in bf16 and fp32, and the carry-cut
+    control, which must fail K8's bounds. Returns the bf16 rows by name."""
+    from functools import partial
+
+    from pixel_heal_thyself_tpu_torch.measure import mamba_chain_flops
+    from pixel_heal_thyself_tpu_torch.ops.ssd_mega import (
+        fused_mamba_chain_bwd_torch,
+        fused_mamba_chain_torch,
+    )
+    from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import (
+        fused_mamba_chain_bwd_cuda,
+        fused_mamba_chain_emit_cuda,
+    )
+
+    zx, params, dims = mamba_inputs(device)
+    b, l, _ = zx.shape
+    di, n, p, q = (dims[key] for key in ("d_inner", "d_state", "headdim", "chunk"))
+    fwd_flops, bwd_flops = mamba_chain_flops(b, l, di, n, di // p, q)
+    dy = torch.randn(b, l, di, generator=torch.Generator(device=device).manual_seed(8765),
+                     device=device)
+    rows = {}
+    for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        args = (zx.to(dtype), *params)
+        el = args[0].element_size()
+        out_bytes, st_bytes = b * l * di * el, b * (l // q) * n * di * el
+        tag = f"{label} ({b} × {l} tokens, d_inner {di}, d_state {n})"
+        emit = compare(
+            f"K7 emit {tag}",
+            lambda args=args: fused_mamba_chain_emit_cuda(*args, **dims),
+            lambda args=args: fused_mamba_chain_torch(*args, **dims, emit=True),
+            MAMBA_TOL[label], iters=10, plain_iters=2,
+            work=(nbytes(*args) + out_bytes + st_bytes, fwd_flops, dtype),
+        )
+        _, states = fused_mamba_chain_torch(*args, **dims, emit=True)
+        dyt = dy.to(dtype)
+        bwd_args = (*args, states, dyt)
+        # reads zxbcdt, the parameters, the states and dy; writes dzx and
+        # the parameter gradients
+        bwd = compare(
+            f"K8 {tag}",
+            lambda a=bwd_args: fused_mamba_chain_bwd_cuda(*a, **dims),
+            lambda a=bwd_args: fused_mamba_chain_bwd_torch(*a, **dims),
+            None, iters=5, plain_iters=1, check_fn=partial(check_chain_grads, label=label),
+            work=(nbytes(*bwd_args) + nbytes(*args), bwd_flops, dtype),
+        )
+        if label == "bf16":
+            rows["K7e"], rows["K8"] = emit, bwd
+            devs = chain_grad_devs(carry_cut_chain_bwd(*bwd_args, **dims),
+                                   fused_mamba_chain_bwd_torch(*bwd_args, **dims))
+            bad = chain_grads_fail(devs, label)
+            log("[kernels] control: plain backward with the state-gradient carry cut vs plain: "
+                + ", ".join(f"{g} {d['max_rel']:.3e}/{d['rms_rel']:.3e}" for g, d in devs.items())
+                + f"; outside K8's bounds: {bad}")
+            if not bad:
+                raise AssertionError("K8's bounds pass a backward without the state carry")
+        del states, bwd_args, args
+    return rows
+
+
+def _train_state(device, d_dtype, g_kwargs, patch, batch, seed, net=None):
+    """Seeded G (`net`, AFGSANet by default) and D (in `d_dtype`), and one
+    numpy batch (bench.py:107-118) on the card."""
     from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet
     from pixel_heal_thyself_tpu_torch.models.discriminators import DiscriminatorVGG
 
-    g = AFGSANet(**g_kwargs, device=device, generator=torch.Generator().manual_seed(seed))
+    g = (net or AFGSANet)(**g_kwargs, device=device,
+                          generator=torch.Generator().manual_seed(seed))
     d = DiscriminatorVGG(in_nc=3, base_nf=64, input_size=patch, dtype=d_dtype, device=device,
                          generator=torch.Generator().manual_seed(seed + 1))
     rng = np.random.default_rng(seed)
@@ -606,7 +779,7 @@ def deterministic_cudnn():
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
 
 
-def _step_grads(device, g_kwargs, patch, batch, alpha, nudge=False):
+def _step_grads(device, g_kwargs, patch, batch, alpha, nudge=False, net=None):
     """One train step from the seeded state with a float32 critic:
     (metrics, G gradients). `nudge` moves every noisy input value to the
     next bf16 value up: a change of one bf16 ulp, whose effect on the
@@ -617,14 +790,16 @@ def _step_grads(device, g_kwargs, patch, batch, alpha, nudge=False):
         make_train_step,
     )
 
-    g, d, data = _train_state(device, torch.float32, g_kwargs, patch, batch, seed=3)
+    g, d, data = _train_state(device, torch.float32, g_kwargs, patch, batch, seed=3, net=net)
     if nudge:  # the inputs are ≥ 0, so one more in the bits is one ulp up
         bits = data["noisy"].to(torch.bfloat16).view(torch.int16) + 1
         data["noisy"] = bits.view(torch.bfloat16).float()
     spec = make_optimizer(1e-4, [2], 0.5, 100)
     step = make_train_step(g, d, LossesConfig(), False, spec, spec)
     metrics = {key: val.item() for key, val in step(data, alpha=alpha).items()}
-    return metrics, {n: p.grad.detach().clone() for n, p in g.named_parameters()}
+    # (a Mamba generator's aux encoder feeds no block and gets no gradient)
+    return metrics, {n: p.grad.detach().clone() for n, p in g.named_parameters()
+                     if p.grad is not None}
 
 
 def grad_table(gk: dict, gp: dict) -> list:
@@ -639,9 +814,17 @@ def grad_table(gk: dict, gp: dict) -> list:
     return sorted(rows, key=lambda r: -r[2])
 
 
-def phase_training(device) -> dict:
-    """Phase 5. Returns the launch counts of the 7 training steps."""
-    from pixel_heal_thyself_tpu_torch.models.afgsa import afgsa_prod_kwargs, count_params
+def train_and_compare(device, net, kwargs, route, names: tuple, layers: int, literal: dict,
+                      grad_tol: tuple, tag: str) -> dict:
+    """The prod GAN step with generator `net(**kwargs)` (`route(g)` says it
+    takes its kernel route): 2 warm-up and 5
+    timed steps (finite losses; each kernel in `names` launched for every
+    one of `layers` layers of every step), then one step through the kernel
+    and plain routes, beside the plain route repeated and two witnesses of
+    the bf16 flip floor (the inputs one ulp up; the plain literal route,
+    `literal` over the plain kwargs), against `grad_tol` = (rms, mass).
+    Returns the launch counts of the 7 steps."""
+    from pixel_heal_thyself_tpu_torch.models.afgsa import count_params
     from pixel_heal_thyself_tpu_torch.training.train_step import (
         LossesConfig,
         make_optimizer,
@@ -649,14 +832,13 @@ def phase_training(device) -> dict:
     )
 
     patch, batch, warmup, timed = (TRAIN[k] for k in ("patch", "batch", "warmup", "timed"))
-    kwargs = afgsa_prod_kwargs()
-    g, d, data = _train_state(device, torch.bfloat16, kwargs, patch, batch, seed=0)
-    assert g.block_route(batch, patch, patch), "the prod step must take the block route"
+    g, d, data = _train_state(device, torch.bfloat16, kwargs, patch, batch, seed=0, net=net)
+    assert route(g), f"the prod {net.__name__} step must take its kernel route"
     spec = make_optimizer(1e-4, [2], 0.5, 100)
     step = make_train_step(g, d, LossesConfig(), False, spec, spec)
     gen = torch.Generator(device=device).manual_seed(7)
-    log(f"[train] prod step: G {count_params(g)} params (bf16, {kwargs['num_sa']} blocks, "
-        f"block route), D {count_params(d)} params; batch {batch} × {patch}², WGAN-GP + L1")
+    log(f"[{tag}] prod step: G {net.__name__} {count_params(g)} params (bf16, {layers} blocks, "
+        f"kernel route), D {count_params(d)} params; batch {batch} × {patch}², WGAN-GP + L1")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -669,60 +851,89 @@ def phase_training(device) -> dict:
         secs.append(time.perf_counter() - t0)
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
+    del g, d, data, step
 
     for i, m in enumerate(history):
         if not all(math.isfinite(val) for val in m.values()):
             raise AssertionError(f"step {i}: non-finite losses {m}")
-    need = kwargs["num_sa"] * (warmup + timed)
-    for name in ("K1", "K2", "K3", "K4", "K5", "K6"):
+    need = layers * (warmup + timed)
+    for name in names:
         if launches[name] < need:
             raise AssertionError(f"{name} launched {launches[name]} times < {need} "
-                                 "(5 blocks × 7 steps)")
+                                 f"({layers} blocks × {warmup + timed} steps)")
     steady = float(np.mean(secs[warmup:]))
-    log(f"[train] launches {launches} (need ≥ {need} each)")
-    log(f"[train] losses step 0 {history[0]}; step {len(history) - 1} {history[-1]}")
-    log(f"[train] seconds per step {[round(s_, 4) for s_ in secs]} (first {warmup} warm-up); "
+    log(f"[{tag}] launches {launches} (need ≥ {need} each of {', '.join(names)})")
+    log(f"[{tag}] losses step 0 {history[0]}; step {len(history) - 1} {history[-1]}")
+    log(f"[{tag}] seconds per step {[round(s_, 4) for s_ in secs]} (first {warmup} warm-up); "
         f"steady {steady:.4f} s/step = {batch / steady:.3f} patches/s; "
         f"peak memory {peak} B ({peak / 2**30:.3f} GiB)")
 
     alpha = torch.rand((batch, 1, 1, 1), generator=gen, device=device)
     plain = dict(kwargs, use_kernels=False)
     with deterministic_cudnn():
-        mk, gk = _step_grads(device, kwargs, patch, batch, alpha)
-        mp, gp = _step_grads(device, plain, patch, batch, alpha)
+        mk, gk = _step_grads(device, kwargs, patch, batch, alpha, net=net)
+        mp, gp = _step_grads(device, plain, patch, batch, alpha, net=net)
         # the plain route against itself (the comparison's noise floor), and
         # two witnesses of how far bf16 rounding alone moves these
         # gradients: the inputs one ulp up, and the literal route (autograd
         # through plain bf16 ops, which round at other points)
         witnesses = {
-            "plain route repeated (noise floor)": _step_grads(device, plain, patch, batch, alpha),
+            "plain route repeated (noise floor)": _step_grads(device, plain, patch, batch, alpha,
+                                                              net=net),
             "plain route, inputs one bf16 ulp up": _step_grads(device, plain, patch, batch, alpha,
-                                                              nudge=True),
-            "plain literal route": _step_grads(device, dict(plain, use_block_kernel=False),
-                                               patch, batch, alpha),
+                                                              nudge=True, net=net),
+            "plain literal route": _step_grads(device, dict(plain, **literal), patch, batch,
+                                               alpha, net=net),
         }
     for key in ("d_loss", "g_loss"):
         if abs(mk[key] - mp[key]) > STEP_LOSS_TOL * max(1.0, abs(mp[key])):
             raise AssertionError(f"{key}: kernel route {mk[key]} vs plain route {mp[key]}")
     table = grad_table(gk, gp)
     for name, rms, mass in table[:8]:
-        log(f"[train]   G gradient {name}: rms_rel {rms:.4e} mass {mass:.4e}")
-    for label, (_, gw) in witnesses.items():
+        log(f"[{tag}]   G gradient {name}: rms_rel {rms:.4e} mass {mass:.4e}")
+    log(f"[{tag}] kernel route vs plain route: G gradients worst rms_rel "
+        f"{max(r[1] for r in table):.4e}, worst mass {table[0][2]:.4e} ({table[0][0]})")
+    for label, (mw, gw) in witnesses.items():
         rows = grad_table(gw, gp)
         at = {r[0]: r for r in rows}
-        log(f"[train] {label} vs plain route: G gradients worst rms_rel "
+        log(f"[{tag}] {label} vs plain route: d_loss {mw['d_loss']:.6g}, g_loss "
+            f"{mw['g_loss']:.6g}; G gradients worst rms_rel "
             f"{max(r[1] for r in rows):.4e}, worst mass {rows[0][2]:.4e} ({rows[0][0]}); "
             + ", ".join(f"{n} rms_rel {at[n][1]:.4e} mass {at[n][2]:.4e}" for n, *_ in table[:3]))
     for name, rms, mass in table:
-        if rms > STEP_GRAD_TOL[0] or mass > STEP_GRAD_TOL[1]:
+        if rms > grad_tol[0] or mass > grad_tol[1]:
             raise AssertionError(f"G gradient {name}: rms {rms:.3e} mass {mass:.3e} "
-                                 f"> {STEP_GRAD_TOL}")
+                                 f"> {grad_tol}")
     dev = deviation(list(gk.values()), list(gp.values()))
-    log(f"[train] one step (float32 critic), kernel route vs plain route: d_loss {mk['d_loss']:.6g} vs "
-        f"{mp['d_loss']:.6g}, g_loss {mk['g_loss']:.6g} vs {mp['g_loss']:.6g}; G gradients "
-        f"worst max_rel {dev['max_rel']:.6g} rms_rel {dev['rms_rel']:.6g} "
-        f"(bounds rms {STEP_GRAD_TOL[0]}, mass {STEP_GRAD_TOL[1]})")
+    log(f"[{tag}] one step (float32 critic), kernel route vs plain route: d_loss "
+        f"{mk['d_loss']:.6g} vs {mp['d_loss']:.6g}, g_loss {mk['g_loss']:.6g} vs "
+        f"{mp['g_loss']:.6g}; G gradients worst max_rel {dev['max_rel']:.6g} rms_rel "
+        f"{dev['rms_rel']:.6g} (bounds rms {grad_tol[0]}, mass {grad_tol[1]})")
     return launches
+
+
+def phase_training(device) -> dict:
+    """Phase 5. Returns the launch counts of the 7 training steps."""
+    from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet, afgsa_prod_kwargs
+
+    kwargs = afgsa_prod_kwargs()
+    patch = TRAIN["patch"]
+    return train_and_compare(device, AFGSANet, kwargs,
+                             lambda g: g.block_route(TRAIN["batch"], patch, patch),
+                             ("K1", "K2", "K3", "K4", "K5", "K6"), kwargs["num_sa"],
+                             dict(use_block_kernel=False), STEP_GRAD_TOL, "train")
+
+
+def phase_mamba_training(device) -> dict:
+    """Phase 8, training. Returns the launch counts of the 7 steps."""
+    from pixel_heal_thyself_tpu_torch.models.mamba import MambaDenoiserNet, mamba_prod_kwargs
+
+    kwargs = mamba_prod_kwargs()
+    tokens = TRAIN["patch"] ** 2
+    return train_and_compare(device, MambaDenoiserNet, kwargs,
+                             lambda g: all(blk.mamba.fused_route(tokens) for blk in g.blocks),
+                             ("K7e", "K8"), kwargs["num_blocks"], dict(use_megakernel=False),
+                             MAMBA_STEP_GRAD_TOL, "mamba-train")
 
 
 def phase_literal(device) -> dict:
@@ -800,9 +1011,11 @@ def main() -> None:
     training = phase_training(device)
     phase_literal(device)
     results["K7"], mamba = phase_mamba(device, frames)
+    results.update(phase_mamba_kernels(device))
+    mamba_training = phase_mamba_training(device)
     # each kernel's count from the path it was ported for
     path = {"K1": serving, "K2": serving, "K3": serving, "K4": training, "K5": training,
-            "K6": training, "K7": mamba}
+            "K6": training, "K7": mamba, "K7e": mamba_training, "K8": mamba_training}
     line = []
     for name, info in KERNELS.items():
         res = results[name]

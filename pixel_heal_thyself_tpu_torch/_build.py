@@ -62,8 +62,14 @@ _SIGNATURES = {
     # part, out, len, splits, stream
     "pht_sum_splits": [_P, _P, ctypes.c_longlong, _I, _P],
     # zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w, xbc, dt, cum, states,
-    # y, out, B, L, d_inner, d_state, heads, d_conv, chunk, is_bf16, stream
-    "pht_ssd_chain_fwd": [_P] * 13 + [_I] * 8 + [_P],
+    # y, out, states_emit, B, L, d_inner, d_state, heads, d_conv, chunk,
+    # is_bf16, stream
+    "pht_ssd_chain_fwd": [_P] * 14 + [_I] * 8 + [_P],
+    # zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w, states, dy; scratch xbc,
+    # dt, cum, y, dstate, W, dS, dcum, dxbc, wb_part, nw_part, pv_part;
+    # dzx, dwb, dpv, dnw, B, L, d_inner, d_state, heads, d_conv, chunk,
+    # is_bf16, stream
+    "pht_ssd_chain_bwd": [_P] * 25 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()
@@ -155,13 +161,14 @@ def refuse_autograd(what: str, *tensors) -> None:
     A kernel launched through ctypes returns a tensor with no `grad_fn`, so
     a call in grad mode would silently cut the graph. The kernel wrappers
     and their dispatchers call this first; gradients go through
-    `BlockHaloAttentionFn` / `TransformerBlockFn`, whose `forward` runs with
-    grad mode off."""
+    `BlockHaloAttentionFn` / `TransformerBlockFn` / `MambaChainFn`, whose
+    `forward` runs with grad mode off."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{what} is not differentiable: an input requires grad in grad mode. "
-            "Call it through ops.attention.BlockHaloAttentionFn or "
-            "ops.block_cuda.TransformerBlockFn, or under torch.no_grad()",
+            "Call it through ops.attention.BlockHaloAttentionFn, "
+            "ops.block_cuda.TransformerBlockFn or ops.ssd_mega.MambaChainFn, "
+            "or under torch.no_grad()",
         )
 
 

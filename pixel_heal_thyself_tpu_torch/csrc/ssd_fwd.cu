@@ -3,7 +3,11 @@
 // Replaces the TPU kernel `_fwd_kernel_infer` in
 // pixel_heal_thyself_tpu/ops/ssd_mega.py:256 (body `_fwd_body` :210,
 // launched by `_fwd` :424, `pallas_call` :463): everything of a Mamba2
-// layer between in_proj and out_proj.
+// layer between in_proj and out_proj; and, given a `states_emit` buffer,
+// its training variant `_fwd_kernel_train` (:252, `pallas_call` :475),
+// which also stores the state entering each chunk rounded to the input
+// dtype (the residual of the backward K8, ssd_bwd.cu). The TPU variant's
+// conv tails need no counterpart: K8 reads the raw rows from zxbcdt.
 //
 // What it computes, from zxbcdt [B, L, 2*di + 2*n + h] (bf16 or f32; z |
 // xBC | dt, ngroups 1), with every intermediate in f32:
@@ -37,7 +41,8 @@
 //   2. chunk state (head, chunk, batch): S = B^T (dt decay x) [n, p] from a
 //      zero state -> f32 states [B, nc, h, n, p].
 //   3. state pass (element, head, batch): walks the chunks in order and
-//      overwrites each S with the state entering its chunk.
+//      overwrites each S with the state entering its chunk (and, emitting,
+//      writes that state rounded to the input dtype beside it).
 //   4. chunk output (head, chunk, batch): the intra-chunk product, the
 //      readout of the entering state and the D skip -> f32 y [B, L, di].
 //   5. gated RMSNorm (token): gate, mean square, norm weight, rounding.
@@ -52,99 +57,11 @@
 // (4 at prod: 163 KB, one CTA per SM) and register-block 4 x 4 outputs per
 // thread so that two 16-byte shared loads feed 16 FMAs. Fusing the norm
 // (clusters with DSMEM) and tensor-core products are later work.
+// Launches 1 and 4 live in ssd_chain.cuh, shared with K8.
 
-#include "common.cuh"
+#include "ssd_chain.cuh"
 
 namespace {
-
-using namespace pht;
-
-constexpr int kThreads = 256;
-constexpr int kMaxConv = 9;  // d_conv <= 9, as the TPU kernel's gate
-constexpr float kEps = 1e-5f;
-
-__device__ __forceinline__ float silu(float x) { return x / (1.f + expf(-x)); }
-
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));  // jax.nn.softplus
-}
-
-__device__ __forceinline__ void fma4x4(float (&acc)[4][4], const float4 a, const float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int s = 0; s < 4; ++s) acc[r][s] = fmaf(av[r], bv[s], acc[r][s]);
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-
-struct Dims {
-  int B, L, di, n, h, p, k, q, nc, dc, W;
-};
-
-// ---- 1. prologue ------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(kThreads) ssd_prologue_kernel(
-    const T* __restrict__ zx, const float* __restrict__ conv_w,
-    const float* __restrict__ conv_b, const float* __restrict__ dt_bias,
-    const float* __restrict__ A, float* __restrict__ xbc, float* __restrict__ dt,
-    float* __restrict__ cum, Dims d) {
-  const int c = blockIdx.x, b = blockIdx.y;
-  const long row0 = (long)b * d.L + (long)c * d.q;  // the chunk's first token
-  if (blockIdx.z + 1 < gridDim.z) {
-    const int ch = blockIdx.z * kThreads + threadIdx.x;
-    if (ch >= d.dc) return;
-    const T* src = zx + d.di + ch;
-    float w[kMaxConv], win[kMaxConv - 1];
-#pragma unroll
-    for (int j = 0; j < kMaxConv; ++j) w[j] = j < d.k ? conv_w[(long)j * d.dc + ch] : 0.f;
-    const float bias = conv_b[ch];
-    // win[j] = raw x[t - (k - 1) + j] for the next t
-#pragma unroll
-    for (int j = 0; j < kMaxConv - 1; ++j) {
-      const int t = c * d.q - (d.k - 1) + j;
-      win[j] = (j < d.k - 1 && t >= 0) ? to_f32(src[((long)b * d.L + t) * d.W]) : 0.f;
-    }
-#pragma unroll 4
-    for (int t = 0; t < d.q; ++t) {
-      const float xr = to_f32(src[(row0 + t) * d.W]);
-      float acc = 0.f;
-#pragma unroll
-      for (int j = 0; j < kMaxConv; ++j)
-        if (j == d.k - 1) acc = xr * w[j];
-#pragma unroll
-      for (int j = 0; j < kMaxConv - 1; ++j)
-        if (j < d.k - 1) acc = fmaf(win[j], w[j], acc);
-      xbc[(row0 + t) * d.dc + ch] = silu(acc + bias);
-#pragma unroll
-      for (int j = 0; j < kMaxConv - 1; ++j) {
-        if (j < d.k - 2) win[j] = win[j + 1];
-        else if (j == d.k - 2) win[j] = xr;
-      }
-    }
-    return;
-  }
-  // the chunk's dt and in-chunk cumsum of dt * A, one thread per head
-  for (int hh = threadIdx.x; hh < d.h; hh += kThreads) {
-    const float bias = dt_bias[hh], a = A[hh];
-    const T* src = zx + d.di + d.dc + hh;
-    float run = 0.f;
-    for (int t = 0; t < d.q; ++t) {
-      const float v = softplus(to_f32(src[(row0 + t) * d.W]) + bias);
-      run += v * a;
-      dt[(row0 + t) * d.h + hh] = v;
-      cum[(row0 + t) * d.h + hh] = run;
-    }
-  }
-}
 
 // ---- 2. chunk state ----------------------------------------------------------
 __host__ __device__ inline size_t state_smem_floats(int q, int n, int p) {
@@ -187,13 +104,16 @@ __global__ void __launch_bounds__(kThreads) ssd_chunk_state_kernel(
 }
 
 // ---- 3. state pass -----------------------------------------------------------
+template <typename T>
 __global__ void __launch_bounds__(kThreads) ssd_state_pass_kernel(
-    float* __restrict__ states, const float* __restrict__ cum, Dims d) {
+    float* __restrict__ states, T* __restrict__ emit, const float* __restrict__ cum, Dims d) {
   const int np = d.n * d.p;
   const int e = blockIdx.x * kThreads + threadIdx.x, hh = blockIdx.y, b = blockIdx.z;
   if (e >= np) return;
   float st = 0.f;
-  float* s = states + ((long)b * d.nc * d.h + hh) * np + e;
+  const long off = ((long)b * d.nc * d.h + hh) * np + e;
+  float* s = states + off;
+  T* em = emit == nullptr ? nullptr : emit + off;
   const float* last = cum + ((long)b * d.L + d.q - 1) * d.h + hh;
   const long cs = (long)d.h * np, cl = (long)d.q * d.h;
   // loads of kBatch chunks first, then their stores: the chain's only
@@ -209,99 +129,11 @@ __global__ void __launch_bounds__(kThreads) ssd_state_pass_kernel(
     }
 #pragma unroll
     for (int i = 0; i < kBatch; ++i) {
-      if (c0 + i < d.nc) s[(c0 + i) * cs] = st;  // the state entering chunk c0 + i
-      st = fmaf(a[i], st, inc[i]);
-    }
-  }
-}
-
-// ---- 4. chunk output ----------------------------------------------------------
-__host__ __device__ inline size_t output_smem_floats(int q, int n, int p) {
-  const size_t ct = (size_t)n * (q + 4);
-  return ct + (ct > (size_t)n * p ? ct : (size_t)n * p) + (size_t)q * q + (size_t)q * p + 2 * q;
-}
-
-__global__ void __launch_bounds__(kThreads) ssd_chunk_output_kernel(
-    const float* __restrict__ xbc, const float* __restrict__ dt,
-    const float* __restrict__ cum, const float* __restrict__ states,
-    const float* __restrict__ Dp, float* __restrict__ y, Dims d) {
-  const int hh = blockIdx.x, c = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int q = d.q, n = d.n, p = d.p, ldq = q + 4;
-  const long row0 = (long)b * d.L + (long)c * q;
-  extern __shared__ __align__(16) float smem[];
-  float* s_ct = smem;                                   // [n][q+4]  C^T
-  float* s_bt = s_ct + (size_t)n * ldq;                 // [n][q+4]  B^T, then st [n][p]
-  const size_t bt = (size_t)n * ldq > (size_t)n * p ? (size_t)n * ldq : (size_t)n * p;
-  float* s_wt = s_bt + bt;                              // [q(j)][q(t)]  W^T
-  float* s_x = s_wt + (size_t)q * q;                    // [q][p]
-  float* s_cum = s_x + (size_t)q * p;                   // [q]
-  float* s_dt = s_cum + q;                              // [q]
-
-  for (int j = tid; j < q; j += kThreads) {
-    s_cum[j] = cum[(row0 + j) * d.h + hh];
-    s_dt[j] = dt[(row0 + j) * d.h + hh];
-  }
-  for (int idx = tid; idx < q * p; idx += kThreads) {
-    const int j = idx / p, e = idx - j * p;
-    s_x[idx] = xbc[(row0 + j) * d.dc + hh * p + e];
-  }
-  // B^T and C^T: a thread reads 4 tokens of one channel, stores 16 bytes
-  for (int idx = tid; idx < 2 * n * (q / 4); idx += kThreads) {
-    const int which = idx / (n * (q / 4)), rest = idx - which * n * (q / 4);
-    const int i = rest % n, t0 = (rest / n) * 4;
-    const float* src = xbc + (row0 + t0) * d.dc + d.di + which * n + i;
-    st4((which ? s_ct : s_bt) + i * ldq + t0, src[0], src[d.dc], src[2 * d.dc], src[3 * d.dc]);
-  }
-  __syncthreads();
-
-  // W^T[j][t] = (C_t . B_j) exp(cum_t - cum_j) dt_j for j <= t, else 0;
-  // consecutive threads take consecutive row tiles t, so the stores are
-  // conflict-free and B^T is a broadcast
-  const int tq = q / 4;
-  for (int tile = tid; tile < tq * tq; tile += kThreads) {
-    const int t0 = (tile % tq) * 4, j0 = (tile / tq) * 4;
-    float acc[4][4] = {};
-    if (j0 <= t0 + 3)
-      for (int k = 0; k < n; ++k) fma4x4(acc, ld4(s_ct + k * ldq + t0), ld4(s_bt + k * ldq + j0));
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int j = j0 + s;
-      float o[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int t = t0 + r;
-        o[r] = j <= t ? acc[r][s] * expf(s_cum[t] - s_cum[j]) * s_dt[j] : 0.f;
+      if (c0 + i < d.nc) {
+        s[(c0 + i) * cs] = st;  // the state entering chunk c0 + i
+        if (em != nullptr) em[(c0 + i) * cs] = from_f32<T>(st);
       }
-      st4(s_wt + j * q + t0, o[0], o[1], o[2], o[3]);
-    }
-  }
-  __syncthreads();
-  // the state entering this chunk replaces B^T
-  const float4* st_src = reinterpret_cast<const float4*>(
-      states + (((long)b * d.nc + c) * d.h + hh) * n * p);
-  for (int idx = tid; idx < n * p / 4; idx += kThreads)
-    reinterpret_cast<float4*>(s_bt)[idx] = st_src[idx];
-  __syncthreads();
-
-  const float Dh = Dp[hh];
-  const int pc = p / 4;
-  for (int tile = tid; tile < tq * pc; tile += kThreads) {
-    const int t0 = (tile / pc) * 4, e0 = (tile % pc) * 4;
-    float acc[4][4] = {};
-    for (int k = 0; k < n; ++k) fma4x4(acc, ld4(s_ct + k * ldq + t0), ld4(s_bt + k * p + e0));
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float e = expf(s_cum[t0 + r]);
-#pragma unroll
-      for (int s = 0; s < 4; ++s) acc[r][s] *= e;
-    }
-    const int jend = min(q, t0 + 4);
-    for (int j = 0; j < jend; ++j) fma4x4(acc, ld4(s_wt + j * q + t0), ld4(s_x + j * p + e0));
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float4 xv = ld4(s_x + (t0 + r) * p + e0);
-      st4(y + (row0 + t0 + r) * d.di + hh * p + e0, fmaf(xv.x, Dh, acc[r][0]),
-          fmaf(xv.y, Dh, acc[r][1]), fmaf(xv.z, Dh, acc[r][2]), fmaf(xv.w, Dh, acc[r][3]));
+      st = fmaf(a[i], st, inc[i]);
     }
   }
 }
@@ -336,7 +168,7 @@ __global__ void __launch_bounds__(kThreads) gated_rmsnorm_kernel(
 template <typename T>
 int launch(const void* zx, const float* conv_w, const float* conv_b, const float* dt_bias,
            const float* A, const float* D, const float* norm_w, float* xbc, float* dt,
-           float* cum, float* states, float* y, void* out, Dims d, cudaStream_t s) {
+           float* cum, float* states, float* y, void* out, void* emit, Dims d, cudaStream_t s) {
   const size_t state_smem = state_smem_floats(d.q, d.n, d.p) * sizeof(float);
   const size_t out_smem = output_smem_floats(d.q, d.n, d.p) * sizeof(float);
   if (state_smem > kMaxSmem || out_smem > kMaxSmem || d.k > kMaxConv || d.k < 1 ||
@@ -357,14 +189,14 @@ int launch(const void* zx, const float* conv_w, const float* conv_b, const float
       xbc, dt, cum, states, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  ssd_state_pass_kernel<<<dim3((d.n * d.p + kThreads - 1) / kThreads, d.h, d.B), kThreads, 0,
-                          s>>>(states, cum, d);
+  ssd_state_pass_kernel<T><<<dim3((d.n * d.p + kThreads - 1) / kThreads, d.h, d.B), kThreads,
+                             0, s>>>(states, static_cast<T*>(emit), cum, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  err = cudaFuncSetAttribute(ssd_chunk_output_kernel,
+  err = cudaFuncSetAttribute(ssd_chunk_output_kernel<float>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)out_smem);
   if (err != cudaSuccess) return (int)err;
-  ssd_chunk_output_kernel<<<dim3(d.h, d.nc, d.B), kThreads, out_smem, s>>>(
+  ssd_chunk_output_kernel<float><<<dim3(d.h, d.nc, d.B), kThreads, out_smem, s>>>(
       xbc, dt, cum, states, D, y, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
@@ -380,11 +212,13 @@ extern "C" {
 // zxbcdt [B, L, 2 di + 2 n + h] (bf16 or f32); f32 conv_w [k, di + 2n],
 // conv_b [di + 2n], dt_bias, A, D [h], norm_w [di]; f32 scratch xbc
 // [B, L, di + 2n], dt and cum [B, L, h], states [B, L/q, h, n, di/h],
-// y [B, L, di]; out [B, L, di] in zxbcdt's dtype.
+// y [B, L, di]; out [B, L, di] in zxbcdt's dtype; states_emit (nullable)
+// [B, L/q, h, n, di/h] in zxbcdt's dtype.
 int pht_ssd_chain_fwd(const void* zx, const void* conv_w, const void* conv_b,
                       const void* dt_bias, const void* A, const void* D, const void* norm_w,
-                      void* xbc, void* dt, void* cum, void* states, void* y, void* out, int B,
-                      int L, int di, int n, int h, int k, int q, int is_bf16, void* stream) {
+                      void* xbc, void* dt, void* cum, void* states, void* y, void* out,
+                      void* states_emit, int B, int L, int di, int n, int h, int k, int q,
+                      int is_bf16, void* stream) {
   Dims d;
   d.B = B; d.L = L; d.di = di; d.n = n; d.h = h; d.p = di / h; d.k = k; d.q = q;
   d.nc = L / q; d.dc = di + 2 * n; d.W = 2 * di + 2 * n + h;
@@ -398,8 +232,10 @@ int pht_ssd_chain_fwd(const void* zx, const void* conv_w, const void* conv_b,
   float* yp = static_cast<float*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<bf16>(zx, f[0], f[1], f[2], f[3], f[4], f[5], xb, dtp, cp, sp, yp, out, d, s);
-  return launch<float>(zx, f[0], f[1], f[2], f[3], f[4], f[5], xb, dtp, cp, sp, yp, out, d, s);
+    return launch<bf16>(zx, f[0], f[1], f[2], f[3], f[4], f[5], xb, dtp, cp, sp, yp, out,
+                        states_emit, d, s);
+  return launch<float>(zx, f[0], f[1], f[2], f[3], f[4], f[5], xb, dtp, cp, sp, yp, out,
+                       states_emit, d, s);
 }
 
 }  // extern "C"

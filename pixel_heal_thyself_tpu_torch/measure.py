@@ -73,26 +73,36 @@ def afgsa_work() -> dict:
     }
 
 
-def mamba_work() -> dict:
-    """(bytes, FLOP) of the Mamba TPU kernels at 8 × 16,384 tokens."""
-    b, l, di, n, h, q, k = 8, 16384, 1024, 64, 16, 128, 4
-    p, dc, nc = di // h, di + 2 * n, l // q
-    width = 2 * di + 2 * n + h
-    zx, y = b * l * width * BF16, b * l * di * BF16
+def mamba_chain_flops(b: int, l: int, di: int, n: int, h: int, q: int) -> tuple:
+    """FLOP of the fused Mamba2 interior's forward and backward (TPU #5,
+    #6) at b × l tokens: (forward, backward)."""
+    p, nc = di // h, l // q
     # per (batch, chunk): C·Bᵀ, the intra-chunk products, the state's
     # readout and update
     fwd = b * nc * (2 * q * q * n + 2 * h * q * q * p + 4 * q * n * di)
-    states = b * nc * n * di * BF16          # the emit variant's per-chunk states
-    tails = b * nc * 8 * dc * BF16           # ... and conv tails
     # the backward recomputes the chunk (3 of the forward's products) and
     # runs two more per product: dw3 and dxdt; dC, dst, dB, dxdt_s
     bwd = b * nc * (3 * 2 * h * q * q * p + 6 * 2 * q * n * di + 3 * 2 * q * q * n)
+    return fwd, bwd
+
+
+def mamba_work() -> dict:
+    """(bytes, FLOP) of the Mamba TPU kernels at 8 × 16,384 tokens, with
+    the port's residuals: the emit variant stores the entering states (no
+    conv tails: the backward reads the raw rows from zxbcdt)."""
+    b, l, di, n, h, q, k = 8, 16384, 1024, 64, 16, 128, 4
+    dc, nc = di + 2 * n, l // q
+    width = 2 * di + 2 * n + h
+    zx, y = b * l * width * BF16, b * l * di * BF16
+    fwd, bwd = mamba_chain_flops(b, l, di, n, h, q)
+    states = b * nc * n * di * BF16          # the emit variant's per-chunk states
     xbc = b * l * dc * BF16
     ssd_in = b * l * (di + h + 2 * n) * BF16  # x, dt, B, C
     return {
         "#5 ssd_mega.py:256 _fwd_kernel_infer": (zx + y, fwd),
-        "#5 ssd_mega.py:252 _fwd_kernel_train (emit)": (zx + y + states + tails, fwd),
-        "#6 ssd_mega.py:260 _bwd_kernel": (2 * zx + y + states + tails, bwd),
+        "#5 ssd_mega.py:252 _fwd_kernel_train (emit)": (zx + y + states, fwd),
+        # reads zxbcdt, the states and dy, writes dzx
+        "#6 ssd_mega.py:260 _bwd_kernel": (2 * zx + y + states, bwd),
         "#7 conv_pallas.py:147 _fwd_kernel": (2 * xbc, 2 * b * l * dc * k),
         "#7 conv_pallas.py:158 _bwd_kernel": (3 * xbc, 4 * b * l * dc * k),
         "#8 ssd.py:324 _ssd_fwd_kernel": (ssd_in + y, fwd),

@@ -13,17 +13,20 @@ reference stay pinned, as in the JAX package:
 
 Two switches pick the route through each Mamba2 layer, after AFGSANet's:
 - `use_megakernel`: the fused layer interior (`ops/ssd_mega.py`, the port
-  of the TPU `_fwd_kernel_infer`) whenever `supports_shapes` admits the
-  geometry; otherwise the literal chain (causal conv1d → SiLU → softplus
-  dt → `ssd_chunked` → `RMSNormGated`), which has no kernel;
-- `use_kernels`: the fused interior through its dispatcher (the kernel
-  for CUDA tensors, the plain version for CPU tensors). False calls the
-  plain version directly on any device — the reference the kernel is held
-  against on the card.
+  of the TPU `ssd_mega.fused_mamba_chain`) whenever `supports_shapes`
+  admits the geometry; otherwise the literal chain (causal conv1d → SiLU →
+  softplus dt → `ssd_chunked` → `RMSNormGated`), which has no kernel;
+- `use_kernels`: the fused interior through its kernels (K7 forward, K8
+  backward) for CUDA tensors and their plain versions for CPU tensors.
+  False runs the plain versions on any device — the reference the kernels
+  are held against on the card.
 
-The fused route is forward only: in grad mode with parameters that
-require grad its dispatcher raises (the backward kernel comes with Mamba
-training). `num_gcp` checkpoints the last `num_gcp` blocks in grad mode.
+In grad mode the fused route goes through `ssd_mega.MambaChainFn` (K7's
+emit variant forward, K8 backward; the TPU custom VJP's pair), as
+AFGSANet's block route goes through `TransformerBlockFn`; out of it, the
+forward alone. `num_gcp` checkpoints the last `num_gcp` blocks in grad
+mode (the Function's forward is deterministic, so the recompute gives the
+same states).
 """
 
 from __future__ import annotations
@@ -158,11 +161,16 @@ class Mamba2Layer(nn.Module):
         zxbcdt = F.linear(u.to(self.dtype), self.in_proj.weight.to(self.dtype))
         A = -torch.exp(self.A_log)
         if self.fused_route(l):
-            chain = (ssd_mega.fused_mamba_chain if self.use_kernels
-                     else ssd_mega.fused_mamba_chain_torch)
-            y = chain(zxbcdt.contiguous(), self.conv1d_weight, self.conv1d_bias, self.dt_bias,
-                      A, self.D, self.norm.weight, d_inner=di, d_state=n, headdim=p,
-                      chunk=self.chunk_size)
+            params = (self.conv1d_weight, self.conv1d_bias, self.dt_bias, A, self.D,
+                      self.norm.weight)
+            if torch.is_grad_enabled():
+                cfg = ssd_mega.MambaChainConfig(di, n, p, self.chunk_size, self.use_kernels)
+                y = ssd_mega.MambaChainFn.apply(cfg, zxbcdt.contiguous(), *params)
+            else:
+                chain = (ssd_mega.fused_mamba_chain if self.use_kernels
+                         else ssd_mega.fused_mamba_chain_torch)
+                y = chain(zxbcdt.contiguous(), *params, d_inner=di, d_state=n, headdim=p,
+                          chunk=self.chunk_size)
         else:
             z = zxbcdt[..., :di]
             xbc = F.silu(causal_depthwise_conv1d(

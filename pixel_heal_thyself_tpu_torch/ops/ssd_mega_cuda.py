@@ -1,17 +1,25 @@
-"""Wrapper of the fused Mamba2-chain forward kernel K7 (`csrc/ssd_fwd.cu`).
+"""Wrappers of the fused Mamba2-chain kernels: the forward K7
+(`csrc/ssd_fwd.cu`) and the backward K8 (`csrc/ssd_bwd.cu`).
 
 K7 replaces the TPU kernel `pixel_heal_thyself_tpu/ops/ssd_mega.py:256`
-(`_fwd_kernel_infer`). It runs as five launches on the current stream
-(prologue, chunk states, state pass, chunk outputs, gated RMSNorm; design
-in the source's header) with f32 scratch allocated here: at the prod
-serving shape (8 × 16,384 tokens, d_inner 1024, d_state 64) 1.4 GB. The
-plain version is `ops.ssd_mega.fused_mamba_chain_torch`.
-`fused_mamba_chain_cuda.launches` counts the calls that launched.
+(`_fwd_kernel_infer`) and, with `emit=True`, its training variant
+`_fwd_kernel_train` (:252), which also returns the state entering each
+chunk in the input dtype: K7's state pass writes that rounded copy beside
+the f32 states it keeps for the chunk outputs. K7 runs as five launches on
+the current stream (prologue, chunk states, state pass, chunk outputs,
+gated RMSNorm; design in the source's header) with f32 scratch allocated
+here: at the prod shape (8 × 16,384 tokens, d_inner 1024, d_state 64)
+1.4 GB. K8 replaces the TPU kernel `_bwd_kernel` (:260): the VJP at those
+saved states, in eleven launches with 4.5 GB of f32 scratch at that shape
+(design in `csrc/ssd_bwd.cu`). The plain versions are
+`ops.ssd_mega.fused_mamba_chain_torch` and `fused_mamba_chain_bwd_torch`.
+`fused_mamba_chain_cuda.launches`, `fused_mamba_chain_emit_cuda.launches`
+and `fused_mamba_chain_bwd_cuda.launches` count the calls that launched.
 
 Beyond `supports_shapes`, the card limits a chunk's shared memory to one
-CTA's 227 KB: the C entry refuses a larger one (d_state 128 at headdim 64
-and chunk 128, which no config uses) with cudaErrorInvalidValue before it
-launches anything, and `_build.check` raises.
+CTA's 227 KB: the C entries refuse a larger one (d_state 128 at headdim 64
+and chunk 128, which no config uses) with cudaErrorInvalidValue before
+they launch anything, and `_build.check` raises.
 """
 
 from __future__ import annotations
@@ -21,26 +29,29 @@ import torch
 from pixel_heal_thyself_tpu_torch import _build
 
 
-def fused_mamba_chain_cuda(
-    zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w,
-    d_inner: int, d_state: int, headdim: int, chunk: int = 128,
-) -> torch.Tensor:
-    """Launch K7: zxbcdt [b, l, 2·d_inner + 2·d_state + h] (bf16 or fp32,
-    contiguous, on a CUDA device) → [b, l, d_inner] in its dtype."""
+def _checked(what: str, zxbcdt, conv_w, dt_bias, d_inner, d_state, headdim, chunk,
+             *tensors) -> tuple:
+    """Refuse what the kernels do not take; (b, l, k, dc, h)."""
     from pixel_heal_thyself_tpu_torch.ops.ssd_mega import chain_dims, supports_shapes
 
-    _build.refuse_autograd("fused_mamba_chain_cuda", zxbcdt, conv_w, conv_b, dt_bias, A, D,
-                           norm_w)
+    _build.refuse_autograd(what, zxbcdt, conv_w, dt_bias, *tensors)
     if zxbcdt.device.type != "cuda":
-        raise ValueError(f"fused_mamba_chain_cuda needs a CUDA tensor, got {zxbcdt.device}")
+        raise ValueError(f"{what} needs a CUDA tensor, got {zxbcdt.device}")
     if zxbcdt.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"fused_mamba_chain_cuda: dtype {zxbcdt.dtype} (bf16 or fp32)")
+        raise TypeError(f"{what}: dtype {zxbcdt.dtype} (bf16 or fp32)")
     if not zxbcdt.is_contiguous():
-        raise ValueError("fused_mamba_chain_cuda needs a contiguous zxbcdt")
+        raise ValueError(f"{what} needs a contiguous zxbcdt")
     b, l, k, dc, h = chain_dims(zxbcdt, conv_w, dt_bias, d_inner, d_state, headdim)
     if not supports_shapes(l, d_inner, 1, d_state, headdim, k, chunk):
-        raise ValueError(f"fused_mamba_chain_cuda: unsupported shape l={l}, d_inner={d_inner}, "
+        raise ValueError(f"{what}: unsupported shape l={l}, d_inner={d_inner}, "
                          f"d_state={d_state}, headdim={headdim}, d_conv={k}, chunk={chunk}")
+    return b, l, k, dc, h
+
+
+def _launch_fwd(what: str, zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w,
+                d_inner: int, d_state: int, headdim: int, chunk: int, emit: bool):
+    b, l, k, dc, h = _checked(what, zxbcdt, conv_w, dt_bias, d_inner, d_state, headdim, chunk,
+                              conv_b, A, D, norm_w)
     dev = zxbcdt.device
     f32 = dict(dtype=torch.float32, device=dev)
     params = [t.to(**f32).contiguous() for t in (conv_w, conv_b, dt_bias, A, D, norm_w)]
@@ -50,15 +61,100 @@ def fused_mamba_chain_cuda(
     states = torch.empty(b, l // chunk, h, d_state, headdim, **f32)
     y = torch.empty(b, l, d_inner, **f32)
     out = torch.empty(b, l, d_inner, dtype=zxbcdt.dtype, device=dev)
+    bf = zxbcdt.dtype == torch.bfloat16
+    # bf16: the state pass writes a rounded copy; fp32: the states are it
+    emitted = torch.empty(states.shape, dtype=zxbcdt.dtype, device=dev) if emit and bf else None
     err = _build.lib().pht_ssd_chain_fwd(
         zxbcdt.data_ptr(), *(t.data_ptr() for t in params),
         xbc.data_ptr(), dt.data_ptr(), cum.data_ptr(), states.data_ptr(), y.data_ptr(),
-        out.data_ptr(), b, l, d_inner, d_state, h, k, chunk,
-        int(zxbcdt.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
+        out.data_ptr(), None if emitted is None else emitted.data_ptr(),
+        b, l, d_inner, d_state, h, k, chunk, int(bf), torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(err, "fused_mamba_chain_cuda")
+    _build.check(err, what)
+    if not emit:
+        return out
+    return out, (states if emitted is None else emitted)
+
+
+def fused_mamba_chain_cuda(
+    zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w,
+    d_inner: int, d_state: int, headdim: int, chunk: int = 128,
+) -> torch.Tensor:
+    """Launch K7: zxbcdt [b, l, 2·d_inner + 2·d_state + h] (bf16 or fp32,
+    contiguous, on a CUDA device) → [b, l, d_inner] in its dtype."""
+    out = _launch_fwd("fused_mamba_chain_cuda", zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w,
+                      d_inner, d_state, headdim, chunk, emit=False)
     fused_mamba_chain_cuda.launches += 1
     return out
 
 
 fused_mamba_chain_cuda.launches = 0
+
+
+def fused_mamba_chain_emit_cuda(
+    zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w,
+    d_inner: int, d_state: int, headdim: int, chunk: int = 128,
+) -> tuple:
+    """Launch K7's emit variant: (the output, as `fused_mamba_chain_cuda`;
+    the state entering each chunk [b, l/chunk, h, d_state, headdim] in
+    zxbcdt's dtype)."""
+    res = _launch_fwd("fused_mamba_chain_emit_cuda", zxbcdt, conv_w, conv_b, dt_bias, A, D,
+                      norm_w, d_inner, d_state, headdim, chunk, emit=True)
+    fused_mamba_chain_emit_cuda.launches += 1
+    return res
+
+
+fused_mamba_chain_emit_cuda.launches = 0
+
+
+def fused_mamba_chain_bwd_cuda(
+    zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w, states, dy,
+    d_inner: int, d_state: int, headdim: int, chunk: int = 128,
+) -> tuple:
+    """Launch K8: the VJP of K7 at the emitted entering `states` ([b,
+    l/chunk, h, d_state, headdim], zxbcdt's dtype) for the output gradient
+    `dy` [b, l, d_inner] → (dzx in zxbcdt's dtype, dconv_w, dconv_b,
+    ddt_bias, dA, dD, dnorm_w in their parameters' dtypes)."""
+    b, l, k, dc, h = _checked("fused_mamba_chain_bwd_cuda", zxbcdt, conv_w, dt_bias, d_inner,
+                              d_state, headdim, chunk, conv_b, A, D, norm_w, states, dy)
+    nc, q, n, p = l // chunk, chunk, d_state, headdim
+    if tuple(states.shape) != (b, nc, h, n, p) or tuple(dy.shape) != (b, l, d_inner):
+        raise ValueError(f"fused_mamba_chain_bwd_cuda: states {tuple(states.shape)} / dy "
+                         f"{tuple(dy.shape)} do not match zxbcdt {tuple(zxbcdt.shape)}")
+    dev, dtype = zxbcdt.device, zxbcdt.dtype
+    states = states.to(dtype).contiguous()
+    dy = dy.to(dtype).contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    params = [t.to(**f32).contiguous() for t in (conv_w, conv_b, dt_bias, A, D, norm_w)]
+    scratch = [
+        torch.empty(b, l, dc, **f32),           # xbc (recomputed)
+        torch.empty(b, l, h, **f32),            # dt
+        torch.empty(b, l, h, **f32),            # cum
+        torch.empty(b, l, d_inner, **f32),      # y_ssd, then dy_ssd in place
+        torch.empty(b, nc, h, n, p, **f32),     # the state gradient per chunk
+        torch.empty(b, nc, h, q, q, **f32),     # W per head
+        torch.empty(b, nc, h, q, q, **f32),     # dscores per head
+        torch.empty(b, l, h, **f32),            # dcum, intra-chunk part
+        torch.empty(b, l, dc, **f32),           # dxBC post-SiLU, then dpre in place
+        torch.empty(b * nc, k + 1, dc, **f32),  # conv tap/bias partials per chunk
+        torch.empty(b * nc, d_inner, **f32),    # norm weight partials per chunk
+        torch.empty(b * nc, 3, h, **f32),       # dt_bias, A, D partials per chunk
+    ]
+    dzx = torch.empty_like(zxbcdt)
+    dwb = torch.empty(k + 1, dc, **f32)
+    dpv = torch.empty(3, h, **f32)
+    dnw = torch.empty(d_inner, **f32)
+    err = _build.lib().pht_ssd_chain_bwd(
+        zxbcdt.data_ptr(), *(t.data_ptr() for t in params), states.data_ptr(), dy.data_ptr(),
+        *(t.data_ptr() for t in scratch),
+        dzx.data_ptr(), dwb.data_ptr(), dpv.data_ptr(), dnw.data_ptr(),
+        b, l, d_inner, d_state, h, k, chunk, int(dtype == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "fused_mamba_chain_bwd_cuda")
+    fused_mamba_chain_bwd_cuda.launches += 1
+    return (dzx, dwb[:k].to(conv_w.dtype), dwb[k].to(conv_b.dtype), dpv[0].to(dt_bias.dtype),
+            dpv[1].to(A.dtype), dpv[2].to(D.dtype), dnw.to(norm_w.dtype))
+
+
+fused_mamba_chain_bwd_cuda.launches = 0

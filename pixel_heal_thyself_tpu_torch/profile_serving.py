@@ -25,10 +25,21 @@ import torch
 
 # kernel-name fragment → group, first match wins
 GROUPS = [
+    # K8's launches first: their names hold "conv" and "norm" too (the
+    # chunk output and prologue K8 recomputes carry K7's names)
+    ("ssd_norm_bwd", "K8 norm backward"), ("ssd_dstate_local", "K8 dstate local"),
+    ("ssd_dstate_reverse", "K8 reverse state pass"), ("ssd_intra_bwd", "K8 intra"),
+    ("ssd_head_bwd", "K8 head rest"), ("ssd_bc_bwd", "K8 dB/dC"),
+    ("ssd_conv_bwd", "K8 conv backward"), ("ssd_conv_transpose", "K8 conv transpose"),
+    ("ssd_sum_parts", "K8 parameter sums"),
     ("ssd_chunk_output", "K7 chunk output"), ("ssd_chunk_state", "K7 chunk state"),
     ("ssd_state_pass", "K7 state pass"), ("ssd_prologue", "K7 prologue"),
     ("gated_rmsnorm", "K7 gated RMSNorm"), ("attention_fwd", "K1 attention"),
-    ("pointwise_gemm", "K2 pointwise GEMM"), ("conv3x3", "K3 conv3x3"),
+    ("attention_bwd", "K4 attention backward"), ("attention_bias_reduce", "K4 attention backward"),
+    ("conv3x3_dgrad", "K5 conv3x3 dgrad"), ("weight_grad", "K6 weight gradient"),
+    ("sum_splits", "K6 weight gradient"),
+    # K2 and K3 are one kernel in two modes (cuBLAS names hold "gemm_bf16")
+    ("gemm_bf16_kernel", "K2/K3 GEMM and conv3x3"),
     ("fprop", "cuDNN conv"), ("implicit", "cuDNN conv"), ("conv", "cuDNN conv"),
     ("cudnn", "cuDNN conv"), ("gemm", "cuBLAS GEMM"), ("Kernel2", "cuBLAS GEMM"),
     ("reduce", "reductions"),

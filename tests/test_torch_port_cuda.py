@@ -26,7 +26,16 @@ float32. Tolerances (relative to the reference's largest magnitude):
   while the plain chain with xBC and y rounded to bf16 (which the TPU
   kernel never does) fails 1e-4 at every one of them
   (tests/test_torch_port_mamba_ops.py); chip_smoke.py holds the prod shape
-  to 1e-5.
+  to 1e-5. K7's emit variant: the same bounds for its output, and for the
+  entering states (f32 sums rounded once to the input dtype);
+- the fused Mamba2 backward (K8) against `fused_mamba_chain_bwd_torch` at
+  the same saved states: every intermediate f32 in both, so fp32 differs
+  in summation order only: dzx 1e-4 max, 1e-5 rms; the parameter
+  gradients, f32 sums over every token, 1e-4 max in both dtypes (they
+  never round), rms 1e-5 for the conv and norm weights, while dt_bias, A
+  and D have one entry per head (2 to 16 here), so their rms is about
+  their max (1e-4). bf16 dzx rounds once, at the output: K7's bf16 bounds
+  (8e-3 max, 1e-4 rms).
 """
 
 from __future__ import annotations
@@ -65,8 +74,20 @@ from pixel_heal_thyself_tpu_torch.ops.block_cuda import (
 )
 
 from pixel_heal_thyself_tpu_torch.models.mamba import MambaDenoiserNet
-from pixel_heal_thyself_tpu_torch.ops.ssd_mega import fused_mamba_chain, fused_mamba_chain_torch
-from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import fused_mamba_chain_cuda
+from pixel_heal_thyself_tpu_torch.ops.ssd_mega import (
+    MambaChainConfig,
+    MambaChainFn,
+    fused_mamba_chain,
+    fused_mamba_chain_bwd,
+    fused_mamba_chain_bwd_torch,
+    fused_mamba_chain_emit,
+    fused_mamba_chain_torch,
+)
+from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import (
+    fused_mamba_chain_bwd_cuda,
+    fused_mamba_chain_cuda,
+    fused_mamba_chain_emit_cuda,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -491,3 +512,120 @@ def test_mamba_denoiser_kernel_route(dev, dtype):
         _assert_close(got, ref, 1e-4, 1e-5)
     else:
         _assert_close(got, ref, 3e-2, 4e-3)
+
+
+MAMBA_CONFIGS = [(2, 256, 128, 64, 64, 64), (1, 128, 128, 32, 32, 32), (2, 192, 256, 64, 64, 64),
+                 (2, 1024, 128, 16, 32, 128), (1, 512, 256, 8, 128, 128), (1, 256, 128, 32, 8, 16)]
+MAMBA_BOUNDS = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (8e-3, 1e-4)}
+# conv_w, conv_b, dt_bias, A, D, norm_w
+PARAM_GRAD_BOUNDS = ((1e-4, 1e-5), (1e-4, 1e-5), (1e-4, 1e-4), (1e-4, 1e-4), (1e-4, 1e-4),
+                     (1e-4, 1e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cfg", MAMBA_CONFIGS)
+def test_fused_mamba_chain_emit_kernel(dev, dtype, cfg):
+    b, l, d_inner, d_state, headdim, chunk = cfg
+    args = _chain_inputs(np.random.default_rng(0), dev, dtype, b, l, d_inner, d_state, headdim)
+    dims = dict(d_inner=d_inner, d_state=d_state, headdim=headdim, chunk=chunk)
+    before = fused_mamba_chain_emit_cuda.launches
+    got, states = fused_mamba_chain_emit(*args, **dims)
+    assert fused_mamba_chain_emit_cuda.launches == before + 1
+    ref, ref_states = fused_mamba_chain_torch(*args, **dims, emit=True)
+    torch.cuda.synchronize()
+    h = d_inner // headdim
+    assert states.dtype == dtype and states.shape == (b, l // chunk, h, d_state, headdim)
+    _assert_close(got, ref, *MAMBA_BOUNDS[dtype])
+    _assert_close(states, ref_states, *MAMBA_BOUNDS[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cfg", MAMBA_CONFIGS)
+def test_fused_mamba_chain_bwd_kernel(dev, dtype, cfg):
+    b, l, d_inner, d_state, headdim, chunk = cfg
+    rng = np.random.default_rng(1)
+    args = _chain_inputs(rng, dev, dtype, b, l, d_inner, d_state, headdim)
+    dims = dict(d_inner=d_inner, d_state=d_state, headdim=headdim, chunk=chunk)
+    _, states = fused_mamba_chain_torch(*args, **dims, emit=True)
+    dy = _rand(rng, (b, l, d_inner), dev, dtype)
+    before = fused_mamba_chain_bwd_cuda.launches
+    got = fused_mamba_chain_bwd(*args, states, dy, **dims)
+    assert fused_mamba_chain_bwd_cuda.launches == before + 1
+    ref = fused_mamba_chain_bwd_torch(*args, states, dy, **dims)
+    torch.cuda.synchronize()
+    assert got[0].dtype == dtype and got[0].shape == args[0].shape
+    _assert_close(got[0], ref[0], *MAMBA_BOUNDS[dtype])
+    for g, r, p, bound in zip(got[1:], ref[1:], args[1:], PARAM_GRAD_BOUNDS):
+        assert g.dtype == p.dtype and g.shape == p.shape
+        _assert_close(g, r, *bound)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mamba_chain_fn_kernels_match_plain_pair(dev, dtype):
+    """`MambaChainFn` through K7-emit and K8 against the plain pair."""
+    b, l, d_inner, d_state, headdim, chunk = MAMBA_CONFIGS[0]
+    rng = np.random.default_rng(2)
+    base = _chain_inputs(rng, dev, dtype, b, l, d_inner, d_state, headdim)
+    dy = _rand(rng, (b, l, d_inner), dev, dtype)
+    grads = []
+    for use_kernels in (True, False):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        cfg = MambaChainConfig(d_inner, d_state, headdim, chunk, use_kernels)
+        counts = fused_mamba_chain_emit_cuda.launches, fused_mamba_chain_bwd_cuda.launches
+        MambaChainFn.apply(cfg, *leaves).backward(dy)
+        launched = (fused_mamba_chain_emit_cuda.launches - counts[0],
+                    fused_mamba_chain_bwd_cuda.launches - counts[1])
+        assert launched == ((1, 1) if use_kernels else (0, 0))
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    _assert_close(grads[0][0], grads[1][0], *MAMBA_BOUNDS[dtype])
+    for g, r, bound in zip(grads[0][1:], grads[1][1:], PARAM_GRAD_BOUNDS):
+        _assert_close(g, r, *bound)
+
+
+def test_fused_mamba_chain_bwd_kernel_refuses(dev):
+    args = _chain_inputs(np.random.default_rng(3), dev, torch.float32, 1, 128, 128, 16, 32)
+    dims = dict(d_inner=128, d_state=16, headdim=32, chunk=128)
+    _, states = fused_mamba_chain_torch(*args, **dims, emit=True)
+    dy = torch.zeros(1, 128, 128, device=dev)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mamba_chain_bwd_cuda(*(t.cpu() for t in args), states.cpu(), dy.cpu(), **dims)
+    with pytest.raises(ValueError, match="do not match"):
+        fused_mamba_chain_bwd_cuda(*args, states[:, :, :1], dy, **dims)
+    # a shape the gate admits whose chunk needs more than 227 KB of shared
+    # memory: the C entry refuses it before it launches
+    big = _chain_inputs(np.random.default_rng(3), dev, torch.float32, 1, 128, 128, 128, 64)
+    big_dims = dict(d_inner=128, d_state=128, headdim=64, chunk=128)
+    states = torch.zeros(1, 1, 2, 128, 64, device=dev)
+    before = fused_mamba_chain_bwd_cuda.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused_mamba_chain_bwd_cuda(*big, states, dy, **big_dims)
+    assert fused_mamba_chain_bwd_cuda.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mamba_denoiser_kernel_route_grads(dev, dtype):
+    """A small MambaDenoiserNet in grad mode: the kernel route against the
+    plain route, every layer through K7-emit and K8."""
+    kw = dict(base_ch=32, enc_ch=32, num_blocks=2, d_state=16, headdim=32, expansion=4,
+              num_gcp=0, padding_mode="replicate", use_megakernel=True, dtype=dtype)
+    model = MambaDenoiserNet(**kw, use_kernels=True, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+    plain = MambaDenoiserNet(**kw, use_kernels=False, device=dev)
+    plain.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(4)
+    x = _rand(rng, (2, 32, 32, 3), dev, torch.float32).abs()
+    aux = _rand(rng, (2, 32, 32, 7), dev, torch.float32)
+    counts = fused_mamba_chain_emit_cuda.launches, fused_mamba_chain_bwd_cuda.launches
+    model(x, aux).square().mean().backward()
+    assert (fused_mamba_chain_emit_cuda.launches, fused_mamba_chain_bwd_cuda.launches) == (
+        counts[0] + 2, counts[1] + 2)
+    plain(x, aux).square().mean().backward()
+    for (name, p), q in zip(model.named_parameters(), plain.parameters()):
+        if q.grad is None:  # the aux encoder: no block consumes it
+            assert p.grad is None, name
+            continue
+        if dtype == torch.float32:
+            _assert_close(p.grad, q.grad, 1e-4, 1e-5)
+        else:
+            _assert_grad_close(name, p.grad, q.grad, image=False)

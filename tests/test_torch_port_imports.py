@@ -14,6 +14,7 @@ from __future__ import annotations
 import json
 import pkgutil
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -96,3 +97,21 @@ def test_training_modules_import_no_jax():
 @pytest.mark.parametrize("module", SHARED)
 def test_shared_host_modules_import_no_jax(module):
     assert _imported_frameworks([module]) == []
+
+
+def test_no_port_source_or_config_is_git_ignored():
+    """Every source and config file of the port on disk is one git would
+    commit. A `.gitignore` pattern such as `data/` matches any directory of
+    that name, the port's `configs/data/` included: an ignored file exists
+    here but not in a checkout of the commit, where the code that reads it
+    fails."""
+    if shutil.which("git") is None or not (REPO / ".git").exists():
+        pytest.skip("needs git and the repository's .git")
+    port = REPO / "pixel_heal_thyself_tpu_torch"
+    files = sorted(str(f.relative_to(REPO)) for ext in ("py", "yaml", "cu", "cuh")
+                   for f in port.rglob(f"*.{ext}"))
+    assert "pixel_heal_thyself_tpu_torch/configs/data/default.yaml" in files
+    proc = subprocess.run(["git", "check-ignore", "--stdin"], cwd=REPO, input="\n".join(files),
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode in (0, 1), proc.stderr  # 0: some are ignored, 1: none
+    assert proc.stdout.split() == []
