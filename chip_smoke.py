@@ -57,6 +57,22 @@ exits non-zero. Phases:
    layer of every step through K7-emit and K8 (launch counters), and one
    step through the kernel and plain routes beside the witnesses that set
    MAMBA_STEP_GRAD_TOL.
+9. The literal Mamba route: the fused causal conv1d + SiLU forward K9 and
+   backward K10 against their plain versions at zxbcdt [8, 16,384, 2192]
+   (window 1024 + 1152) and the chunked SSD scan K11 at x [8, 16,384, 16,
+   64], each in bf16 and fp32 (CONV_TOL, SSD_SCAN_TOL), beside a control
+   that K11's bf16 bound must fail (the plain scan carrying the state in
+   f32); then the sections of `bench_mamba` at batch 8 with the fused conv
+   (`--pallas`) on a seeded prod-width MambaDenoiserNet (literal route):
+   s/iter and peak memory of each, that every layer of every G forward ran
+   K9 and of every backward K10, and the `ssd_pallas` section K11 (launch
+   counters); the G forward and the L1 forward + backward through the
+   kernel route against the plain route (FRAME_TOL, MAMBA_STEP_GRAD_TOL).
+10. `fold_qkv`: one L1 forward + backward of the prod-width AFGSANet on
+   the literal route (8 × 128²) with the q/k/v projections folded into
+   the attention op against the unfolded model: both run K1 and K4, which
+   the counters check on the folded route, so only the projections'
+   rounding differs (FRAME_TOL, STEP_GRAD_TOL).
 
 Every kernel row states its bound (the least time the card could take:
 the larger of the bytes its function must move over 3.35 TB/s and its
@@ -74,6 +90,7 @@ import json
 import math
 import subprocess
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -180,6 +197,26 @@ MAMBA_BWD_TOL = {
 # the state carry (the phase-8 control moves A's gradient by rms 1e-1 in a
 # single layer)
 MAMBA_STEP_GRAD_TOL = (5e-2, 5e-2)
+# K9/K10 (the fused causal conv1d + SiLU) against their plain versions:
+# both round each f32 product and sum at the same points in the same order
+# (the kernels block FMA contraction), so y and dx could differ only where
+# an exp differed in its last bit: at most one bf16 ulp (max_rel 2**-8 of
+# the largest magnitude), rarely (rms 1e-4). The H100 reads them equal to
+# the bit in both dtypes (PERF.md). dw and db are f32 sums over 131,072
+# tokens in another order (WGRAD_TOL's reason): max_rel 1e-4 (read 4.7e-7)
+CONV_TOL = {"bf16": (2**-8, 1e-4), "fp32": (1e-5, 1e-5)}
+CONV_BWD_TOL = {label: {"dx": tol, "dw": (1e-4, 1e-4), "db": (1e-4, 1e-4)}
+                for label, tol in CONV_TOL.items()}
+# K11 (the chunked SSD scan) against its plain version: both round at the
+# TPU kernel's points, the carried state included, and a sum in another
+# order may put a value next to a rounding boundary on its other side:
+# fp32 1e-4 max; bf16 two ulps (8e-3) max, and rms 1e-5, which the plain
+# scan that carries the state in f32 must fail (phase 9 checks that
+# control). The H100 reads K11 equal to its plain version to the bit at
+# the prod shape, and the control at rms 4.6e-5 (PERF.md)
+SSD_SCAN_TOL = {"bf16": (8e-3, 1e-5), "fp32": (1e-4, 1e-5)}
+# phase 9: the bench_mamba sections' timed calls (after 2 warm-up calls)
+BENCH_ITERS = 5
 _SRC = "pixel_heal_thyself_tpu_torch/csrc/"
 _TPU = "pixel_heal_thyself_tpu/ops/"
 # kernel → (name, source, TPU kernel it replaces)
@@ -195,6 +232,10 @@ KERNELS = {
     "K7": ("fused_mamba_chain (K7)", _SRC + "ssd_fwd.cu", _TPU + "ssd_mega.py:256"),
     "K7e": ("fused_mamba_chain_emit (K7 emit)", _SRC + "ssd_fwd.cu", _TPU + "ssd_mega.py:252"),
     "K8": ("fused_mamba_chain_bwd (K8)", _SRC + "ssd_bwd.cu", _TPU + "ssd_mega.py:260"),
+    "K9": ("fused_causal_conv1d_silu (K9)", _SRC + "conv_silu.cu", _TPU + "conv_pallas.py:147"),
+    "K10": ("fused_causal_conv1d_silu_bwd (K10)", _SRC + "conv_silu.cu",
+            _TPU + "conv_pallas.py:158"),
+    "K11": ("ssd_pallas (K11)", _SRC + "ssd_scan.cu", _TPU + "ssd.py:324"),
 }
 KERNEL_NAMES = tuple(KERNELS)
 
@@ -274,6 +315,11 @@ def counters() -> dict:
         pointwise_gemm_cuda,
         weight_grad_cuda,
     )
+    from pixel_heal_thyself_tpu_torch.ops.conv_cuda import (
+        fused_causal_conv1d_silu_bwd_cuda,
+        fused_causal_conv1d_silu_cuda,
+    )
+    from pixel_heal_thyself_tpu_torch.ops.ssd_cuda import ssd_pallas_cuda
     from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import (
         fused_mamba_chain_bwd_cuda,
         fused_mamba_chain_cuda,
@@ -284,7 +330,9 @@ def counters() -> dict:
                                    conv3x3_cuda, block_halo_attention_bwd_cuda,
                                    conv3x3_dgrad_cuda, weight_grad_cuda,
                                    fused_mamba_chain_cuda, fused_mamba_chain_emit_cuda,
-                                   fused_mamba_chain_bwd_cuda)))
+                                   fused_mamba_chain_bwd_cuda, fused_causal_conv1d_silu_cuda,
+                                   fused_causal_conv1d_silu_bwd_cuda, ssd_pallas_cuda),
+                    strict=True))
 
 
 def reset_counts() -> None:
@@ -633,32 +681,37 @@ def phase_mamba(device, frames) -> tuple[dict, dict]:
     return rows["bf16"], launches
 
 
-CHAIN_GRADS = ("dzx", "conv_w", "conv_b", "dt_bias", "A", "D", "norm_w")
+def named_devs(bounds: dict, got, ref) -> dict:
+    """The deviation of each output from its reference, by the names of
+    `bounds` (in the outputs' order)."""
+    return {name: deviation(g, r) for name, g, r in zip(bounds, got, ref, strict=True)}
 
 
-def chain_grad_devs(got, ref) -> dict:
-    """Each of K8's seven gradients' deviation from the reference's."""
-    return {name: deviation(g, r) for name, g, r in zip(CHAIN_GRADS, got, ref)}
-
-
-def chain_grads_fail(devs: dict, label: str) -> list:
-    """The gradients outside their MAMBA_BWD_TOL bounds."""
+def outside(devs: dict, bounds: dict) -> list:
+    """The outputs outside their (max_rel, rms_rel) bounds."""
     return [name for name, dev in devs.items()
-            if dev["max_rel"] > MAMBA_BWD_TOL[label][name][0]
-            or dev["rms_rel"] > MAMBA_BWD_TOL[label][name][1]]
+            if dev["max_rel"] > bounds[name][0] or dev["rms_rel"] > bounds[name][1]]
 
 
-def check_chain_grads(name: str, got, ref, label: str) -> dict:
-    """K8's gradients against the plain backward's, each at its bound;
-    prints every one; returns the worst deviation."""
-    devs = chain_grad_devs(got, ref)
+def check_named(name: str, got, ref, bounds: dict) -> dict:
+    """A kernel's outputs against the plain version's, each at its bound
+    in `bounds`; prints every one; returns the worst deviation."""
+    devs = named_devs(bounds, got, ref)
     log(f"[kernels] {name}: " + ", ".join(
         f"{g} {d['max_rel']:.3e}/{d['rms_rel']:.3e}" for g, d in devs.items())
         + " (max_rel/rms_rel)")
-    bad = chain_grads_fail(devs, label)
+    bad = outside(devs, bounds)
     if bad:
-        raise AssertionError(f"{name}: {bad} exceed {MAMBA_BWD_TOL[label]}")
+        raise AssertionError(f"{name}: {bad} exceed {bounds}")
     return {k: max(d[k] for d in devs.values()) for k in ("max_abs_err", "max_rel", "rms_rel")}
+
+
+def check_table(tag: str, table: list, tol: tuple) -> None:
+    """Raise if a gradient of `grad_table`'s rows is outside tol = (rms, mass)."""
+    for name, rms, mass in table:
+        if rms > tol[0] or mass > tol[1]:
+            raise AssertionError(f"{tag}: G gradient {name}: rms {rms:.3e} mass {mass:.3e} "
+                                 f"> {tol}")
 
 
 def carry_cut_chain_bwd(zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w, states, dy,
@@ -690,8 +743,6 @@ def phase_mamba_kernels(device) -> dict:
     """Phase 8, kernels: K7's emit variant and K8 against their plain
     versions at 8 × 16,384 tokens in bf16 and fp32, and the carry-cut
     control, which must fail K8's bounds. Returns the bf16 rows by name."""
-    from functools import partial
-
     from pixel_heal_thyself_tpu_torch.measure import mamba_chain_flops
     from pixel_heal_thyself_tpu_torch.ops.ssd_mega import (
         fused_mamba_chain_bwd_torch,
@@ -730,14 +781,15 @@ def phase_mamba_kernels(device) -> dict:
             f"K8 {tag}",
             lambda a=bwd_args: fused_mamba_chain_bwd_cuda(*a, **dims),
             lambda a=bwd_args: fused_mamba_chain_bwd_torch(*a, **dims),
-            None, iters=5, plain_iters=1, check_fn=partial(check_chain_grads, label=label),
+            None, iters=5, plain_iters=1,
+            check_fn=partial(check_named, bounds=MAMBA_BWD_TOL[label]),
             work=(nbytes(*bwd_args) + nbytes(*args), bwd_flops, dtype),
         )
         if label == "bf16":
             rows["K7e"], rows["K8"] = emit, bwd
-            devs = chain_grad_devs(carry_cut_chain_bwd(*bwd_args, **dims),
-                                   fused_mamba_chain_bwd_torch(*bwd_args, **dims))
-            bad = chain_grads_fail(devs, label)
+            devs = named_devs(MAMBA_BWD_TOL[label], carry_cut_chain_bwd(*bwd_args, **dims),
+                              fused_mamba_chain_bwd_torch(*bwd_args, **dims))
+            bad = outside(devs, MAMBA_BWD_TOL[label])
             log("[kernels] control: plain backward with the state-gradient carry cut vs plain: "
                 + ", ".join(f"{g} {d['max_rel']:.3e}/{d['rms_rel']:.3e}" for g, d in devs.items())
                 + f"; outside K8's bounds: {bad}")
@@ -900,10 +952,7 @@ def train_and_compare(device, net, kwargs, route, names: tuple, layers: int, lit
             f"{mw['g_loss']:.6g}; G gradients worst rms_rel "
             f"{max(r[1] for r in rows):.4e}, worst mass {rows[0][2]:.4e} ({rows[0][0]}); "
             + ", ".join(f"{n} rms_rel {at[n][1]:.4e} mass {at[n][2]:.4e}" for n, *_ in table[:3]))
-    for name, rms, mass in table:
-        if rms > grad_tol[0] or mass > grad_tol[1]:
-            raise AssertionError(f"G gradient {name}: rms {rms:.3e} mass {mass:.3e} "
-                                 f"> {grad_tol}")
+    check_table(tag, table, grad_tol)
     dev = deviation(list(gk.values()), list(gp.values()))
     log(f"[{tag}] one step (float32 critic), kernel route vs plain route: d_loss "
         f"{mk['d_loss']:.6g} vs {mp['d_loss']:.6g}, g_loss {mk['g_loss']:.6g} vs "
@@ -982,6 +1031,200 @@ def phase_literal(device) -> dict:
     return launches
 
 
+def ssd_scan_inputs(device, b: int, l: int, h: int, p: int, n: int) -> tuple:
+    """Seeded Mamba-like inputs of the SSD scan: x, B, C ~ N(0, 1) and dt
+    log-uniform on [0.001, 0.1] (the Mamba2 dt init) in bf16, A in
+    -[1, 16] (its A init) and D in f32."""
+    g = torch.Generator(device=device).manual_seed(2468)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=device)
+
+    x = torch.randn(b, l, h, p, generator=g, device=device).bfloat16()
+    dt = torch.exp(rand(b, l, h) * math.log(100.0) + math.log(0.001)).bfloat16()
+    B = torch.randn(b, l, 1, n, generator=g, device=device).bfloat16()
+    C = torch.randn(b, l, 1, n, generator=g, device=device).bfloat16()
+    return x, dt, -(1 + 15 * rand(h)), B, C, torch.randn(h, generator=g, device=device)
+
+
+def f32_carry_scan(x, dt, A, B, C, D, chunk: int):
+    """The plain scan with the state carried between chunks in f32: the
+    rounding K11's bf16 bound must catch missing."""
+    from pixel_heal_thyself_tpu_torch.ops.ssd import pallas_outputs, pallas_stacks, pallas_states
+
+    cum, xdt, Bc, Cc = pallas_stacks(x, dt, A, B, C, chunk)
+    return pallas_outputs(cum, xdt, Bc, Cc, pallas_states(cum, xdt, Bc, torch.float32), x, D)
+
+
+def phase_literal_kernels(device) -> dict:
+    """Phase 9, kernels: K9 and K10 at the prod zxbcdt, K11 at the prod SSD
+    shape, in bf16 and fp32, and K11's f32-carry control. Returns the bf16
+    rows by name."""
+    from pixel_heal_thyself_tpu_torch.measure import mamba_chain_flops
+    from pixel_heal_thyself_tpu_torch.ops.conv_cuda import (
+        fused_causal_conv1d_silu_bwd_cuda,
+        fused_causal_conv1d_silu_cuda,
+    )
+    from pixel_heal_thyself_tpu_torch.ops.conv_fused import (
+        fused_causal_conv1d_silu_bwd_torch,
+        fused_causal_conv1d_silu_torch,
+    )
+    from pixel_heal_thyself_tpu_torch.ops.ssd import ssd_pallas_torch
+    from pixel_heal_thyself_tpu_torch.ops.ssd_cuda import ssd_pallas_cuda
+
+    zx, params, dims = mamba_inputs(device)
+    conv_w, conv_b = params[0], params[1]
+    del params
+    b, l, _ = zx.shape
+    di, n, p, q = (dims[key] for key in ("d_inner", "d_state", "headdim", "chunk"))
+    h, k, width = di // p, conv_w.shape[0], conv_w.shape[1]
+    dy = torch.randn(b, l, width, generator=torch.Generator(device=device).manual_seed(97),
+                     device=device)
+    rows = {}
+    for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        z = zx.to(dtype)
+        win_bytes = b * l * width * z.element_size()
+        tag = f"{label} (zxbcdt {tuple(z.shape)}, window {di} + {width})"
+        fwd = (z, conv_w, conv_b, di, width)
+        # the library yardstick (never called by the port): cuDNN's grouped
+        # conv1d on the contiguous window, zero-padded both sides, no SiLU
+        xw = z[..., di:di + width].transpose(1, 2).contiguous()
+        wc, bc = conv_w.t().unsqueeze(1).to(dtype).contiguous(), conv_b.to(dtype)
+        k9 = compare(
+            f"K9 fused conv1d + SiLU {tag}",
+            lambda a=fwd: fused_causal_conv1d_silu_cuda(*a),
+            lambda a=fwd: fused_causal_conv1d_silu_torch(*a),
+            CONV_TOL[label], iters=20, plain_iters=3,
+            work=(2 * win_bytes + nbytes(conv_w, conv_b), 2 * b * l * width * k, dtype),
+            library=lambda: F.conv1d(xw, wc, bc, padding=k - 1, groups=width),
+        )
+        del xw, wc, bc
+        bwd = (z, conv_w, conv_b, dy.to(dtype), di, width)
+        k10 = compare(
+            f"K10 fused conv1d + SiLU backward {tag}",
+            lambda a=bwd: fused_causal_conv1d_silu_bwd_cuda(*a),
+            lambda a=bwd: fused_causal_conv1d_silu_bwd_torch(*a),
+            None, iters=20, plain_iters=3,
+            check_fn=partial(check_named, bounds=CONV_BWD_TOL[label]),
+            # reads the window and dy, writes dx; the taps and their gradients
+            work=(3 * win_bytes + 2 * nbytes(conv_w, conv_b), 4 * b * l * width * k, dtype),
+        )
+        if label == "bf16":
+            rows["K9"], rows["K10"] = k9, k10
+        del bwd, fwd, z
+    del zx, dy
+
+    scan = ssd_scan_inputs(device, b, l, h, p, n)
+    flops = mamba_chain_flops(b, l, di, n, h, q)[0]
+    for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        args = tuple(t.to(dtype) if t.dim() > 1 else t for t in scan)
+        row = compare(
+            f"K11 ssd_pallas {label} (x {tuple(args[0].shape)}, d_state {n}, chunk {q})",
+            lambda a=args: ssd_pallas_cuda(*a, chunk=q),
+            lambda a=args: ssd_pallas_torch(*a, chunk=q),
+            SSD_SCAN_TOL[label], iters=10, plain_iters=2,
+            work=(nbytes(*args, args[0]), flops, dtype),
+        )
+        if label == "bf16":
+            rows["K11"] = row
+    ctl = deviation(f32_carry_scan(*scan, chunk=q), ssd_pallas_torch(*scan, chunk=q))
+    log(f"[kernels] control: plain scan with the state carried in f32 vs plain: "
+        f"max_rel {ctl['max_rel']:.6g} rms_rel {ctl['rms_rel']:.6g} "
+        f"(must exceed K11's bf16 rms bound {SSD_SCAN_TOL['bf16'][1]}; K11 read "
+        f"{rows['K11']['rms_rel']:.6g})")
+    if ctl["rms_rel"] <= SSD_SCAN_TOL["bf16"][1]:
+        raise AssertionError("K11's bf16 bound passes a scan that carries the state in f32")
+    return rows
+
+
+def phase_literal_path(device) -> dict:
+    """Phase 9, the path: the bench_mamba sections at batch 8 with the fused
+    conv on the literal route; then the G forward and the L1 forward +
+    backward, kernel route against plain route. Returns the launch counts
+    of the sections."""
+    from pixel_heal_thyself_tpu_torch import bench_mamba
+
+    batch, patch = MAMBA["batch"], TRAIN["patch"]
+    reset_counts()
+    bench_mamba.run(batch=batch, patch=patch, iters=BENCH_ITERS, pallas=True, mega=False,
+                    device=device)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    data = bench_mamba.make_inputs(batch, patch, device)
+    models = [bench_mamba.make_model(True, False, kernels, device) for kernels in (True, False)]
+    assert all(blk.mamba.fused_conv_route(patch * patch) and not blk.mamba.fused_route(
+        patch * patch) for blk in models[0].blocks), "the literal route with the fused conv"
+    calls, layers = BENCH_ITERS + 2, len(models[0].blocks)  # each section's warm-up + timed
+    # the G forward and the G forward + backward sections: a K9 for every
+    # layer of each forward, a K10 for every layer of each backward
+    need = {"K9": 2 * layers * calls, "K10": layers * calls, "K11": calls}
+    log(f"[literal-mamba] launches {launches} (need ≥ {need}: every layer of every G forward "
+        f"K9, of every backward K10; the ssd_pallas section K11)")
+    for name, count in need.items():
+        if launches[name] < count:
+            raise AssertionError(f"{name} launched {launches[name]} times < {count}")
+    with deterministic_cudnn():
+        out_k, out_p = (bench_mamba.g_fwd(m, data) for m in models)
+        dev = deviation(out_k, out_p)
+        log(f"[literal-mamba] G forward, kernel route vs plain route: max_rel "
+            f"{dev['max_rel']:.6g} rms_rel {dev['rms_rel']:.6g} (bound {FRAME_TOL})")
+        check("literal Mamba G forward", dev, FRAME_TOL)
+        del out_k, out_p
+        gk = {k: v.clone() for k, v in bench_mamba.g_fwd_bwd(models[0], data).items()}
+        gp = bench_mamba.g_fwd_bwd(models[1], data)
+    table = grad_table(gk, gp)
+    log(f"[literal-mamba] G L1 forward + backward, kernel route vs plain route: worst rms_rel "
+        f"{max(r[1] for r in table):.4e}, worst mass {table[0][2]:.4e} ({table[0][0]}) "
+        f"(bounds {MAMBA_STEP_GRAD_TOL})")
+    check_table("literal-mamba", table, MAMBA_STEP_GRAD_TOL)
+    return launches
+
+
+def phase_fold_qkv(device) -> dict:
+    """Phase 10: one L1 forward + backward of the prod-width AFGSANet on the
+    literal route with fold_qkv against the unfolded model (same weights).
+    Returns the launch counts of the folded run."""
+    from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet, afgsa_prod_kwargs
+
+    kwargs = dict(afgsa_prod_kwargs(), use_block_kernel=False)
+    patch, batch = TRAIN["patch"], TRAIN["batch"]
+    folded = AFGSANet(**dict(kwargs, fold_qkv=True), device=device,
+                      generator=torch.Generator().manual_seed(11))
+    plain = AFGSANet(**kwargs, device=device)
+    plain.load_state_dict(folded.state_dict())
+    assert all(blk.attention.folded for blk in folded.blocks)
+    assert not plain.block_route(batch, patch, patch)
+    rng = np.random.default_rng(12)
+    noisy, gt = (torch.from_numpy(np.abs(rng.standard_normal((batch, patch, patch, 3)))
+                                  .astype(np.float32)).to(device) for _ in range(2))
+    aux = torch.from_numpy(rng.standard_normal((batch, patch, patch, 7)).astype(np.float32)
+                           ).to(device)
+
+    def fwd_bwd(model):
+        out = model(noisy, aux)
+        (out - gt).abs().mean().backward()
+        return out.detach(), {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+
+    with deterministic_cudnn():
+        reset_counts()
+        out_f, grads_f = fwd_bwd(folded)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        out_u, grads_u = fwd_bwd(plain)
+    for name in ("K1", "K4"):
+        if launches[name] < kwargs["num_sa"]:
+            raise AssertionError(f"folded route: {name} launched {launches[name]} times")
+    dev = deviation(out_f, out_u)
+    table = grad_table(grads_f, grads_u)
+    log(f"[fold-qkv] prod AFGSANet literal route, {batch} × {patch}², launches {launches}; "
+        f"folded vs unfolded: output max_rel {dev['max_rel']:.6g} rms_rel {dev['rms_rel']:.6g} "
+        f"(bound {FRAME_TOL}); G gradients worst rms_rel {max(r[1] for r in table):.4e}, "
+        f"worst mass {table[0][2]:.4e} ({table[0][0]}) (bounds {STEP_GRAD_TOL})")
+    check("fold_qkv output", dev, FRAME_TOL)
+    check_table("fold-qkv", table, STEP_GRAD_TOL)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -1013,9 +1256,13 @@ def main() -> None:
     results["K7"], mamba = phase_mamba(device, frames)
     results.update(phase_mamba_kernels(device))
     mamba_training = phase_mamba_training(device)
+    results.update(phase_literal_kernels(device))
+    literal = phase_literal_path(device)
+    phase_fold_qkv(device)
     # each kernel's count from the path it was ported for
     path = {"K1": serving, "K2": serving, "K3": serving, "K4": training, "K5": training,
-            "K6": training, "K7": mamba, "K7e": mamba_training, "K8": mamba_training}
+            "K6": training, "K7": mamba, "K7e": mamba_training, "K8": mamba_training,
+            "K9": literal, "K10": literal, "K11": literal}
     line = []
     for name, info in KERNELS.items():
         res = results[name]

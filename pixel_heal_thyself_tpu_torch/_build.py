@@ -70,6 +70,14 @@ _SIGNATURES = {
     # dzx, dwb, dpv, dnw, B, L, d_inner, d_state, heads, d_conv, chunk,
     # is_bf16, stream
     "pht_ssd_chain_bwd": [_P] * 25 + [_I] * 8 + [_P],
+    # zxbcdt, wb, y, B, L, W, offset, width, k, rows, is_bf16, stream
+    "pht_conv_silu_fwd": [_P] * 3 + [_I] * 8 + [_P],
+    # zxbcdt, wb, dy, dx, part, dwb, B, L, W, offset, width, k, rows, is_bf16,
+    # stream
+    "pht_conv_silu_bwd": [_P] * 6 + [_I] * 8 + [_P],
+    # x, dt, A, B, C, D, cum, states, y, B, L, heads, headdim, d_state, chunk,
+    # round_dA, is_bf16, stream
+    "pht_ssd_scan_fwd": [_P] * 9 + [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()
@@ -161,13 +169,15 @@ def refuse_autograd(what: str, *tensors) -> None:
     A kernel launched through ctypes returns a tensor with no `grad_fn`, so
     a call in grad mode would silently cut the graph. The kernel wrappers
     and their dispatchers call this first; gradients go through
-    `BlockHaloAttentionFn` / `TransformerBlockFn` / `MambaChainFn`, whose
-    `forward` runs with grad mode off."""
+    `BlockHaloAttentionFn` / `QKVBlockHaloAttentionFn` /
+    `TransformerBlockFn` / `MambaChainFn` / `FusedConvSiluFn`, whose
+    `forward` runs with grad mode off. `ssd_pallas` is forward only."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{what} is not differentiable: an input requires grad in grad mode. "
-            "Call it through ops.attention.BlockHaloAttentionFn, "
-            "ops.block_cuda.TransformerBlockFn or ops.ssd_mega.MambaChainFn, "
+            "Call it through ops.attention.BlockHaloAttentionFn or "
+            "QKVBlockHaloAttentionFn, ops.block_cuda.TransformerBlockFn, "
+            "ops.ssd_mega.MambaChainFn or ops.conv_fused.FusedConvSiluFn, "
             "or under torch.no_grad()",
         )
 

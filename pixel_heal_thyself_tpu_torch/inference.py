@@ -232,7 +232,8 @@ def afgsa_kwargs_from_config(cfg) -> dict:
 def mamba_kwargs_from_config(cfg) -> dict:
     """`MambaDenoiserNet` kwargs from a `Config` (the JAX `MambaTrainer.
     create_generator` mapping; `use_pallas` selects the fused interior
-    through its kernel)."""
+    through its kernels; the fused conv stays off, as the JAX trainer
+    hard-wires it, `training/trainer.py:641-645`)."""
     m = cfg.model
     kernels = bool(cfg.trainer.use_pallas)
     return dict(
@@ -241,7 +242,8 @@ def mamba_kwargs_from_config(cfg) -> dict:
         d_state=m.d_state, d_conv=m.d_conv, expansion=m.expansion, headdim=m.headdim,
         num_gcp=m.num_gradient_checkpoints,
         padding_mode="replicate" if cfg.trainer.deterministic else "reflect",
-        use_kernels=kernels, use_megakernel=kernels, dtype=_dtype(cfg),
+        use_kernels=kernels, use_megakernel=kernels, use_pallas=False,
+        dtype=_dtype(cfg),
     )
 
 

@@ -27,8 +27,14 @@ the plain versions, so the two routes share one algorithm.
 `torch.utils.checkpoint` (flax `nn.remat` in the JAX package): their
 activations are recomputed in the backward instead of kept.
 
-Not ported yet: FiLM conditioning (ROADMAP.md slice 3) and the `fold_qkv`
-variant (slice 5) raise NotImplementedError.
+`fold_qkv` folds the q/k/v projections into the attention op
+(`QKVBlockHaloAttentionFn`, the TPU `qkv_block_halo_attention_pallas`)
+under the JAX gate: `use_kernels`, `fold_qkv` and a channel count that is
+a multiple of 128, on the literal route only (the block route takes
+precedence and ignores it, as in JAX).
+
+Not ported yet: FiLM conditioning (ROADMAP.md slice 7) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from pixel_heal_thyself_tpu_torch.ops.curves import CurveOrder
 from pixel_heal_thyself_tpu_torch.models.layers import Conv, ConvBlock, apply_act, conv_nhwc
 from pixel_heal_thyself_tpu_torch.ops.attention import (
     BlockHaloAttentionFn,
+    QKVBlockHaloAttentionFn,
     block_halo_attention,
     block_halo_attention_torch,
 )
@@ -119,7 +126,8 @@ class MultiScaleEncoder(nn.Module):
 class AFGSA(nn.Module):
     """Auxiliary-feature-guided self-attention: fuse noisy+aux (1×1 conv
     over the concat), bias-free 1×1 q/k projections of the fused features
-    and v of the noisy ones, then block-halo attention."""
+    and v of the noisy ones, then block-halo attention (the projections
+    folded into the attention op when `folded`)."""
 
     def __init__(
         self, ch: int, noisy_ch: int, aux_ch: int, *, block_size=8, halo_size=3,
@@ -128,9 +136,7 @@ class AFGSA(nn.Module):
     ) -> None:
         super().__init__()
         if use_film:
-            raise _not_ported("FiLM conditioning (use_film)", 3)
-        if fold_qkv:
-            raise _not_ported("the fold_qkv attention variant", 5)
+            raise _not_ported("FiLM conditioning (use_film)", 7)
         if ch % num_heads:
             raise ValueError("ch should be divided by # heads")
         head_ch = ch // num_heads
@@ -138,6 +144,8 @@ class AFGSA(nn.Module):
         del curve_order  # an exact no-op for attention, see ops/attention.py
         self.block_size, self.halo_size, self.num_heads = block_size, halo_size, num_heads
         self.use_kernels = use_kernels
+        # the JAX gate (models/afgsa.py:350), use_pallas being use_kernels
+        self.folded = use_kernels and fold_qkv and ch % 128 == 0
         self.dtype = dtype
         self.fuse = ConvBlock(noisy_ch + aux_ch, ch, 1, act_type="relu", dtype=dtype,
                               generator=generator)
@@ -154,6 +162,13 @@ class AFGSA(nn.Module):
     def forward(self, noisy: torch.Tensor, aux: torch.Tensor,
                 residual: torch.Tensor | None = None) -> torch.Tensor:
         n_aux = self.fuse(torch.cat([noisy, aux], dim=-1))
+        if self.folded:
+            w = (t[:, :, 0, 0].t() for t in (self.q_weight, self.k_weight, self.v_weight))
+            return QKVBlockHaloAttentionFn.apply(
+                n_aux.contiguous(), noisy.to(self.dtype).contiguous(), *w, self.rel_h,
+                self.rel_w, None if residual is None else residual.contiguous(),
+                self.block_size, self.halo_size, self.num_heads,
+            )
         q = conv_nhwc(n_aux, self.q_weight, self.dtype).contiguous()
         k = conv_nhwc(n_aux, self.k_weight, self.dtype).contiguous()
         v = conv_nhwc(noisy, self.v_weight, self.dtype).contiguous()
@@ -245,7 +260,7 @@ class AFGSANet(nn.Module):
         if num_gcp > num_sa:
             raise ValueError(f"num_gcp={num_gcp} > num_sa={num_sa}")
         if use_film:
-            raise _not_ported("FiLM conditioning (use_film)", 3)
+            raise _not_ported("FiLM conditioning (use_film)", 7)
         self.base_ch = base_ch
         self.num_gcp = num_gcp
         self.block_size, self.halo_size, self.num_heads = block_size, halo_size, num_heads

@@ -11,22 +11,32 @@ reference stay pinned, as in the JAX package:
   not run it, which gives the same output;
 - the final decoder conv is LeakyReLU(0.2)'d before the global residual.
 
-Two switches pick the route through each Mamba2 layer, after AFGSANet's:
+Three switches pick the route through each Mamba2 layer, as in the JAX
+package:
 - `use_megakernel`: the fused layer interior (`ops/ssd_mega.py`, the port
   of the TPU `ssd_mega.fused_mamba_chain`) whenever `supports_shapes`
   admits the geometry; otherwise the literal chain (causal conv1d → SiLU →
-  softplus dt → `ssd_chunked` → `RMSNormGated`), which has no kernel;
-- `use_kernels`: the fused interior through its kernels (K7 forward, K8
-  backward) for CUDA tensors and their plain versions for CPU tensors.
-  False runs the plain versions on any device — the reference the kernels
-  are held against on the card.
+  softplus dt → `ssd_chunked` → `RMSNormGated`);
+- `use_pallas`: on the literal chain, the conv1d + SiLU as one fused op
+  (`ops/conv_fused.py`, the port of the TPU `conv_pallas.
+  fused_causal_conv1d_silu`) whenever its `supports_shapes` admits the
+  geometry; otherwise `causal_depthwise_conv1d` and SiLU in the compute
+  dtype (the two round differently in bf16);
+- `use_kernels`: the fused interior and the fused conv through their
+  kernels (K7 forward, K8 backward; K9 forward, K10 backward) for CUDA
+  tensors and their plain versions for CPU tensors. False runs the plain
+  versions on any device — the reference the kernels are held against on
+  the card.
 
-In grad mode the fused route goes through `ssd_mega.MambaChainFn` (K7's
+In grad mode the fused interior goes through `ssd_mega.MambaChainFn` (K7's
 emit variant forward, K8 backward; the TPU custom VJP's pair), as
 AFGSANet's block route goes through `TransformerBlockFn`; out of it, the
-forward alone. `num_gcp` checkpoints the last `num_gcp` blocks in grad
-mode (the Function's forward is deterministic, so the recompute gives the
-same states).
+forward alone. The fused conv always goes through `conv_fused.
+FusedConvSiluFn` (K9 forward, K10 backward), whose forward is the same in
+and out of grad mode.
+`num_gcp` checkpoints the last `num_gcp` blocks in grad mode (the
+Functions' forwards are deterministic, so the recompute gives the same
+values).
 """
 
 from __future__ import annotations
@@ -41,7 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from pixel_heal_thyself_tpu_torch.models.afgsa import MultiScaleEncoder
 from pixel_heal_thyself_tpu_torch.models.layers import ConvBlock
-from pixel_heal_thyself_tpu_torch.ops import ssd_mega
+from pixel_heal_thyself_tpu_torch.ops import conv_fused, ssd_mega
 from pixel_heal_thyself_tpu_torch.ops.conv import causal_depthwise_conv1d
 from pixel_heal_thyself_tpu_torch.ops.ssd import ssd_chunked
 
@@ -49,13 +59,14 @@ from pixel_heal_thyself_tpu_torch.ops.ssd import ssd_chunked
 def mamba_prod_kwargs() -> dict:
     """`MambaDenoiserNet` kwargs of `-cn prod model=mamba` (trainer default:
     bf16, deterministic → replicate padding, use_pallas → the fused route
-    through its kernel). Held against the config layer in
+    through its kernels; the fused conv is off, as the JAX `MambaTrainer`
+    hard-wires it). Held against the config layer in
     tests/test_torch_port_mamba_model.py."""
     return dict(
         input_channels=3, aux_input_channels=7, base_ch=256, enc_ch=256,
         num_blocks=5, d_state=64, d_conv=4, expansion=4, headdim=64, num_gcp=0,
         padding_mode="replicate", use_kernels=True, use_megakernel=True,
-        dtype=torch.bfloat16,
+        use_pallas=False, dtype=torch.bfloat16,
     )
 
 
@@ -118,7 +129,7 @@ class Mamba2Layer(nn.Module):
         self, d_model: int, d_state: int = 64, d_conv: int = 4, expand: int = 4,
         headdim: int = 64, dt_min: float = 0.001, dt_max: float = 0.1,
         A_init_range: tuple = (1.0, 16.0), dtype: torch.dtype = torch.float32,
-        use_kernels: bool = False, use_megakernel: bool = False,
+        use_kernels: bool = False, use_megakernel: bool = False, use_pallas: bool = False,
         generator: torch.Generator | None = None,
     ) -> None:
         super().__init__()
@@ -130,6 +141,7 @@ class Mamba2Layer(nn.Module):
         self.conv_dim = d_inner + 2 * d_state
         self.dtype = dtype
         self.use_kernels, self.use_megakernel = use_kernels, use_megakernel
+        self.use_pallas = use_pallas
         g = generator
         self.in_proj = nn.Linear(d_model, 2 * d_inner + 2 * d_state + self.nheads, bias=False)
         _uniform_(self.in_proj.weight, 1.0 / math.sqrt(d_model), g)
@@ -155,6 +167,13 @@ class Mamba2Layer(nn.Module):
             l, self.d_inner, 1, self.d_state, self.headdim, self.d_conv, self.chunk_size,
         )
 
+    def fused_conv_route(self, l: int) -> bool:
+        """Whether the literal chain of a length-`l` sequence takes the fused
+        conv1d + SiLU (the JAX gate, `models/mamba.py:209-214`)."""
+        return self.use_pallas and conv_fused.supports_shapes(
+            l, self.d_inner, self.conv_dim, self.d_conv, conv_fused.pick_l_tile(l),
+        )
+
     def forward(self, u: torch.Tensor) -> torch.Tensor:
         b, l, _ = u.shape
         di, n, h, p = self.d_inner, self.d_state, self.nheads, self.headdim
@@ -173,9 +192,15 @@ class Mamba2Layer(nn.Module):
                           chunk=self.chunk_size)
         else:
             z = zxbcdt[..., :di]
-            xbc = F.silu(causal_depthwise_conv1d(
-                zxbcdt[..., di:di + self.conv_dim], self.conv1d_weight, self.conv1d_bias,
-            ))
+            if self.fused_conv_route(l):  # its forward is the same in and out of grad mode
+                xbc = conv_fused.FusedConvSiluFn.apply(
+                    zxbcdt, self.conv1d_weight, self.conv1d_bias, di, self.conv_dim,
+                    self.use_kernels,
+                )
+            else:
+                xbc = F.silu(causal_depthwise_conv1d(
+                    zxbcdt[..., di:di + self.conv_dim], self.conv1d_weight, self.conv1d_bias,
+                ))
             x, B, C = torch.split(xbc, [di, n, n], dim=-1)
             dt = ssd_mega.softplus(zxbcdt[..., di + self.conv_dim:].float() + self.dt_bias)
             y = ssd_chunked(
@@ -194,7 +219,7 @@ class MambaBlock(nn.Module):
     def __init__(
         self, ch: int, d_state: int = 64, d_conv: int = 4, expansion: int = 4,
         headdim: int = 64, padding_mode: str = "reflect", dtype: torch.dtype = torch.float32,
-        use_kernels: bool = False, use_megakernel: bool = False,
+        use_kernels: bool = False, use_megakernel: bool = False, use_pallas: bool = False,
         generator: torch.Generator | None = None,
     ) -> None:
         super().__init__()
@@ -202,7 +227,7 @@ class MambaBlock(nn.Module):
         self.mamba = Mamba2Layer(
             ch, d_state=d_state, d_conv=d_conv, expand=expansion, headdim=headdim,
             dtype=dtype, use_kernels=use_kernels, use_megakernel=use_megakernel,
-            generator=generator,
+            use_pallas=use_pallas, generator=generator,
         )
         conv = dict(padding=1, padding_mode=padding_mode, act_type="relu", dtype=dtype,
                     generator=generator)
@@ -235,8 +260,8 @@ class MambaDenoiserNet(nn.Module):
     def __init__(
         self, input_channels=3, aux_input_channels=7, base_ch=256, num_blocks=5,
         d_state=64, d_conv=4, expansion=4, headdim=64, num_gcp=2, padding_mode="reflect",
-        enc_ch=256, use_kernels=False, use_megakernel=False, dtype=torch.float32,
-        device=None, generator: torch.Generator | None = None,
+        enc_ch=256, use_kernels=False, use_megakernel=False, use_pallas=False,
+        dtype=torch.float32, device=None, generator: torch.Generator | None = None,
     ) -> None:
         super().__init__()
         if num_gcp > num_blocks:
@@ -257,7 +282,7 @@ class MambaDenoiserNet(nn.Module):
         self.blocks = nn.ModuleList(
             MambaBlock(base_ch, d_state=d_state, d_conv=d_conv, expansion=expansion,
                        headdim=headdim, padding_mode=padding_mode, use_kernels=use_kernels,
-                       use_megakernel=use_megakernel, **cb)
+                       use_megakernel=use_megakernel, use_pallas=use_pallas, **cb)
             for _ in range(num_blocks)
         )
         dec = dict(padding=1, padding_mode=padding_mode, act_type="relu", **cb)

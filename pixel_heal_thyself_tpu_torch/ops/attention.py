@@ -29,7 +29,8 @@ gradients in bf16).
 entry points: the CUDA kernel for a CUDA tensor, the plain version for a
 CPU tensor. Neither is differentiable and both refuse inputs that require
 grad in grad mode; `BlockHaloAttentionFn` is the differentiable op whose
-forward and backward run them.
+forward and backward run them, and `QKVBlockHaloAttentionFn` the same op
+with the q/k/v projections folded in (the `fold_qkv` variant).
 """
 
 from __future__ import annotations
@@ -279,3 +280,69 @@ class BlockHaloAttentionFn(torch.autograd.Function):
         dres = do if ctx.has_residual else None
         return (dq, dk, dv, drel_h.to(rel_h.dtype), drel_w.to(rel_w.dtype), dres,
                 None, None, None)
+
+
+def _qkv_project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A bias-free 1×1 projection x [..., C_in] · w [C_in, C_out] in x's
+    dtype (`attention_pallas._qkv_project` :709)."""
+    return torch.matmul(x, w.to(x.dtype))
+
+
+def qkv_block_halo_attention_torch(n_aux, noisy, wq, wk, wv, rel_h, rel_w, *, block_size: int,
+                                   halo_size: int, num_heads: int, residual=None):
+    """Plain version of `QKVBlockHaloAttentionFn`: the projections around
+    `block_halo_attention_torch`, differentiable by autograd."""
+    q, k, v = _qkv_project(n_aux, wq), _qkv_project(n_aux, wk), _qkv_project(noisy, wv)
+    return block_halo_attention_torch(q, k, v, rel_h, rel_w, block_size=block_size,
+                                      halo_size=halo_size, num_heads=num_heads, residual=residual)
+
+
+class QKVBlockHaloAttentionFn(torch.autograd.Function):
+    """Block-halo attention with the q/k/v 1×1 projections folded into the
+    op (port of `qkv_block_halo_attention_pallas`,
+    `ops/attention_pallas.py:686-793`, the `fold_qkv` variant).
+
+    `apply(n_aux, noisy, wq, wk, wv, rel_h, rel_w, residual, block_size,
+    halo_size, num_heads)`, with the weights [C_in, C_out]: the forward
+    projects q = n_aux·wq, k = n_aux·wk, v = noisy·wv in the compute dtype
+    and runs `block_halo_attention` (K1 on the card, with the fused
+    residual); the backward runs `block_halo_attention_bwd` (K4), then the
+    weight gradients as f32-accumulated products (dwq = n_auxᵀ·dq, ...) and
+    the input gradients as compute-dtype products summed in the compute
+    dtype (dn_aux = dq·wqᵀ + dk·wkᵀ, dnoisy = dv·wvᵀ), as `_qkv_core_bwd`
+    (:740-770). The TPU op projects k and v from W-halo-padded inputs and
+    keeps dk and dv padded through its products, slicing after them; K1
+    and K4 work on the unpadded layout instead. The numbers are the same:
+    the pad columns of the inputs are zero, so they project to zero keys
+    and values and cancel from the weight gradients, and the slice drops
+    exactly the pad columns' input gradients. First-order only."""
+
+    @staticmethod
+    def forward(ctx, n_aux, noisy, wq, wk, wv, rel_h, rel_w, residual, block_size, halo_size,
+                num_heads):
+        ctx.cfg = dict(block_size=block_size, halo_size=halo_size, num_heads=num_heads)
+        ctx.has_residual = residual is not None
+        q = _qkv_project(n_aux, wq).contiguous()
+        k = _qkv_project(n_aux, wk).contiguous()
+        v = _qkv_project(noisy, wv).contiguous()
+        ctx.save_for_backward(n_aux, noisy, q, k, v, wq, wk, wv, rel_h, rel_w)
+        return block_halo_attention(q, k, v, rel_h, rel_w, residual=residual, **ctx.cfg)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        n_aux, noisy, q, k, v, wq, wk, wv, rel_h, rel_w = ctx.saved_tensors
+        dq, dk, dv, drel_h, drel_w = block_halo_attention_bwd(
+            q, k, v, rel_h, rel_w, do.to(q.dtype).contiguous(), **ctx.cfg,
+        )
+
+        def wgrad(x, dy, w):  # f32 accumulation, as preferred_element_type=f32
+            c = x.shape[-1]
+            return torch.matmul(x.reshape(-1, c).t().float(),
+                                dy.reshape(-1, dy.shape[-1]).float()).to(w.dtype)
+
+        dn_aux = _qkv_project(dq, wq.t()) + _qkv_project(dk, wk.t())
+        dnoisy = _qkv_project(dv, wv.t())
+        dres = do if ctx.has_residual else None
+        return (dn_aux, dnoisy, wgrad(n_aux, dq, wq), wgrad(n_aux, dk, wk), wgrad(noisy, dv, wv),
+                drel_h.to(rel_h.dtype), drel_w.to(rel_w.dtype), dres, None, None, None)

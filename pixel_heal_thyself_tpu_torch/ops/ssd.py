@@ -1,15 +1,21 @@
-"""Mamba2 SSD (state-space dual) scan, plain PyTorch.
+"""Mamba2 SSD (state-space dual) scan.
 
 Port of `pixel_heal_thyself_tpu/ops/ssd.py`: `ssd_naive` (:36, the
-time-step oracle) and `ssd_chunked` (:221, the chunked matmul form that
-the literal Mamba2 layer runs). Semantics, with scalar-per-head decay:
+time-step oracle), `ssd_chunked` (:221, the chunked matmul form that the
+literal Mamba2 layer runs) and `ssd_pallas` (:393, the forward-only scan
+of the TPU kernel `_ssd_fwd_kernel` :324, which no model calls: only
+`bench_mamba` and the tests). Semantics, with scalar-per-head decay:
 
     state_t = exp(dt_t·A_h)·state_{t-1} + dt_t·(B_t ⊗ x_t)
     y_t     = C_t · state_t + D_h·x_t
 
-`ssd_chunked` rounds to the input dtype at the points where the JAX
-function does (its contractions accumulate in f32, `preferred_element_type`):
-in float32 every cast is the identity. The sequence-sharded entry points
+`ssd_chunked` and `ssd_pallas_torch` round to the input dtype at the
+points where their JAX functions do (their contractions accumulate in f32,
+`preferred_element_type`); in float32 every cast is the identity. The two
+round at different points: `ssd_pallas` carries the state from chunk to
+chunk rounded to the input dtype after every chunk. `ssd_pallas`
+dispatches to the kernel K11 (`ops/ssd_cuda.py`) for CUDA tensors and to
+`ssd_pallas_torch` for CPU tensors. The sequence-sharded entry points
 (`initial_state`, `ssd_sharded`) wait for the multi-GPU slice.
 """
 
@@ -17,6 +23,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from pixel_heal_thyself_tpu_torch._build import dispatch, refuse_autograd
+from pixel_heal_thyself_tpu_torch.ops.ssd_cuda import ssd_pallas_cuda
 
 
 def _heads(t: torch.Tensor, h: int) -> torch.Tensor:
@@ -94,3 +103,78 @@ def ssd_chunked(x, dt, A, B, C, D=None, chunk: int = 128):
     if D is not None:
         y = y + x[:, :l] * D[None, None, :, None].to(dtype)
     return y
+
+
+def pallas_stacks(x, dt, A, B, C, chunk: int) -> tuple:
+    """The chunked inputs of the TPU kernel (`ssd_pallas` :418-423): cum
+    [b, nc, h, q] (the in-chunk cumsum of dt·A, the product formed in the
+    promoted dtype of dt and A, then cast to f32), xdt [b, nc, h, q, p]
+    (x·dt in x's dtype), Bc, Cc [b, nc, q, n]."""
+    b, l, h, p = x.shape
+    n, q = B.shape[3], chunk
+    nc = l // q
+    cum = torch.cumsum((dt * A[None, None, :]).float().reshape(b, nc, q, h), dim=2)
+    xdt = (x * dt[..., None].to(x.dtype)).reshape(b, nc, q, h, p).transpose(2, 3)
+    return cum.transpose(2, 3), xdt, B.reshape(b, nc, q, n), C.reshape(b, nc, q, n)
+
+
+def pallas_states(cum, xdt, Bc, carry_dtype: torch.dtype) -> torch.Tensor:
+    """The state entering each chunk [b, nc, h, n, p]: st ← exp(cum_last)·st
+    + Bᵀ·(xdt·decay_to_end), with the f32 sum rounded to `carry_dtype`
+    after every chunk (the TPU kernel's state scratch, :389, :452: the
+    input dtype)."""
+    dtype = xdt.dtype
+    decay_to_end = torch.exp(cum[..., -1:] - cum).to(dtype)
+    S = _mm("bcjn,bchjp->bchnp", Bc.to(dtype), xdt * decay_to_end[..., None])
+    a = torch.exp(cum[..., -1])                               # [b,nc,h] f32
+    st = torch.zeros_like(S[:, 0], dtype=carry_dtype)
+    st_in = []
+    for c in range(S.shape[1]):
+        st_in.append(st)
+        st = (a[:, c, :, None, None] * st.float() + S[:, c]).to(carry_dtype)
+    return torch.stack(st_in, dim=1)
+
+
+def pallas_outputs(cum, xdt, Bc, Cc, st_in, x, D=None) -> torch.Tensor:
+    """y [b, l, h, p] of each chunk from its entering state (the TPU kernel's
+    body, :350-377), then the D skip in x's dtype (:461)."""
+    dtype = x.dtype
+    b, l, h, p = x.shape
+    q = cum.shape[-1]
+    causal = torch.tril(torch.ones(q, q, dtype=torch.bool, device=x.device))
+    diff = cum[..., :, None] - cum[..., None, :]               # [b,nc,h,qi,qj]
+    lmask = torch.exp(diff.masked_fill(~causal, float("-inf"))).to(dtype)
+    scores = _mm("bcin,bcjn->bcij", Cc, Bc).to(dtype)           # shared across heads
+    y = _mm("bchij,bchjp->bchip", scores[:, :, None] * lmask, xdt)
+    y = y + torch.exp(cum)[..., None] * _mm("bcin,bchnp->bchip", Cc.to(dtype), st_in)
+    y = y.to(dtype).transpose(2, 3).reshape(b, l, h, p)
+    if D is not None:
+        y = y + x * D[None, None, :, None].to(dtype)
+    return y
+
+
+def ssd_pallas_torch(x, dt, A, B, C, D=None, chunk: int = 128, group: int = 8):
+    """Plain version of the TPU `ssd_pallas` kernel path (ngroups 1, l a
+    positive multiple of `chunk`): the chunked scan with the TPU kernel's
+    rounding points, the carried state in x's dtype. `group` (chunks per
+    TPU program) changes nothing numerically."""
+    del group
+    b, l, h, p = x.shape
+    if B.shape[2] != 1 or l == 0 or l % chunk:
+        raise ValueError(f"ssd_pallas_torch: ngroups {B.shape[2]}, l {l}, chunk {chunk}")
+    cum, xdt, Bc, Cc = pallas_stacks(x, dt, A, B, C, chunk)
+    st_in = pallas_states(cum, xdt, Bc, x.dtype)
+    return pallas_outputs(cum, xdt, Bc, Cc, st_in, x, D)
+
+
+def ssd_pallas(x, dt, A, B, C, D=None, chunk: int = 128, group: int = 8):
+    """Forward-only chunked SSD, the JAX `ssd_pallas` signature: K11 for
+    CUDA tensors (launch or raise), `ssd_pallas_torch` for CPU tensors. As
+    the JAX function, ngroups ≠ 1, l = 0 and l not a multiple of `chunk`
+    go to `ssd_chunked`. Refuses inputs that require grad in grad mode."""
+    refuse_autograd("ssd_pallas", x, dt, A, B, C, D)
+    l, g = x.shape[1], B.shape[2]
+    if g != 1 or l % chunk or l == 0:
+        return ssd_chunked(x, dt, A, B, C, D, chunk=chunk)
+    return dispatch("ssd_pallas", x, ssd_pallas_cuda, ssd_pallas_torch, x, dt, A, B, C, D,
+                    chunk=chunk)

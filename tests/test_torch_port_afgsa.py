@@ -131,7 +131,10 @@ def test_prod_kwargs_match_config():
 
 
 def test_film_and_fold_qkv_are_not_ported():
+    """FiLM is not ported yet and raises; fold_qkv is ported now and builds
+    (tests/test_torch_port_fold_qkv.py holds it against the JAX package)."""
     with pytest.raises(NotImplementedError, match="FiLM"):
         AFGSANet(**SMALL, use_film=True)
-    with pytest.raises(NotImplementedError, match="fold_qkv"):
-        AFGSANet(**SMALL, fold_qkv=True)
+    assert AFGSANet(**SMALL, fold_qkv=True).blocks[0].attention.folded is False  # 16 channels
+    assert AFGSANet(**dict(SMALL, base_ch=128), fold_qkv=True,
+                    use_kernels=True).blocks[0].attention.folded

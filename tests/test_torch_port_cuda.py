@@ -35,7 +35,18 @@ float32. Tolerances (relative to the reference's largest magnitude):
   never round), rms 1e-5 for the conv and norm weights, while dt_bias, A
   and D have one entry per head (2 to 16 here), so their rms is about
   their max (1e-4). bf16 dzx rounds once, at the output: K7's bf16 bounds
-  (8e-3 max, 1e-4 rms).
+  (8e-3 max, 1e-4 rms);
+- the fused causal conv1d + SiLU (K9 forward, K10 backward): kernel and
+  plain version round each f32 product and sum at the same points in the
+  same order, so y and dx agree to the bit but where an exp differs in its
+  last bit: fp32 1e-5, bf16 one ulp (2**-7 of the largest magnitude, rms
+  1e-4); the tap and bias gradients are f32 sums in another order: 1e-4;
+- the chunked SSD scan (K11): both round at the TPU kernel's points (the
+  carried state included) from f32 sums in another order: fp32 1e-4 max,
+  1e-5 rms; bf16 K7's small-shape bounds (8e-3 max, 1e-4 rms);
+- the fold_qkv op on the card against autograd through its plain version:
+  fp32 attention 1e-5, gradients 1e-4 (the plain backward is autograd's,
+  not K4's order).
 """
 
 from __future__ import annotations
@@ -74,6 +85,24 @@ from pixel_heal_thyself_tpu_torch.ops.block_cuda import (
 )
 
 from pixel_heal_thyself_tpu_torch.models.mamba import MambaDenoiserNet
+from pixel_heal_thyself_tpu_torch.ops import attention_cuda
+from pixel_heal_thyself_tpu_torch.ops.attention import (
+    QKVBlockHaloAttentionFn,
+    qkv_block_halo_attention_torch,
+)
+from pixel_heal_thyself_tpu_torch.ops.conv_cuda import (
+    fused_causal_conv1d_silu_bwd_cuda,
+    fused_causal_conv1d_silu_cuda,
+)
+from pixel_heal_thyself_tpu_torch.ops.conv_fused import (
+    FusedConvSiluFn,
+    fused_causal_conv1d_silu,
+    fused_causal_conv1d_silu_bwd,
+    fused_causal_conv1d_silu_bwd_torch,
+    fused_causal_conv1d_silu_torch,
+)
+from pixel_heal_thyself_tpu_torch.ops.ssd import ssd_pallas, ssd_pallas_torch
+from pixel_heal_thyself_tpu_torch.ops.ssd_cuda import ssd_pallas_cuda
 from pixel_heal_thyself_tpu_torch.ops.ssd_mega import (
     MambaChainConfig,
     MambaChainFn,
@@ -629,3 +658,172 @@ def test_mamba_denoiser_kernel_route_grads(dev, dtype):
             _assert_close(p.grad, q.grad, 1e-4, 1e-5)
         else:
             _assert_grad_close(name, p.grad, q.grad, image=False)
+
+
+# (b, l, columns, offset, width, k): the prod window at a short l; l not a
+# multiple of the CTA's 256 rows; k from 1 to 9; an unaligned window
+CONV_CASES = [(1, 1024, 2192, 1024, 1152, 4), (2, 300, 512, 128, 256, 4),
+              (2, 77, 100, 10, 50, 3), (1, 5, 40, 0, 40, 1), (1, 600, 300, 17, 200, 9)]
+CONV_BOUNDS = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2**-7, 1e-4)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", CONV_CASES)
+def test_fused_conv_silu_kernels(dev, dtype, case):
+    b, l, ctot, off, width, k = case
+    rng = np.random.default_rng(5)
+    z = _rand(rng, (b, l, ctot), dev, dtype)
+    w = _rand(rng, (k, width), dev, torch.float32, 0.3)
+    bias = _rand(rng, (width,), dev, torch.float32, 0.1)
+    dy = _rand(rng, (b, l, width), dev, dtype)
+    counts = fused_causal_conv1d_silu_cuda.launches, fused_causal_conv1d_silu_bwd_cuda.launches
+    got = fused_causal_conv1d_silu(z, w, bias, off, width)
+    got_bwd = fused_causal_conv1d_silu_bwd(z, w, bias, dy, off, width)
+    assert (fused_causal_conv1d_silu_cuda.launches,
+            fused_causal_conv1d_silu_bwd_cuda.launches) == (counts[0] + 1, counts[1] + 1)
+    ref = fused_causal_conv1d_silu_torch(z, w, bias, off, width)
+    ref_bwd = fused_causal_conv1d_silu_bwd_torch(z, w, bias, dy, off, width)
+    torch.cuda.synchronize()
+    assert got.dtype == got_bwd[0].dtype == dtype and got.shape == (b, l, width)
+    _assert_close(got, ref, *CONV_BOUNDS[dtype])
+    _assert_close(got_bwd[0], ref_bwd[0], *CONV_BOUNDS[dtype])
+    for g, r in zip(got_bwd[1:], ref_bwd[1:]):
+        assert g.dtype == torch.float32
+        _assert_close(g, r, 1e-4, 1e-4)
+
+
+def test_fused_conv_silu_fn_and_refusals(dev):
+    rng = np.random.default_rng(6)
+    z = _rand(rng, (2, 256, 512), dev, torch.bfloat16).requires_grad_(True)
+    w = _rand(rng, (4, 256), dev, torch.float32, 0.3).requires_grad_(True)
+    bias = _rand(rng, (256,), dev, torch.float32, 0.1).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        fused_causal_conv1d_silu_cuda(z, w, bias, 128, 256)
+    FusedConvSiluFn.apply(z, w, bias, 128, 256, True).float().square().sum().backward()
+    grads = [t.grad.clone() for t in (z, w, bias)]
+    for t in (z, w, bias):
+        t.grad = None
+    FusedConvSiluFn.apply(z, w, bias, 128, 256, False).float().square().sum().backward()
+    assert not grads[0][..., :128].any() and not grads[0][..., 384:].any()
+    # dy = 2y differs by the flips of y: the gradients agree to a few ulps
+    _assert_close(grads[0], z.grad, 2**-6, 1e-3)
+    for g, t in zip(grads[1:], (w, bias)):
+        _assert_close(g, t.grad, 1e-3, 1e-4)
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="window"):
+            fused_causal_conv1d_silu_cuda(z, w, bias, 300, 256)
+        with pytest.raises(ValueError, match="CUDA"):
+            fused_causal_conv1d_silu_cuda(z.cpu(), w.cpu(), bias.cpu(), 128, 256)
+
+
+# (b, l, heads, headdim, d_state, chunk): the prod head shape in one chunk
+# (a single-chunk sequence), several chunks, narrow heads
+SCAN_CASES = [(1, 128, 16, 64, 64, 128), (2, 512, 4, 32, 16, 64), (2, 96, 2, 8, 8, 32),
+              (1, 1024, 8, 64, 64, 128)]
+SCAN_BOUNDS = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (8e-3, 1e-4)}
+
+
+def _scan_inputs(rng, dev, dtype, b, l, h, p, n, a_dtype=torch.float32):
+    """Mamba-like SSD inputs: dt log-uniform on [0.001, 0.1], A in -[1, 16]."""
+    return (
+        _rand(rng, (b, l, h, p), dev, dtype),
+        torch.as_tensor(np.exp(rng.uniform(np.log(1e-3), np.log(0.1), (b, l, h))),
+                        dtype=torch.float32).to(device=dev, dtype=dtype),
+        torch.as_tensor(-rng.uniform(1, 16, h), dtype=torch.float32).to(device=dev, dtype=a_dtype),
+        _rand(rng, (b, l, 1, n), dev, dtype), _rand(rng, (b, l, 1, n), dev, dtype),
+        _rand(rng, (h,), dev, torch.float32),
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_ssd_pallas_kernel(dev, dtype, case):
+    b, l, h, p, n, chunk = case
+    rng = np.random.default_rng(7)
+    # A in bf16 with bf16 dt: dt·A formed in bf16 (the round_dA path)
+    for a_dtype in (torch.float32, dtype):
+        args = _scan_inputs(rng, dev, dtype, b, l, h, p, n, a_dtype)
+        for with_d in (True, False):
+            a = args if with_d else args[:5]
+            before = ssd_pallas_cuda.launches
+            got = ssd_pallas(*a, chunk=chunk)
+            assert ssd_pallas_cuda.launches == before + 1
+            ref = ssd_pallas_torch(*a, chunk=chunk)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == (b, l, h, p)
+            _assert_close(got, ref, *SCAN_BOUNDS[dtype])
+
+
+def test_ssd_pallas_kernel_refuses(dev):
+    rng = np.random.default_rng(8)
+    args = list(_scan_inputs(rng, dev, torch.float32, 1, 128, 2, 8, 8))
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="unsupported shapes"):
+            ssd_pallas_cuda(*args, chunk=96)
+        with pytest.raises(ValueError, match="CUDA"):
+            ssd_pallas_cuda(*(t.cpu() for t in args), chunk=64)
+        before = ssd_pallas_cuda.launches
+        fallback = ssd_pallas(*args, chunk=96)  # l % chunk: ssd_chunked, as the JAX function
+        assert ssd_pallas_cuda.launches == before and fallback.shape == args[0].shape
+    args[0].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        ssd_pallas_cuda(*args, chunk=64)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_mamba_literal_fused_conv_route(dev, dtype):
+    """A small MambaDenoiserNet on the literal route with the fused conv
+    (d_state 64 → conv_dim 256): the kernel route against the plain route,
+    every layer through K9 forward and K10 backward."""
+    kw = dict(base_ch=32, enc_ch=32, num_blocks=2, d_state=64, headdim=32, expansion=4,
+              num_gcp=0, padding_mode="replicate", use_pallas=True, dtype=dtype)
+    model = MambaDenoiserNet(**kw, use_kernels=True, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+    plain = MambaDenoiserNet(**kw, use_kernels=False, device=dev)
+    plain.load_state_dict(model.state_dict())
+    assert all(blk.mamba.fused_conv_route(32 * 32) for blk in model.blocks)
+    rng = np.random.default_rng(9)
+    x = _rand(rng, (2, 32, 32, 3), dev, torch.float32).abs()
+    aux = _rand(rng, (2, 32, 32, 7), dev, torch.float32)
+    counts = fused_causal_conv1d_silu_cuda.launches, fused_causal_conv1d_silu_bwd_cuda.launches
+    model(x, aux).square().mean().backward()
+    assert (fused_causal_conv1d_silu_cuda.launches,
+            fused_causal_conv1d_silu_bwd_cuda.launches) == (counts[0] + 2, counts[1] + 2)
+    plain(x, aux).square().mean().backward()
+    for (name, p), q in zip(model.named_parameters(), plain.parameters()):
+        if q.grad is None:
+            assert p.grad is None, name
+            continue
+        if dtype == torch.float32:
+            _assert_close(p.grad, q.grad, 1e-4, 1e-5)
+        else:
+            _assert_grad_close(name, p.grad, q.grad, image=False)
+
+
+def test_fold_qkv_fn_on_the_card(dev):
+    rng = np.random.default_rng(10)
+    b, h, w, c, heads = 2, 32, 32, 128, 4
+    args = [_rand(rng, (b, h, w, c), dev, torch.float32) for _ in range(2)]
+    args += [_rand(rng, (c, c), dev, torch.float32, 0.05) for _ in range(3)]
+    args += [_rand(rng, (14, c // heads // 2), dev, torch.float32) for _ in range(2)]
+    res = _rand(rng, (b, h, w, c), dev, torch.float32)
+    do = _rand(rng, (b, h, w, c), dev, torch.float32)
+    outs, grads = [], []
+    counts = (attention_cuda.block_halo_attention_cuda.launches,
+              attention_cuda.block_halo_attention_bwd_cuda.launches)
+    for kernel in (True, False):
+        ta = [a.clone().requires_grad_(True) for a in args + [res]]
+        if kernel:
+            out = QKVBlockHaloAttentionFn.apply(*ta, 8, 3, heads)
+        else:
+            out = qkv_block_halo_attention_torch(*ta[:7], block_size=8, halo_size=3,
+                                                 num_heads=heads, residual=ta[7])
+        out.backward(do)
+        outs.append(out.detach())
+        grads.append([t.grad for t in ta])
+    assert (attention_cuda.block_halo_attention_cuda.launches,
+            attention_cuda.block_halo_attention_bwd_cuda.launches) == (counts[0] + 1,
+                                                                       counts[1] + 1)
+    _assert_close(outs[0], outs[1], 1e-5, 1e-6)
+    for g, r in zip(*grads):
+        _assert_close(g, r, 1e-4, 1e-5)
