@@ -16,7 +16,8 @@ exits non-zero. Phases:
    and fp32 (and at halo 8, its key-chunked path), the pointwise GEMM K2,
    the 3×3 conv K3, the whole TransformerBlock forward in the three
    padding modes; the attention backward K4 (bf16, fp32), the conv input
-   gradient K5, the weight gradient K6 (9 taps and 1 tap) and the whole
+   gradient K5, the weight gradient K6 (9 taps and 1 tap, each also equal
+   to the bit across two calls) and the whole
    block backward in the three padding modes. Prints deviations and
    CUDA-event times of kernel and plain version. (K7's rows run in phase
    7, K7-emit's and K8's in phase 8, beside the paths they serve.)
@@ -24,14 +25,16 @@ exits non-zero. Phases:
    AFGSANet (seeded random weights, bf16, replicate padding) through
    `preprocess_data` and the device tiler (tile 64, margin 32, batch 8),
    the path `inference.run_inference` takes. Checks the outputs, that every
-   block of every batch went through K1, K2 and K3 (launch counters), and
+   block of every batch went through K1, K2 and K3 (launch counters), that
+   every K3 launch took its Hopper body (per-body counters), and
    frame 0 against the model's plain path on the card.
 5. Training: the prod GAN step (`training.train_step.make_train_step`,
    WGAN-GP + L1, Adam with the MultiStep schedule) on the prod-width
    AFGSANet in train mode and DiscriminatorVGG(128, 64, bf16), seeded
    random weights, batch 8 of 128² numpy patches: 2 warm-up and 5 timed
    steps. Checks finite losses, that every block of every step ran its
-   backward through K4, K5 and K6 (launch counters), prints patches/s and
+   backward through K4, K5 and K6 (launch counters), that every K3 and K6
+   launch took its Hopper body (per-body counters), prints patches/s and
    peak memory, then one step from identical state (with a float32
    critic, see STEP_LOSS_TOL, and cuDNN's deterministic algorithms)
    through the kernel route and the plain route on the card, beside the
@@ -224,11 +227,11 @@ KERNELS = {
     "K1": ("block_halo_attention_fwd (K1)", _SRC + "attention_fwd.cu",
            _TPU + "attention_pallas.py:217"),
     "K2": ("pointwise_gemm (K2)", _SRC + "block_fwd.cu", _TPU + "block_mega.py:413"),
-    "K3": ("conv3x3 (K3)", _SRC + "block_fwd.cu", _TPU + "block_mega.py:413"),
+    "K3": ("conv3x3 (K3)", _SRC + "conv3x3_sm90.cu", _TPU + "block_mega.py:413"),
     "K4": ("block_halo_attention_bwd (K4)", _SRC + "attention_bwd.cu",
            _TPU + "attention_pallas.py:383"),
     "K5": ("conv3x3_dgrad (K5)", _SRC + "block_bwd.cu", _TPU + "block_mega.py:662"),
-    "K6": ("weight_grad (K6)", _SRC + "block_bwd.cu", _TPU + "block_mega.py:662"),
+    "K6": ("weight_grad (K6)", _SRC + "wgrad_sm90.cu", _TPU + "block_mega.py:662"),
     "K7": ("fused_mamba_chain (K7)", _SRC + "ssd_fwd.cu", _TPU + "ssd_mega.py:256"),
     "K7e": ("fused_mamba_chain_emit (K7 emit)", _SRC + "ssd_fwd.cu", _TPU + "ssd_mega.py:252"),
     "K8": ("fused_mamba_chain_bwd (K8)", _SRC + "ssd_bwd.cu", _TPU + "ssd_mega.py:260"),
@@ -338,10 +341,24 @@ def counters() -> dict:
 def reset_counts() -> None:
     for fn in counters().values():
         fn.launches = 0
+        for body in getattr(fn, "body_launches", {}):
+            fn.body_launches[body] = 0
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, fn in counters().items()}
+
+
+def check_bodies(tag: str, launches: dict) -> None:
+    """K3 and K6 launch by body: on the prod shapes (widths 256) every launch
+    must take the Hopper body (`sm90`), none the general WMMA body."""
+    fns = counters()
+    for name in ("K3", "K6"):
+        bodies = dict(fns[name].body_launches)
+        log(f"[{tag}] {name} launches by body: {bodies} (total {launches[name]})")
+        if bodies["general"] or bodies["sm90"] != launches[name]:
+            raise AssertionError(f"[{tag}] {name}: {bodies['general']} prod-shape launches "
+                                 f"took the general body ({bodies})")
 
 
 def nbytes(*tensors) -> int:
@@ -380,6 +397,41 @@ def compare(name, kernel, plain, tol, iters=10, plain_iters=3, grads=None, work=
         + (f", bound {res['bound_ms']:.4f} ms ({res['bound_by']})" if work else "")
         + (f", library {res['library_ms']:.4f} ms" if library else ""))
     return res
+
+
+def assert_deterministic(name: str, fn) -> None:
+    """Two calls give the same bits (the split sums add in a fixed order)."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    if not all(torch.equal(f, s) for f, s in zip(first, second)):
+        raise AssertionError(f"{name}: two calls differ")
+    log(f"[kernels] {name}: two calls equal to the bit")
+
+
+def k3_persistence(x, w, bias, res) -> None:
+    """K3's Hopper body with its persistent grid (one wave of CTAs walking
+    the tiles) against one CTA per tile, in turns: does one tile's epilogue
+    overlapping the next tile's copies pay?"""
+    from pixel_heal_thyself_tpu_torch import _build
+    from pixel_heal_thyself_tpu_torch.ops.block_cuda import PAD_MODES
+
+    b, h, wd, c = x.shape
+    n = w.shape[1]
+    out = torch.empty(b, h, wd, n, dtype=x.dtype, device=x.device)
+    sms = _build.lib().pht_sm90_wave_ctas()  # one wave, whole clusters
+    tiles = -(-b * h * wd // 128) * -(-n // 256)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(ctas):
+        _build.check(_build.lib().pht_conv3x3_sm90(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), 1, res.data_ptr(), out.data_ptr(),
+            None, b, h, wd, c, n, PAD_MODES["replicate"], 1, ctas, stream), "pht_conv3x3_sm90")
+
+    times = {ctas: [] for ctas in (sms, tiles)}
+    for ctas in (sms, tiles, tiles, sms):
+        times[ctas].append(cuda_ms(lambda: run(ctas), 20))
+    log(f"[kernels] K3 persistent grid ({sms} CTAs) {times[sms]} ms vs one CTA per tile "
+        f"({tiles} CTAs) {times[tiles]} ms")
 
 
 def phase_kernels(device) -> dict:
@@ -480,6 +532,7 @@ def phase_kernels(device) -> dict:
         work=(nbytes(x, wts["w1"], wts["b1"], a, x), conv_flops, bf),
         library=lambda: F.conv2d(nchw(xp), w1k, wts["b1"]),
     )
+    k3_persistence(x, wts["w1"], wts["b1"], a)
     for mode in MODES:
         blk = dict(att, padding_mode=mode)
         compare(
@@ -512,6 +565,9 @@ def phase_kernels(device) -> dict:
         library=lambda: torch.nn.grad.conv2d_input(tuple(nchw(xp).shape), w2k, nchw(do)),
     )
     wg9 = dict(taps=9, padding_mode="replicate", colsum=True)
+    assert_deterministic("K6 weight gradient, 9 taps", lambda: weight_grad_cuda(x, do, a, **wg9))
+    assert_deterministic("K6 weight gradient, 1 tap",
+                         lambda: weight_grad_cuda(x, do, None, a, colsum=True))
     res["K6"] = compare(
         "K6 weight gradient, 9 taps (replicate, ReLU mask, db)",
         lambda: weight_grad_cuda(x, do, a, **wg9), lambda: weight_grad_torch(x, do, a, **wg9),
@@ -519,11 +575,13 @@ def phase_kernels(device) -> dict:
         work=(nbytes(x, do, a) + 4 * (9 * c * c + c), conv_flops, bf),
         library=lambda: torch.nn.grad.conv2d_weight(nchw(xp), w1k.shape, nchw(do)),
     )
-    compare(
+    res["K6 1 tap"] = compare(
         "K6 weight gradient, 1 tap ([x; a]ᵀ·dz, db)",
         lambda: weight_grad_cuda(x, do, None, a, colsum=True),
         lambda: weight_grad_torch(x, do, None, a, colsum=True),
         WGRAD_TOL,
+        work=(nbytes(x, a, do) + 4 * (2 * c * c + c), 2 * pixels * 2 * c * c, bf),
+        library=lambda: torch.mm(xa.t(), do.reshape(pixels, c)),
     )
     blk = dict(att, padding_mode="replicate")
     _, x1, f1, f2 = transformer_block_torch(x, a, **wts, **blk, emit=True)
@@ -567,6 +625,7 @@ def serve(device, frames, net, kwargs, layers: int, names: tuple, tag: str) -> d
         outs.append(denoise_frame_fused(fused, data, device=device))  # syncs: copies to host
         secs.append(time.perf_counter() - t0)
     launches = read_counts()
+    check_bodies(tag, launches)
     peak = torch.cuda.max_memory_allocated()
 
     n_batches = math.ceil((size // tile) ** 2 / batch)
@@ -902,6 +961,7 @@ def train_and_compare(device, net, kwargs, route, names: tuple, layers: int, lit
         history.append({key: val.item() for key, val in metrics.items()})  # syncs
         secs.append(time.perf_counter() - t0)
     launches = read_counts()
+    check_bodies(tag, launches)
     peak = torch.cuda.max_memory_allocated()
     del g, d, data, step
 

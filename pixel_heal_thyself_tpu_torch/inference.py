@@ -309,12 +309,12 @@ def run_inference(
     if from_export:
         raise NotImplementedError(
             "inference.from_export (exported serving artifacts) is not ported to "
-            "pixel_heal_thyself_tpu_torch yet (ROADMAP.md slice 6)",
+            "pixel_heal_thyself_tpu_torch yet (ROADMAP.md slice 7)",
         )
     if spatial:
         raise NotImplementedError(
             "inference.spatial (multi-GPU frame sharding) is not ported to "
-            "pixel_heal_thyself_tpu_torch yet (ROADMAP.md slice 6)",
+            "pixel_heal_thyself_tpu_torch yet (ROADMAP.md slice 7)",
         )
     model = load_generator(cfg, device)
     os.makedirs(out_dir, exist_ok=True)

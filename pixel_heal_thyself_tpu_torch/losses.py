@@ -7,7 +7,7 @@ per-sample interpolation of real and detached fake, taken with
 `create_graph=True` so the discriminator loss differentiates through it;
 per-sample L2 norm in float32; mean((‖g‖ − 1)²)). `ra_hinge_gan_loss`,
 `ssim_loss` and the other extras wait with the multiscale discriminator
-(ROADMAP.md slice 4).
+(ROADMAP.md slice 7).
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ in `dtype`; BatchNorm normalises in float32.
 
 The other discriminators (`DiscriminatorVGG128`, `PatchDiscriminator`,
 `MultiScaleDiscriminator`, `PatchGANDiscriminator`) wait for ROADMAP.md
-slice 4.
+slice 7.
 """
 
 from __future__ import annotations

@@ -69,10 +69,94 @@ from pixel_heal_thyself_tpu_torch.ops.padding import pad2d
 PAD_MODES = {"zeros": 0, "reflect": 1, "replicate": 2}
 # the block's parameters, in the order TransformerBlockFn takes them
 PARAM_NAMES = ("wcat", "bcat", "wq", "wk", "wv", "rel_h", "rel_w", "w1", "b1", "w2", "b2")
-# K6 splits the pixel sum over at most one wave of CTAs: two fit an SM
-# (110 registers × 256 threads per CTA); a second, nearly empty wave cost
-# 4.44 ms against 2.62 ms on the H100
-_WGRAD_CTAS_PER_SM = 2
+# the Hopper bodies of K3 and K6 (csrc/conv3x3_sm90.cu, csrc/wgrad_sm90.cu):
+# CTA tiles of 128 rows × 256 columns over 64-deep K stages, a ring of 4
+# stages of A (128 × 64 bf16) and B (64 × 256 bf16) in dynamic shared memory
+SM90_TILE = (128, 256, 64)
+SM90_STAGES = 4
+# CTAs per cluster (csrc/sm90_gemm.cuh's kCluster, 1: none): a cluster shares
+# B's stages by TMA multicast, and K6's grid has whole clusters of row tiles
+SM90_CLUSTER = 1
+# the general (WMMA) bodies: 128 × 128 tiles, two 256-thread CTAs per SM
+# (110 registers each)
+GENERAL_TILE = (128, 128)
+GENERAL_CTAS_PER_SM = 2
+MAX_SMEM = 232_448  # the opt-in shared memory of one CTA on the H100
+
+
+class WgradPlan(NamedTuple):
+    body: str  # "sm90" or "general"
+    row_tiles: int
+    col_tiles: int
+    splits: int  # CTAs along the pixel sum
+    pix_per_split: int  # pixels of each split but the last (sm90: a multiple of 64)
+    smem: int  # dynamic shared memory of one CTA (bytes)
+
+
+def sm90_smem() -> int:
+    """Dynamic shared memory of one CTA of a Hopper body (K3 and K6 alike):
+    the ring's stages, its 3 × 4 mbarriers, 4 KB of coordinate tables (K3:
+    two of 128 pixels; K6: two of 64) and 1 KB to align to 1,024. K6's gate
+    is applied by a separate pass, so it adds no stage bytes; with 9 taps or
+    1, one operand or two, the sum is the same."""
+    bm, bn, bk = SM90_TILE
+    return SM90_STAGES * (bm + bn) * bk * 2 + 3 * SM90_STAGES * 8 + 4096 + 1024
+
+
+def wgrad_plan(m: int, n: int, pixels: int, wave: int, body: str = "sm90") -> WgradPlan:
+    """K6's split of the pixel sum: as many splits as keep the grid within
+    one wave of `wave` CTAs (sm90: one CTA per SM, whose ring takes most of
+    its shared memory, in the clusters that fit at once, and the row tiles
+    padded to whole clusters; general: `wave` is the SM count, two CTAs per
+    SM), and no more than one per 64 pixels (sm90) or 256 (general). The
+    splits cover the pixels in order, each but the last `pix_per_split` of
+    them; the Hopper body's are never empty."""
+    if body == "sm90":
+        bm, bn, bk = SM90_TILE
+        rows, cols, cap, least = -(-m // bm), -(-n // bn), wave, bk
+        grid_rows = -(-rows // SM90_CLUSTER) * SM90_CLUSTER
+    else:
+        (bm, bn), bk = GENERAL_TILE, 32
+        rows, cols, cap, least = -(-m // bm), -(-n // bn), GENERAL_CTAS_PER_SM * wave, 256
+        grid_rows = rows
+    splits = max(1, min(cap // (grid_rows * cols), -(-pixels // least)))
+    per = -(-pixels // splits)
+    per = -(-per // bk) * bk  # (the general kernel computes the same)
+    if body == "sm90":
+        splits = -(-pixels // per)  # drop a split that rounding left empty
+    return WgradPlan(body, rows, cols, splits, per, sm90_smem() if body == "sm90" else 0)
+
+
+def _aligned(*tensors) -> bool:
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def conv3x3_body(c: int, n: int, *tensors) -> str:
+    """K3's body for input channels `c`, output channels `n` and the
+    operands `tensors`: the Hopper body needs 16-byte rows (c, n multiples
+    of 8) and 16-byte aligned operands; other shapes take the general body."""
+    return "sm90" if c % 8 == 0 and n % 8 == 0 and _aligned(*tensors) else "general"
+
+
+def conv3x3_a_by_tma(w: int) -> bool:
+    """K3's Hopper body loads its image operand by TMA, shifted per tap, when
+    each 64-pixel half of a 128-pixel tile lies in one frame row (W % 64 ==
+    0, the prod frames); else by its cp.async gather."""
+    return w % 64 == 0
+
+
+def weight_grad_a_by_tma(c1: int, w: int, taps: int) -> bool:
+    """K6's Hopper body loads x by TMA when its 64-row boxes hold one tap
+    (C1 % 64 == 0) and, with 9 taps, a 64-pixel stage lies in one frame row
+    (W % 64 == 0); else by its cp.async gather."""
+    return c1 % 64 == 0 and (taps == 1 or w % 64 == 0)
+
+
+def weight_grad_body(c1: int, c2: int, n: int, *tensors) -> str:
+    """K6's body: the Hopper body needs C1, C2 and N multiples of 8 and
+    16-byte aligned operands; other shapes take the general body."""
+    ok = c1 % 8 == 0 and c2 % 8 == 0 and n % 8 == 0 and _aligned(*tensors)
+    return "sm90" if ok else "general"
 
 
 def supports_shapes(
@@ -98,9 +182,18 @@ def supports_shapes(
 
 
 @functools.lru_cache(maxsize=None)
-def _wgrad_ctas(device: torch.device) -> int:
-    """K6's CTA cap on `device`: one wave."""
-    return _WGRAD_CTAS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _sm90_wave(device: torch.device) -> int:
+    """CTAs of one wave of the Hopper bodies on `device` (whole clusters)."""
+    with torch.cuda.device(device):
+        ctas = _build.lib().pht_sm90_wave_ctas()
+    if ctas <= 0:
+        raise RuntimeError(f"pht_sm90_wave_ctas: no cluster of the Hopper bodies fits ({ctas})")
+    return ctas
 
 
 def _cuda_stream(t: torch.Tensor) -> int:
@@ -225,16 +318,24 @@ def conv3x3_cuda(x, w, bias, padding_mode: str, relu: bool = True, residual=None
     _check_image("residual", residual, (b, h, wd, n))
     out = torch.empty(b, h, wd, n, dtype=x.dtype, device=x.device)
     pre = torch.empty_like(out) if return_pre else None
-    err = _build.lib().pht_conv3x3(
-        x.data_ptr(), w.data_ptr(), _ptr(bias), int(relu), _ptr(residual),
-        out.data_ptr(), _ptr(pre), b, h, wd, c, n, PAD_MODES[padding_mode], _cuda_stream(x),
-    )
+    body = conv3x3_body(c, n, x, w, bias, residual, out, pre)
+    args = (x.data_ptr(), w.data_ptr(), _ptr(bias), int(relu), _ptr(residual),
+            out.data_ptr(), _ptr(pre), b, h, wd, c, n, PAD_MODES[padding_mode])
+    if body == "sm90":
+        err = _build.lib().pht_conv3x3_sm90(*args, int(conv3x3_a_by_tma(wd)),
+                                            _sm90_wave(x.device), _cuda_stream(x))
+    else:
+        err = _build.lib().pht_conv3x3(*args, _cuda_stream(x))
     conv3x3_cuda.launches += 1
-    _build.check(err, "conv3x3_cuda")
+    conv3x3_cuda.body_launches[body] += 1
+    _build.check(err, f"conv3x3_cuda ({body} body)")
     return (out, pre) if return_pre else out
 
 
+# all launches, and by body: "sm90" (csrc/conv3x3_sm90.cu) or "general"
+# (block_fwd.cu's WMMA body)
 conv3x3_cuda.launches = 0
+conv3x3_cuda.body_launches = {"sm90": 0, "general": 0}
 
 
 def conv3x3(x, w, bias, padding_mode: str, relu: bool = True, residual=None,
@@ -363,23 +464,36 @@ def weight_grad_cuda(x, dy, gate=None, x2=None, *, taps: int = 1,
     if x2 is not None:
         _check_image("x2", x2, (b, h, w, c2))
     m = taps * c1 + c2
-    pixels = b * h * w
-    tiles = -(-m // 128) * -(-n // 128)
-    splits = max(1, min(_wgrad_ctas(x.device) // tiles, -(-pixels // 256)))
+    body = weight_grad_body(c1, c2, n, x, dy, gate, x2)
+    wave = _sm90_wave(x.device) if body == "sm90" else _sm_count(x.device)
+    plan = wgrad_plan(m, n, b * h * w, wave, body)
     size = m * n + (n if colsum else 0)
-    part = torch.empty(splits, size, dtype=torch.float32, device=x.device)
+    part = torch.empty(plan.splits, size, dtype=torch.float32, device=x.device)
     out = torch.empty(size, dtype=torch.float32, device=x.device)
-    err = _build.lib().pht_weight_grad(
-        x.data_ptr(), c1, _ptr(x2), c2, dy.data_ptr(), _ptr(gate), part.data_ptr(),
-        out.data_ptr(), b, h, w, n, taps, PAD_MODES[padding_mode], int(colsum), splits,
-        _cuda_stream(x),
-    )
+    pad = PAD_MODES[padding_mode]
+    if body == "sm90":
+        g = torch.empty_like(dy) if gate is not None else None  # dy ⊙ [gate > 0]
+        err = _build.lib().pht_weight_grad_sm90(
+            x.data_ptr(), c1, _ptr(x2), c2, dy.data_ptr(), _ptr(gate), _ptr(g),
+            part.data_ptr(), out.data_ptr(), b, h, w, n, taps, pad, int(colsum),
+            plan.splits, plan.pix_per_split, int(weight_grad_a_by_tma(c1, w, taps)),
+            _cuda_stream(x),
+        )
+    else:
+        err = _build.lib().pht_weight_grad(
+            x.data_ptr(), c1, _ptr(x2), c2, dy.data_ptr(), _ptr(gate), part.data_ptr(),
+            out.data_ptr(), b, h, w, n, taps, pad, int(colsum), plan.splits, _cuda_stream(x),
+        )
     weight_grad_cuda.launches += 1
-    _build.check(err, "weight_grad_cuda")
+    weight_grad_cuda.body_launches[body] += 1
+    _build.check(err, f"weight_grad_cuda ({body} body)")
     return out[: m * n].view(m, n), (out[m * n:] if colsum else None)
 
 
+# all launches, and by body: "sm90" (csrc/wgrad_sm90.cu) or "general"
+# (block_bwd.cu's WMMA body)
 weight_grad_cuda.launches = 0
+weight_grad_cuda.body_launches = {"sm90": 0, "general": 0}
 
 
 def weight_grad(x, dy, gate=None, x2=None, *, taps: int = 1, padding_mode: str = "zeros",

@@ -37,9 +37,11 @@ GROUPS = [
     ("gated_rmsnorm", "K7 gated RMSNorm"), ("attention_fwd", "K1 attention"),
     ("attention_bwd", "K4 attention backward"), ("attention_bias_reduce", "K4 attention backward"),
     ("conv3x3_dgrad", "K5 conv3x3 dgrad"), ("weight_grad", "K6 weight gradient"),
-    ("sum_splits", "K6 weight gradient"),
-    # K2 and K3 are one kernel in two modes (cuBLAS names hold "gemm_bf16")
-    ("gemm_bf16_kernel", "K2/K3 GEMM and conv3x3"),
+    ("sum_splits", "K6 weight gradient"), ("wgrad_kernel", "K6 weight gradient"),
+    ("mask_kernel", "K6 gate pass"), ("conv3x3_kernel", "K3 conv3x3"),
+    # K2, and K3's general body for widths 8 does not divide (cuBLAS names
+    # hold "gemm_bf16")
+    ("gemm_bf16_kernel", "K2 GEMM"),
     ("fprop", "cuDNN conv"), ("implicit", "cuDNN conv"), ("conv", "cuDNN conv"),
     ("cudnn", "cuDNN conv"), ("gemm", "cuBLAS GEMM"), ("Kernel2", "cuBLAS GEMM"),
     ("reduce", "reductions"),

@@ -13,7 +13,7 @@ count 0, as optax does).
 The generator and discriminator are `nn.Module`s updated in place; the
 step returns its losses as 0-dim tensors on the device (no host sync).
 The multiscale discriminator's relativistic hinge step, MS-SSIM and LPIPS
-wait for ROADMAP.md slice 4.
+wait for ROADMAP.md slice 7.
 """
 
 from __future__ import annotations
@@ -100,12 +100,12 @@ def make_train_step(g_model: torch.nn.Module, d_model: torch.nn.Module, losses_c
     if use_multiscale:
         raise NotImplementedError(
             "the multiscale discriminator step (relativistic hinge) is not ported to "
-            "pixel_heal_thyself_tpu_torch yet (ROADMAP.md slice 4)",
+            "pixel_heal_thyself_tpu_torch yet (ROADMAP.md slice 7)",
         )
     if losses_cfg.use_ssim_loss or losses_cfg.use_lpips_loss:
         raise NotImplementedError(
             "MS-SSIM and LPIPS losses are not ported to pixel_heal_thyself_tpu_torch yet "
-            "(ROADMAP.md slice 4)",
+            "(ROADMAP.md slice 7)",
         )
     gan_w = float(losses_cfg.gan_loss_w)
     l1_w = float(losses_cfg.l1_loss_w)

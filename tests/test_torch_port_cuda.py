@@ -182,8 +182,43 @@ def test_pointwise_gemm_kernel(dev, m, k1, k2, n):
         _assert_close(got, ref, 2**-7, 2e-3)
 
 
+# the widths 8 divides take the Hopper bodies of K3/K6 (the prod width, a
+# tile-ragged frame: 130 pixels), the others the general WMMA bodies; frames
+# 64 divides load the image operand by TMA (prod; 64 channels, 136 outputs),
+# the others gather it by cp.async
+CONV_SHAPES = [(2, 16, 24, 64, 64), (1, 9, 7, 12, 20), (1, 32, 128, 256, 256),
+               (1, 10, 13, 64, 72), (2, 6, 64, 64, 136)]
+
+
+@pytest.mark.parametrize("a_mn_major,b_tma", [(0, 0), (1, 0), (0, 1), (1, 1)])
+def test_sm90_wgmma_tile(dev, a_mn_major, b_tma):
+    """One warpgroup's 64×256×64 product through sm90_gemm.cuh's layouts
+    (A K-major as K3's, or MN-major as K6's; B MN-major, stored by the
+    threads or loaded by TMA as both kernels load it), exact products of
+    small integers summed in f32."""
+    from pixel_heal_thyself_tpu_torch import _build
+
+    rng = np.random.default_rng(11)
+    a = torch.as_tensor(rng.integers(-4, 5, (64, 64)), dtype=torch.bfloat16, device=dev)
+    b = torch.as_tensor(rng.integers(-4, 5, (64, 256)), dtype=torch.bfloat16, device=dev)
+    d = torch.empty(64, 256, dtype=torch.float32, device=dev)
+    err = _build.lib().pht_sm90_probe(a.data_ptr(), b.data_ptr(), d.data_ptr(), a_mn_major,
+                                     b_tma, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "pht_sm90_probe")
+    torch.cuda.synchronize()
+    assert torch.equal(d, a.float() @ b.float())
+
+
+def test_sm90_smem_matches_planner(dev):
+    from pixel_heal_thyself_tpu_torch import _build
+    from pixel_heal_thyself_tpu_torch.ops.block_cuda import sm90_smem
+
+    assert _build.lib().pht_weight_grad_sm90_smem() == sm90_smem()
+    assert _build.lib().pht_conv3x3_sm90_smem() == sm90_smem()
+
+
 @pytest.mark.parametrize("mode", ["zeros", "reflect", "replicate"])
-@pytest.mark.parametrize("shape", [(2, 16, 24, 64, 64), (1, 9, 7, 12, 20)])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
 def test_conv3x3_kernel(dev, mode, shape):
     rng = np.random.default_rng(2)
     bf = torch.bfloat16
@@ -192,11 +227,14 @@ def test_conv3x3_kernel(dev, mode, shape):
     wt = _rand(rng, (9 * c, n), dev, bf, (9 * c) ** -0.5)
     bias = _rand(rng, (n,), dev, bf, 0.1)
     res = _rand(rng, (b, h, w, n), dev, bf)
+    body = "sm90" if c % 8 == 0 and n % 8 == 0 else "general"
     for residual in (None, res):
+        before = dict(conv3x3_cuda.body_launches)
         got = conv3x3_cuda(x, wt, bias, mode, relu=True, residual=residual)
         ref = conv3x3_torch(x, wt, bias, mode, relu=True, residual=residual)
         torch.cuda.synchronize()
         _assert_close(got, ref, 2**-7, 2e-3)
+        assert conv3x3_cuda.body_launches[body] == before[body] + 1
 
 
 @pytest.mark.parametrize("mode", ["zeros", "reflect", "replicate"])
@@ -348,7 +386,7 @@ def test_conv3x3_dgrad_kernel(dev, mode, shape):
 
 
 @pytest.mark.parametrize("taps,mode", [(9, "zeros"), (9, "reflect"), (9, "replicate"), (1, "zeros")])
-@pytest.mark.parametrize("shape", [(2, 16, 24, 64, 64), (1, 9, 7, 12, 20)])
+@pytest.mark.parametrize("shape", CONV_SHAPES)
 def test_weight_grad_kernel(dev, taps, mode, shape):
     rng = np.random.default_rng(8)
     bf = torch.bfloat16
@@ -358,6 +396,8 @@ def test_weight_grad_kernel(dev, taps, mode, shape):
     dy = _rand(rng, (b, h, w, n), dev, bf)
     gate = _rand(rng, (b, h, w, n), dev, bf)
     kw = dict(taps=taps, padding_mode=mode, colsum=True)
+    body = "sm90" if c % 8 == 0 and n % 8 == 0 else "general"
+    before = dict(weight_grad_cuda.body_launches)
     dw, db = weight_grad_cuda(x, dy, gate, x2, **kw)
     rdw, rdb = weight_grad_torch(x, dy, gate, x2, **kw)
     dw2, db2 = weight_grad_cuda(x, dy, gate, x2, **kw)
@@ -365,6 +405,32 @@ def test_weight_grad_kernel(dev, taps, mode, shape):
     _assert_close(dw, rdw, 1e-5, 1e-6)
     _assert_close(db, rdb, 1e-5, 1e-6)
     assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    assert weight_grad_cuda.body_launches[body] == before[body] + 2
+
+
+@pytest.mark.parametrize("gate,colsum", [(False, True), (True, False)])
+def test_weight_grad_two_operand_prod_width(dev, gate, colsum):
+    """The one-tap two-operand K6 ([x; a]ᵀ·dz, C1 = C2 = 256) on the
+    Hopper body, with and without the ReLU gate and db."""
+    rng = np.random.default_rng(12)
+    bf = torch.bfloat16
+    b, h, w, c = 1, 32, 128, 256
+    x, a, dz, g = (_rand(rng, (b, h, w, c), dev, bf) for _ in range(4))
+    g = g if gate else None
+    before = weight_grad_cuda.body_launches["sm90"]
+    dw, db = weight_grad_cuda(x, dz, g, a, colsum=colsum)
+    rdw, rdb = weight_grad_torch(x, dz, g, a, colsum=colsum)
+    dw2, db2 = weight_grad_cuda(x, dz, g, a, colsum=colsum)
+    torch.cuda.synchronize()
+    assert weight_grad_cuda.body_launches["sm90"] == before + 2
+    assert dw.shape == (2 * c, c)
+    _assert_close(dw, rdw, 1e-5, 1e-6)
+    assert torch.equal(dw, dw2)
+    if colsum:
+        _assert_close(db, rdb, 1e-5, 1e-6)
+        assert torch.equal(db, db2)
+    else:
+        assert db is None and rdb is None
 
 
 def test_pointwise_gemm_pre_residual_and_conv_pre_output(dev):

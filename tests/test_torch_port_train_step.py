@@ -247,5 +247,5 @@ def test_multiscale_step_is_not_ported():
     g = AFGSANet(**G_KW)
     d = DiscriminatorVGG(input_size=PATCH, base_nf=D_NF)
     spec = make_optimizer(LR, [2], GAMMA, 100)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="slice 7"):
         make_train_step(g, d, LossesConfig(), True, spec, spec)
