@@ -247,20 +247,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def deviation(got, ref) -> dict:
     """Worst deviation over one output or a tuple of outputs, each relative
     to its reference's largest magnitude."""
@@ -373,7 +359,7 @@ def compare(name, kernel, plain, tol, iters=10, plain_iters=3, grads=None, work=
     ref)`), CUDA-event times of both, the bound from `work` = (bytes,
     flops, dtype) and the time of `library`, one PyTorch call computing the
     same function."""
-    from pixel_heal_thyself_tpu_torch.measure import bound
+    from pixel_heal_thyself_tpu_torch.measure import bound, cuda_ms
 
     got, ref = kernel(), plain()
     torch.cuda.synchronize()
@@ -406,32 +392,6 @@ def assert_deterministic(name: str, fn) -> None:
     if not all(torch.equal(f, s) for f, s in zip(first, second)):
         raise AssertionError(f"{name}: two calls differ")
     log(f"[kernels] {name}: two calls equal to the bit")
-
-
-def k3_persistence(x, w, bias, res) -> None:
-    """K3's Hopper body with its persistent grid (one wave of CTAs walking
-    the tiles) against one CTA per tile, in turns: does one tile's epilogue
-    overlapping the next tile's copies pay?"""
-    from pixel_heal_thyself_tpu_torch import _build
-    from pixel_heal_thyself_tpu_torch.ops.block_cuda import PAD_MODES
-
-    b, h, wd, c = x.shape
-    n = w.shape[1]
-    out = torch.empty(b, h, wd, n, dtype=x.dtype, device=x.device)
-    sms = _build.lib().pht_sm90_wave_ctas()  # one wave, whole clusters
-    tiles = -(-b * h * wd // 128) * -(-n // 256)
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def run(ctas):
-        _build.check(_build.lib().pht_conv3x3_sm90(
-            x.data_ptr(), w.data_ptr(), bias.data_ptr(), 1, res.data_ptr(), out.data_ptr(),
-            None, b, h, wd, c, n, PAD_MODES["replicate"], 1, ctas, stream), "pht_conv3x3_sm90")
-
-    times = {ctas: [] for ctas in (sms, tiles)}
-    for ctas in (sms, tiles, tiles, sms):
-        times[ctas].append(cuda_ms(lambda: run(ctas), 20))
-    log(f"[kernels] K3 persistent grid ({sms} CTAs) {times[sms]} ms vs one CTA per tile "
-        f"({tiles} CTAs) {times[tiles]} ms")
 
 
 def phase_kernels(device) -> dict:
@@ -532,7 +492,6 @@ def phase_kernels(device) -> dict:
         work=(nbytes(x, wts["w1"], wts["b1"], a, x), conv_flops, bf),
         library=lambda: F.conv2d(nchw(xp), w1k, wts["b1"]),
     )
-    k3_persistence(x, wts["w1"], wts["b1"], a)
     for mode in MODES:
         blk = dict(att, padding_mode=mode)
         compare(

@@ -54,9 +54,9 @@ _SIGNATURES = {
     "pht_pointwise_gemm": [_P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P],
     # x, w, bias, relu, residual, out, out2, B, H, W, C, N, pad_mode, stream
     "pht_conv3x3": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 6 + [_P],
-    # x, w, bias, relu, residual, out, out2, B, H, W, C, N, pad_mode, a_tma,
-    # ctas, stream (K3's Hopper body)
-    "pht_conv3x3_sm90": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 8 + [_P],
+    # x, w, bias, relu, residual, out, out2, B, H, W, C, N, pad_mode, stream
+    # (K3's Hopper body)
+    "pht_conv3x3_sm90": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 6 + [_P],
     "pht_conv3x3_sm90_smem": [],
     # dy, gate, wt, pre_residual, out, B, H, W, N, C, pad_mode, stream
     "pht_conv3x3_dgrad": [_P] * 5 + [_I] * 6 + [_P],
@@ -64,12 +64,13 @@ _SIGNATURES = {
     # colsum, splits, stream
     "pht_weight_grad": [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 8 + [_P],
     # a1, C1, a2, C2, dy, gate, g, part, out, B, H, W, N, taps, pad_mode,
-    # colsum, splits, pix_per_split, a_tma, stream (K6's Hopper body)
-    "pht_weight_grad_sm90": [_P, _I, _P, _I, _P, _P, _P, _P, _P] + [_I] * 10 + [_P],
+    # colsum, splits, pix_per_split, stream (K6's Hopper body)
+    "pht_weight_grad_sm90": [_P, _I, _P, _I, _P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     "pht_weight_grad_sm90_smem": [],
-    # CTAs of one wave of the Hopper bodies (whole clusters)
+    # CTAs of one wave of the Hopper bodies
     "pht_sm90_wave_ctas": [],
     # a, b, d, a_mn_major, b_tma, stream: one wgmma tile through sm90_gemm.cuh
+    # (test-only)
     "pht_sm90_probe": [_P, _P, _P, _I, _I, _P],
     # part, out, len, splits, stream
     "pht_sum_splits": [_P, _P, ctypes.c_longlong, _I, _P],

@@ -1,30 +1,30 @@
-"""Variants of K3's and K6's Hopper bodies, timed on the card at the prod
-shapes (8 × 128² × 256, bf16):
+"""What holds K3's and K6's Hopper bodies back, timed on the card at the
+prod shapes (8 × 128² × 256, bf16):
 
-    python -m pixel_heal_thyself_tpu_torch.bench_sm90
+    python -m pixel_heal_thyself_tpu_torch.bench_sm90 [--gather]
 
 Builds `csrc/conv3x3_sm90.cu` and `csrc/wgrad_sm90.cu` (with `block_bwd.cu`
-for the split sums) once per variant, each with its own `-D` settings of
-`csrc/sm90_gemm.cuh`, into `build/sm90_bench/`, and times every variant's
-K3 and K6 (9 taps with the gate and db; 1 tap with two operands and db;
-both with A by TMA) by CUDA events, in turns: the variants in order, then in reverse. Variants:
+for the split sums) once per variant, each with its own `PHT_SM90_DIAG`
+setting of `csrc/sm90_gemm.cuh`, into `build/sm90_bench/`, and times every
+variant's K3 and K6 (9 taps with the gate and db; 1 tap with two operands
+and db; both with A by TMA) by CUDA events, in turns: the variants in
+order, then in reverse. Variants:
 
-- `default`: the shipped settings (both operands by TMA at these shapes, a
-  producer warpgroup, no clusters);
+- `default`: the shipped body;
 - `no_mma`: the consumers skip their wgmmas: what the copies alone cost;
-- `no_copy`: the producers skip their copies: what the wgmmas alone cost;
-- `producer_warps_2`: two producer warps and no setmaxnreg;
-- `lag_2`: a gathering thread keeps 2 stages in flight (the cp.async gather
-  only: at these shapes A comes by TMA, so it reads as the default);
-- `cluster_2`: clusters of 2 CTAs that share B's stages by TMA multicast.
+- `no_copy`: the producers skip their copies: what the wgmmas alone cost.
 
 The diagnostic variants compute garbage; only the default's outputs are
-checked (against the library build's). Prints the card's name and power
-limit, then one line per variant and kernel.
+checked (against the library build's). With `--gather`, times instead the
+port's library at 8 × 32² × 256 (the ci and dev configs' patches, which
+the Hopper bodies gather by cp.async): K3 and the 9-tap K6 through the
+Hopper and the general bodies. Prints the card's name and power limit, then
+one line per variant (or body) and kernel.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -33,15 +33,13 @@ from pathlib import Path
 import torch
 
 from pixel_heal_thyself_tpu_torch import _build
+from pixel_heal_thyself_tpu_torch.measure import cuda_ms
 from pixel_heal_thyself_tpu_torch.ops.block_cuda import PAD_MODES, wgrad_plan
 
 VARIANTS = {
     "default": [],
     "no_mma": ["-DPHT_SM90_DIAG=1"],
     "no_copy": ["-DPHT_SM90_DIAG=2"],
-    "producer_warps_2": ["-DPHT_SM90_PRODUCER_WARPS=2"],
-    "lag_2": ["-DPHT_SM90_LAG=2"],
-    "cluster_2": ["-DPHT_SM90_CLUSTER=2"],
 }
 SOURCES = ("conv3x3_sm90.cu", "wgrad_sm90.cu", "block_bwd.cu")
 OUT = _build.BUILD_DIR.parent / "sm90_bench"
@@ -66,34 +64,72 @@ def build(name: str, flags: list[str]) -> ctypes.CDLL:
     return handle
 
 
-def cuda_ms(fn, iters: int = 20) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def gather_vs_general(dev, shape=(8, 32, 32, 256)) -> None:
+    """At a frame that 64 does not divide (the ci and dev configs' 32² patches,
+    batch 8, width 256) the Hopper bodies gather the image by cp.async: their
+    times against the general WMMA bodies' on the same inputs, in turns."""
+    lib = _build.lib()
+    b, h, w, c = shape
+    pixels = b * h * w
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rand = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()  # noqa: E731
+    x, dy, gate, res = (rand(b, h, w, c) for _ in range(4))
+    wt, bias = rand(9 * c, c) * (9 * c) ** -0.5, rand(c) * 0.1
+    stream = torch.cuda.current_stream().cuda_stream
+    out, g = torch.empty_like(x), torch.empty_like(dy)
+    pad = PAD_MODES["replicate"]
+    conv = (x.data_ptr(), wt.data_ptr(), bias.data_ptr(), 1, res.data_ptr(), out.data_ptr(),
+            None, b, h, w, c, c, pad)
+    wave = lib.pht_sm90_wave_ctas()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = {body: wgrad_plan(9 * c, c, pixels, wave if body == "sm90" else sms, body)
+             for body in ("sm90", "general")}
+    part = {k: torch.empty(p.splits, 9 * c * c + c, dtype=torch.float32, device=dev)
+            for k, p in plans.items()}
+    dw = torch.empty(9 * c * c + c, dtype=torch.float32, device=dev)
+    runs = {
+        ("K3", "sm90"): lambda: lib.pht_conv3x3_sm90(*conv, stream),
+        ("K3", "general"): lambda: lib.pht_conv3x3(*conv, stream),
+        ("K6 9 taps", "sm90"): lambda: lib.pht_weight_grad_sm90(
+            x.data_ptr(), c, None, 0, dy.data_ptr(), gate.data_ptr(), g.data_ptr(),
+            part["sm90"].data_ptr(), dw.data_ptr(), b, h, w, c, 9, pad, 1,
+            plans["sm90"].splits, plans["sm90"].pix_per_split, stream),
+        ("K6 9 taps", "general"): lambda: lib.pht_weight_grad(
+            x.data_ptr(), c, None, 0, dy.data_ptr(), gate.data_ptr(),
+            part["general"].data_ptr(), dw.data_ptr(), b, h, w, c, 9, pad, 1,
+            plans["general"].splits, stream),
+    }
+    for run in runs.values():
+        _build.check(run(), "gather_vs_general")
+    times = {k: [] for k in runs}
+    for order in (list(runs), list(reversed(runs))):
+        for k in order:
+            times[k].append(cuda_ms(runs[k], 20))
+    for (kernel, body), ms in times.items():
+        print(f"[sm90] {b}x{h}x{w}x{c} {kernel:10s} {body:8s} "
+              f"{' '.join(f'{t:.4f}' for t in ms)} ms", flush=True)
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(prog="bench_sm90")
+    ap.add_argument("--gather", action="store_true",
+                    help="the cp.async gather against the general bodies at 8 × 32² × 256")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_sm90 needs a CUDA card")
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    if args.gather:
+        gather_vs_general(dev)
+        print(smi)
+        return
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         libs = dict(zip(VARIANTS, pool.map(lambda kv: build(*kv), VARIANTS.items())))
 
     b, h, w, c = 8, 128, 128, 256
     pixels = b * h * w
-    waves = {name: lib.pht_sm90_wave_ctas() for name, lib in libs.items()}
-    waves["port"] = _build.lib().pht_sm90_wave_ctas()
-    print(f"[sm90] CTAs of one wave: {waves}", flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
     rand = lambda *s: torch.randn(*s, generator=gen, device=dev).bfloat16()  # noqa: E731
     x, a, dy, gate, res = (rand(b, h, w, c) for _ in range(5))
@@ -104,10 +140,9 @@ def main() -> None:
     pad = PAD_MODES["replicate"]
 
     def k3(lib):
-        wave = lib.pht_sm90_wave_ctas()
         return lambda: lib.pht_conv3x3_sm90(
             x.data_ptr(), wt.data_ptr(), bias.data_ptr(), 1, res.data_ptr(), out.data_ptr(),
-            None, b, h, w, c, c, pad, 1, wave, stream)
+            None, b, h, w, c, c, pad, stream)
 
     def k6(lib, taps):
         m = 9 * c if taps == 9 else 2 * c
@@ -121,7 +156,7 @@ def main() -> None:
             lib.pht_weight_grad_sm90(x.data_ptr(), c, second, c if taps == 1 else 0,
                                      dy.data_ptr(), gated, g.data_ptr(), part.data_ptr(),
                                      dw.data_ptr(), b, h, w, c, taps, pad, 1, plan.splits,
-                                     plan.pix_per_split, 1, stream)
+                                     plan.pix_per_split, stream)
             return dw
         return run
 
@@ -141,7 +176,7 @@ def main() -> None:
     for order in (list(VARIANTS), list(reversed(VARIANTS))):
         for v in order:
             for k, make in kernels.items():
-                times[(v, k)].append(cuda_ms(make(libs[v])))
+                times[(v, k)].append(cuda_ms(make(libs[v]), 20))
     for (v, k), ms in times.items():
         print(f"[sm90] {v:17s} {k:10s} {' '.join(f'{t:.4f}' for t in ms)} ms", flush=True)
     print(smi)

@@ -114,17 +114,11 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(
 
   const int64_t P = (int64_t)p.B * p.H * p.W;
   const int col_tiles = (p.N + BN - 1) / BN;
-  // a work item: kCluster neighbouring pixel tiles (one per CTA of the
-  // cluster, sharing W's stages) x one column tile; a pixel tile past the
-  // frame runs empty
-  const int pairs = (int)(((P + BM - 1) / BM + kCluster - 1) / kCluster);
-  const int items = pairs * col_tiles;
-  const int cluster = blockIdx.x / kCluster, clusters = gridDim.x / kCluster;
-  const int rank = blockIdx.x % kCluster;
+  const int items = (int)((P + BM - 1) / BM) * col_tiles;  // pixel tiles x column tiles
   const int chunks = (p.C + BK - 1) / BK;  // channel chunks per tap
   const int ksteps = 9 * chunks;
   if (threadIdx.x == 0) ring.init(p.a_tma ? 1 : kProducers, kConsumers / 32);
-  cluster_sync();  // every CTA's barriers are ready before any peer uses them
+  __syncthreads();
 
   if (threadIdx.x >= kConsumers && p.a_tma) {
     // ------------------------------------------------- producer, A by TMA
@@ -133,11 +127,10 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(
     producer_regs();
     const int pw = (threadIdx.x - kConsumers) / 32, lane = threadIdx.x % 32;
     if (pw < 2 && (pw == 1 || lane == 0)) {
-      const uint32_t ring0 = smem_u32(smem);
       const int64_t HW = (int64_t)p.H * p.W;
       int i = 0;
-      for (int item = cluster; item < items; item += clusters) {
-        const int64_t q0 = (int64_t)((item / col_tiles) * kCluster + rank) * BM;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int64_t q0 = (int64_t)(item / col_tiles) * BM;
         const int n0 = (item % col_tiles) * BN;
         // each 64-pixel half of the tile lies in one frame row (W % 64 == 0):
         // its image, row and first column; a half past the frame reads zeros
@@ -194,7 +187,6 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(
           }
         }
       }
-      if (pw == 0) drain(ring, i);
     }
   } else if (threadIdx.x >= kConsumers) {
     // --------------------------------------------- producer, A by cp.async
@@ -203,8 +195,8 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(
     const int cv = pt % 8;  // A: this thread's 8 channels of a chunk
     const uint32_t ring0 = smem_u32(smem);
     int i = 0;  // stage counter over all tiles
-    for (int item = cluster, it = 0; item < items; item += clusters, ++it) {
-      const int64_t q0 = (int64_t)((item / col_tiles) * kCluster + rank) * BM;
+    for (int item = blockIdx.x, it = 0; item < items; item += gridDim.x, ++it) {
+      const int64_t q0 = (int64_t)(item / col_tiles) * BM;
       const int n0 = (item % col_tiles) * BN;
       int4* tab = table + (it & 1) * BM;
       for (int r = pt; r < BM; r += kProducers) {  // the tile's pixel coordinates
@@ -234,7 +226,7 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(
         }
 #endif
         cp_async_commit();
-        if (pt == 0)  // B: rows (tap, chunk) of W by TMA, shared by the cluster
+        if (pt == 0)  // B: rows (tap, chunk) of W by TMA
           load_b(ring, i, slot + A_BYTES, &wmap, n0, (3 * ky + kx) * p.C + cc * BK);
         if (++cc == chunks) {
           cc = 0;
@@ -246,7 +238,6 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(
       }
     }
     publish_tail<S, LAG>(ring, i);
-    drain(ring, i);
   } else {
     // --------------------------------------------------------------- consumers
     consumer_regs();
@@ -255,7 +246,7 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(
     const uint32_t ring0 = smem_u32(smem);
     float acc[128];  // each tile's first wgmma overwrites it
     int i = 0;
-    for (int item = cluster; item < items; item += clusters) {
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
       for (int s = 0; s < ksteps; ++s, ++i) {
         wait_slot_full(ring, i);
         const uint32_t a = ring0 + (i % S) * STAGE + wg * 8192;
@@ -281,8 +272,7 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(
 
       // epilogue: lane `quad` of each quad gathers block 4 jj + quad's 8
       // channels for its rows r and r + 8
-      const int64_t q =
-          (int64_t)((item / col_tiles) * kCluster + rank) * BM + 64 * wg + 16 * warp + lane / 4;
+      const int64_t q = (int64_t)(item / col_tiles) * BM + 64 * wg + 16 * warp + lane / 4;
       const int n0 = (item % col_tiles) * BN;
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
@@ -314,16 +304,14 @@ __global__ void __launch_bounds__(kThreads, 1) conv3x3_kernel(
 extern "C" {
 
 // Needs C, N multiples of 8 and 16-byte aligned tensors (ops/block_cuda.py's
-// gate). With `a_tma` (needs W % 64 == 0), A comes by TMA; without, by the
-// cp.async gather; `ctas`: the persistent grid (one wave, `pht_sm90_wave_ctas`), capped
-// at the work and cut to whole clusters.
+// gate). A comes by TMA when W % 64 == 0, else by the cp.async gather. The
+// persistent grid is one wave (one CTA per SM), capped at the work.
 int pht_conv3x3_sm90(const void* x, const void* w, const void* bias, int relu, const void* res,
                      void* out, void* out2, int B, int H, int W, int C, int N, int pad_mode,
-                     int a_tma, int ctas, void* stream) {
+                     void* stream) {
   Params p;
   p.x = static_cast<const bf16*>(x);
-  p.a_tma = a_tma;
-  if (a_tma && W % 64) return (int)cudaErrorInvalidValue;
+  p.a_tma = W % 64 == 0;
   p.w = static_cast<const bf16*>(w);
   p.bias = static_cast<const bf16*>(bias);
   p.res = static_cast<const bf16*>(res);
@@ -333,7 +321,7 @@ int pht_conv3x3_sm90(const void* x, const void* w, const void* bias, int relu, c
   p.B = B; p.H = H; p.W = W; p.C = C; p.N = N; p.pad_mode = pad_mode;
   CUtensorMap wmap, amap = {};
   int err0 = make_tma_2d(&wmap, w, 9 * (uint64_t)C, N);
-  if (!err0 && a_tma) {
+  if (!err0 && p.a_tma) {
     const uint64_t dims[3] = {(uint64_t)C, (uint64_t)W, (uint64_t)B * H};
     err0 = make_tma(&amap, x, 3, dims);
   }
@@ -345,13 +333,13 @@ int pht_conv3x3_sm90(const void* x, const void* w, const void* bias, int relu, c
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const int64_t pairs = (((int64_t)B * H * W + BM - 1) / BM + kCluster - 1) / kCluster;
-  const int64_t items = pairs * ((N + BN - 1) / BN);
-  const int grid = (int)std::min<int64_t>(items, std::max(ctas / kCluster, 1)) * kCluster;
+  const int64_t items = ((int64_t)B * H * W + BM - 1) / BM * ((N + BN - 1) / BN);
   if (items == 0) return 0;
-  const int err = launch_clustered(conv3x3_kernel, dim3(grid), SMEM,
-                                   static_cast<cudaStream_t>(stream), wmap, amap, p);
-  return err ? err : (int)cudaGetLastError();
+  const int wave = wave_ctas(conv3x3_kernel, SMEM);
+  if (wave <= 0) return (int)cudaErrorInvalidConfiguration;
+  conv3x3_kernel<<<(int)std::min<int64_t>(items, wave), kThreads, SMEM,
+                   static_cast<cudaStream_t>(stream)>>>(wmap, amap, p);
+  return (int)cudaGetLastError();
 }
 
 int pht_conv3x3_sm90_smem() { return SMEM; }

@@ -114,40 +114,6 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// ... the same box into the same offset of every CTA in `mask` (the cluster),
-// completing on each one's mbarrier at `bar`'s offset
-__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtensorMap* map, int c0,
-                                                      int c1, uint64_t* bar, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar)), "h"(mask)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// all threads of all CTAs of the cluster
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// arrive on the mbarrier at `bar`'s offset in CTA `peer` of the cluster
-__device__ __forceinline__ void mbar_arrive_peer(uint64_t* bar, uint32_t peer) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(smem_u32(bar)), "r"(peer));
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
-               : "memory");
-}
-
 // A tensor map of a contiguous bf16 tensor of `rank` dims (innermost first,
 // the innermost a multiple of 8) in boxes of 64 x 64 (x 1): the 64 innermost
 // values (128 bytes) of 64 rows, 128-byte swizzled, so that each box lands as
@@ -272,45 +238,25 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
 // ---- the ring ----------------------------------------------------------------
 
 // The warp-specialized layout of both bodies: two consumer warpgroups and a
-// producer warpgroup (or PHT_SM90_PRODUCER_WARPS warps). With a producer
-// warpgroup, setmaxnreg moves registers to the consumers, whose 128 f32
-// accumulators would otherwise spill under the 168 a 384-thread CTA gets.
-// When both operands come by TMA, one producer thread issues every copy;
-// the others serve the cp.async gather of the shapes TMA cannot take.
-// PHT_SM90_LAG: stages a gathering thread keeps in flight. PHT_SM90_DIAG (a
-// diagnostic build, bench_sm90.py): 1 skips the wgmmas, 2 skips the copies.
-#ifndef PHT_SM90_PRODUCER_WARPS
-#define PHT_SM90_PRODUCER_WARPS 4
-#endif
-#ifndef PHT_SM90_LAG
-#define PHT_SM90_LAG 3
-#endif
+// producer warpgroup, whose setmaxnreg moves registers to the consumers: their
+// 128 f32 accumulators would otherwise spill under the 168 a 384-thread CTA
+// gets. When both operands come by TMA, one producer thread issues every copy;
+// the others serve the cp.async gather of the shapes TMA cannot take, each
+// keeping kLag stages in flight. PHT_SM90_DIAG (a diagnostic build,
+// bench_sm90.py): 1 skips the wgmmas, 2 skips the copies.
 #ifndef PHT_SM90_DIAG
 #define PHT_SM90_DIAG 0
 #endif
-// CTAs of a cluster that share each B stage: each loads its share of the
-// stage's 64-column boxes by TMA multicast into all of them. 1 (no cluster)
-// is the shipped setting: on the H100 clusters of 2 ran K3 37% and K6 58%
-// slower (bench_sm90.py's `cluster_2`; the lockstep of the pair costs more
-// than the halved L2 reads of B save)
-#ifndef PHT_SM90_CLUSTER
-#define PHT_SM90_CLUSTER 1
-#endif
-constexpr int kRingSlots = 4, kLag = PHT_SM90_LAG, kCluster = PHT_SM90_CLUSTER;
-static_assert(kCluster == 1 || kCluster == 2 || kCluster == 4, "B's 4 boxes split evenly");
-constexpr int kConsumers = 256, kProducers = 32 * PHT_SM90_PRODUCER_WARPS;
+constexpr int kRingSlots = 4, kLag = 3;
+constexpr int kConsumers = 256, kProducers = 128;
 constexpr int kThreads = kConsumers + kProducers;
 
 __device__ __forceinline__ void producer_regs() {
-#if PHT_SM90_PRODUCER_WARPS == 4
   asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
-#endif
 }
 
 __device__ __forceinline__ void consumer_regs() {
-#if PHT_SM90_PRODUCER_WARPS == 4
   asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
-#endif
 }
 
 // Stage i of a ring of S slots: slot i % S, waited on with parity (i / S) & 1.
@@ -319,8 +265,8 @@ __device__ __forceinline__ void consumer_regs() {
 // copies of the stage have landed and been fenced for the async proxy); with
 // A by TMA (producers = 1), the patching warp's, once A's boxes have landed
 // (landed[s], which expects their bytes) and their frame edges are patched.
-// empty[s] counts the consumer warps of the cluster (lane 0 of each arrives
-// once its wgmmas on the slot are done).
+// empty[s] counts the consumer warps (lane 0 of each arrives once its wgmmas
+// on the slot are done).
 template <int S> struct Ring {
   uint64_t full[S];
   uint64_t empty[S];
@@ -330,7 +276,7 @@ template <int S> struct Ring {
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], producers + 1);
-      mbar_init(&empty[s], consumer_warps * kCluster);
+      mbar_init(&empty[s], consumer_warps);
       mbar_init(&landed[s], 1);
     }
     mbar_init_fence();
@@ -391,31 +337,14 @@ __device__ __forceinline__ void wait_slot_full(Ring<S>& ring, int i) {
   mbar_wait(&ring.full[i % S], (i / S) & 1);
 }
 
-// a consumer warp releases stage i (its wgmmas on the slot have completed) in
-// every CTA of the cluster: each of them multicasts into this slot
+// a consumer warp releases stage i (its wgmmas on the slot have completed)
 template <int S>
 __device__ __forceinline__ void release(Ring<S>& ring, int i) {
-  if ((threadIdx.x & 31) == 0) {
-    mbar_arrive(&ring.empty[i % S]);
-    if (kCluster > 1) {
-      const uint32_t rank = cluster_rank();
-      for (uint32_t peer = 0; peer < (uint32_t)kCluster; ++peer)
-        if (peer != rank) mbar_arrive_peer(&ring.empty[i % S], peer);
-    }
-  }
-}
-
-// The producer's last act: wait until every CTA of the cluster released the
-// last S of the `n` stages, so that no peer arrives on, or copies into, this
-// CTA's shared memory after it exits.
-template <int S>
-__device__ __forceinline__ void drain(Ring<S>& ring, int n) {
-  for (int i = n; i < n + S; ++i) wait_slot_free(ring, i);
+  if ((threadIdx.x & 31) == 0) mbar_arrive(&ring.empty[i % S]);
 }
 
 // B of stage i by TMA: four 64 x 64 boxes at columns c0 + 64 box, row c1,
-// into the slot's B block at `dst`. Each CTA of the cluster expects all four
-// boxes and loads (multicasts) its share of them.
+// into the slot's B block at `dst`
 template <int S>
 __device__ __forceinline__ void load_b(Ring<S>& ring, int i, uint32_t dst, const CUtensorMap* map,
                                        int c0, int c1) {
@@ -424,57 +353,22 @@ __device__ __forceinline__ void load_b(Ring<S>& ring, int i, uint32_t dst, const
   mbar_arrive(bar);
 #else
   mbar_arrive_expect_tx(bar, 4 * 8192);
-  constexpr int share = 4 / kCluster;
-  const int first = kCluster > 1 ? (int)cluster_rank() * share : 0;
 #pragma unroll
-  for (int box = first; box < first + share; ++box) {
-    if (kCluster > 1)
-      tma_load_2d_multicast(dst + box * 8192, map, c0 + 64 * box, c1, bar,
-                            (uint16_t)((1 << kCluster) - 1));
-    else
-      tma_load_2d(dst + box * 8192, map, c0 + 64 * box, c1, bar);
-  }
+  for (int box = 0; box < 4; ++box) tma_load_2d(dst + box * 8192, map, c0 + 64 * box, c1, bar);
 #endif
 }
 
-// Launch `kernel` on clusters of kCluster CTAs along x (grid.x a multiple).
-template <typename... Params, typename... Args>
-static inline int launch_clustered(void (*kernel)(Params...), dim3 grid, int smem,
-                                   cudaStream_t stream, Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
-}
-
-// CTAs of `kernel` that one wave holds: kCluster x the clusters that fit at
-// once (at one CTA per SM, an SM left over in a GPC holds none); -1 on error
+// CTAs of `kernel` that one wave holds on the current device, at `smem` bytes
+// of dynamic shared memory (set as the kernel's maximum first); -1 on error
 template <typename... Params>
 static inline int wave_ctas(void (*kernel)(Params...), int smem) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kCluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  if (cudaOccupancyMaxActiveClusters(&clusters, (const void*)kernel, &cfg) != cudaSuccess)
+  int dev = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) !=
+          cudaSuccess)
     return -1;
-  return clusters * kCluster;
+  return per_sm * sms;
 }
 
 }  // namespace sm90

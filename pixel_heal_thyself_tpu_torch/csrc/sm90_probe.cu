@@ -4,7 +4,8 @@
 // (K6's A) and B MN-major (the B of both), B stored by the threads or loaded
 // by TMA in 64 x 64 boxes (as both kernels load it). A test holds it against
 // a plain product: a descriptor, swizzle or fragment-order mismatch gives wrong
-// numbers here before it gives them in a kernel.
+// numbers here before it gives them in a kernel. Test-only: no entry point
+// of the port calls `pht_sm90_probe` (tests/test_torch_port_cuda.py does).
 
 #include "common.cuh"
 #include "sm90_gemm.cuh"

@@ -87,7 +87,7 @@ __global__ void __launch_bounds__(kThreads, 1) wgrad_kernel(
   const int p1 = min(P, p0 + p.pix_per_split);
   const int stages = p1 > p0 ? (p1 - p0 + BK - 1) / BK : 0;
   if (threadIdx.x == 0) ring.init(p.a_tma ? 1 : kProducers, kConsumers / 32);
-  cluster_sync();  // every CTA's barriers are ready before any peer uses them
+  __syncthreads();
 
   if (threadIdx.x >= kConsumers && p.a_tma) {
     // ------------------------------------------------- producer, A by TMA
@@ -158,7 +158,6 @@ __global__ void __launch_bounds__(kThreads, 1) wgrad_kernel(
           }
         }
       }
-      if (pw == 0) drain(ring, stages);
     }
   } else if (threadIdx.x >= kConsumers) {
     // --------------------------------------------- producer, A by cp.async
@@ -207,7 +206,7 @@ __global__ void __launch_bounds__(kThreads, 1) wgrad_kernel(
       }
 #endif
       cp_async_commit();
-      if (pt == 0)  // B: the stage's 64 pixels of g by TMA, shared by the cluster
+      if (pt == 0)  // B: the stage's 64 pixels of g by TMA
         load_b(ring, i, slot + A_BYTES, &gmap, n0, p0 + i * BK);
       x += sx;  // the next stage's pixel
       const int cy = x >= p.W;
@@ -218,7 +217,6 @@ __global__ void __launch_bounds__(kThreads, 1) wgrad_kernel(
       b += sb + cb;
     }
     publish_tail<S, LAG>(ring, stages);
-    drain(ring, stages);
   } else {
     // --------------------------------------------------------------- consumers
     consumer_regs();
@@ -334,8 +332,8 @@ int configure() {
 
 extern "C" {
 
-// a_tma: A by TMA (needs C1 % 64 == 0 and, with 9 taps, W % 64 == 0); else
-// by the cp.async gather from a1 (and a2).
+// A comes by TMA when C1 % 64 == 0 and, with 9 taps, W % 64 == 0; else by the
+// cp.async gather from a1 (and a2).
 // g: [P, N] bf16 scratch (used when gate); part: [splits][len] f32 scratch;
 // out: [len] f32: dW [M][N], then db [N] when colsum (len = M*N (+ N)),
 // M = taps*C1 + C2. Needs C1, C2, N multiples of 8 and 16-byte aligned
@@ -344,9 +342,9 @@ extern "C" {
 int pht_weight_grad_sm90(const void* a1, int C1, const void* a2, int C2, const void* dy,
                          const void* gate, void* g, void* part, void* out, int B, int H,
                          int W, int N, int taps, int pad_mode, int colsum, int splits,
-                         int pix_per_split, int a_tma, void* stream) {
+                         int pix_per_split, void* stream) {
   if (pix_per_split % BK) return (int)cudaErrorInvalidValue;  // stages within a split
-  if (a_tma && (C1 % 64 || (taps == 9 && W % 64))) return (int)cudaErrorInvalidValue;
+  const int a_tma = C1 % 64 == 0 && (taps == 1 || W % 64 == 0);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t P = (int64_t)B * H * W;
   Params p;
@@ -384,11 +382,9 @@ int pht_weight_grad_sm90(const void* a1, int C1, const void* a2, int C2, const v
   if (err0) return err0;
   const int err1 = configure();
   if (err1) return err1;
-  // row tiles padded to whole clusters (a tile past M runs empty)
-  const int rows = ((p.M + BM - 1) / BM + kCluster - 1) / kCluster * kCluster;
-  const dim3 grid((unsigned)rows, (unsigned)((N + BN - 1) / BN), (unsigned)splits);
-  const int err2 = launch_clustered(wgrad_kernel, grid, SMEM, s, gmap, amap1, amap2, p);
-  if (err2) return err2;
+  const dim3 grid((unsigned)((p.M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN),
+                  (unsigned)splits);
+  wgrad_kernel<<<grid, kThreads, SMEM, s>>>(gmap, amap1, amap2, p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return pht_sum_splits(part, out, (long long)p.len, splits, stream);
@@ -398,7 +394,7 @@ int pht_weight_grad_sm90(const void* a1, int C1, const void* a2, int C2, const v
 int pht_weight_grad_sm90_smem() { return SMEM; }
 
 // CTAs of one wave of either Hopper body (the same threads and shared
-// memory): the planner's and K3's grid; negative on error
+// memory): the planner's; negative on error
 int pht_sm90_wave_ctas() {
   if (configure()) return -1;
   return wave_ctas(wgrad_kernel, SMEM);

@@ -1,4 +1,5 @@
-"""What `chip_smoke.py` and `profile_serving` share: bounds and frames.
+"""What `chip_smoke.py`, `profile_serving` and `bench_sm90` share: bounds,
+frames and a CUDA-event timer.
 
     python -m pixel_heal_thyself_tpu_torch.measure
 
@@ -33,6 +34,22 @@ def bound(moved: int, flops: float, dtype) -> dict:
     t_bytes, t_ops = moved / HBM_BYTES_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean milliseconds of `fn()` over `iters` calls on the current CUDA
+    stream (CUDA events), after `warmup` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def synthetic_frames(count: int, size: int) -> list:

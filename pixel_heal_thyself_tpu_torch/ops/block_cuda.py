@@ -74,9 +74,6 @@ PARAM_NAMES = ("wcat", "bcat", "wq", "wk", "wv", "rel_h", "rel_w", "w1", "b1", "
 # stages of A (128 × 64 bf16) and B (64 × 256 bf16) in dynamic shared memory
 SM90_TILE = (128, 256, 64)
 SM90_STAGES = 4
-# CTAs per cluster (csrc/sm90_gemm.cuh's kCluster, 1: none): a cluster shares
-# B's stages by TMA multicast, and K6's grid has whole clusters of row tiles
-SM90_CLUSTER = 1
 # the general (WMMA) bodies: 128 × 128 tiles, two 256-thread CTAs per SM
 # (110 registers each)
 GENERAL_TILE = (128, 128)
@@ -106,20 +103,17 @@ def sm90_smem() -> int:
 def wgrad_plan(m: int, n: int, pixels: int, wave: int, body: str = "sm90") -> WgradPlan:
     """K6's split of the pixel sum: as many splits as keep the grid within
     one wave of `wave` CTAs (sm90: one CTA per SM, whose ring takes most of
-    its shared memory, in the clusters that fit at once, and the row tiles
-    padded to whole clusters; general: `wave` is the SM count, two CTAs per
-    SM), and no more than one per 64 pixels (sm90) or 256 (general). The
+    its shared memory; general: `wave` is the SM count, two CTAs per SM),
+    and no more than one per 64 pixels (sm90) or 256 (general). The
     splits cover the pixels in order, each but the last `pix_per_split` of
     them; the Hopper body's are never empty."""
     if body == "sm90":
         bm, bn, bk = SM90_TILE
         rows, cols, cap, least = -(-m // bm), -(-n // bn), wave, bk
-        grid_rows = -(-rows // SM90_CLUSTER) * SM90_CLUSTER
     else:
         (bm, bn), bk = GENERAL_TILE, 32
         rows, cols, cap, least = -(-m // bm), -(-n // bn), GENERAL_CTAS_PER_SM * wave, 256
-        grid_rows = rows
-    splits = max(1, min(cap // (grid_rows * cols), -(-pixels // least)))
+    splits = max(1, min(cap // (rows * cols), -(-pixels // least)))
     per = -(-pixels // splits)
     per = -(-per // bk) * bk  # (the general kernel computes the same)
     if body == "sm90":
@@ -134,22 +128,10 @@ def _aligned(*tensors) -> bool:
 def conv3x3_body(c: int, n: int, *tensors) -> str:
     """K3's body for input channels `c`, output channels `n` and the
     operands `tensors`: the Hopper body needs 16-byte rows (c, n multiples
-    of 8) and 16-byte aligned operands; other shapes take the general body."""
+    of 8) and 16-byte aligned operands; other shapes take the general body.
+    (The Hopper body itself picks how it loads the image: by TMA when 64
+    divides W, else by its cp.async gather.)"""
     return "sm90" if c % 8 == 0 and n % 8 == 0 and _aligned(*tensors) else "general"
-
-
-def conv3x3_a_by_tma(w: int) -> bool:
-    """K3's Hopper body loads its image operand by TMA, shifted per tap, when
-    each 64-pixel half of a 128-pixel tile lies in one frame row (W % 64 ==
-    0, the prod frames); else by its cp.async gather."""
-    return w % 64 == 0
-
-
-def weight_grad_a_by_tma(c1: int, w: int, taps: int) -> bool:
-    """K6's Hopper body loads x by TMA when its 64-row boxes hold one tap
-    (C1 % 64 == 0) and, with 9 taps, a 64-pixel stage lies in one frame row
-    (W % 64 == 0); else by its cp.async gather."""
-    return c1 % 64 == 0 and (taps == 1 or w % 64 == 0)
 
 
 def weight_grad_body(c1: int, c2: int, n: int, *tensors) -> str:
@@ -188,11 +170,11 @@ def _sm_count(device: torch.device) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _sm90_wave(device: torch.device) -> int:
-    """CTAs of one wave of the Hopper bodies on `device` (whole clusters)."""
+    """CTAs of one wave of the Hopper bodies on `device`."""
     with torch.cuda.device(device):
         ctas = _build.lib().pht_sm90_wave_ctas()
     if ctas <= 0:
-        raise RuntimeError(f"pht_sm90_wave_ctas: no cluster of the Hopper bodies fits ({ctas})")
+        raise RuntimeError(f"pht_sm90_wave_ctas: no CTA of the Hopper bodies fits ({ctas})")
     return ctas
 
 
@@ -321,11 +303,8 @@ def conv3x3_cuda(x, w, bias, padding_mode: str, relu: bool = True, residual=None
     body = conv3x3_body(c, n, x, w, bias, residual, out, pre)
     args = (x.data_ptr(), w.data_ptr(), _ptr(bias), int(relu), _ptr(residual),
             out.data_ptr(), _ptr(pre), b, h, wd, c, n, PAD_MODES[padding_mode])
-    if body == "sm90":
-        err = _build.lib().pht_conv3x3_sm90(*args, int(conv3x3_a_by_tma(wd)),
-                                            _sm90_wave(x.device), _cuda_stream(x))
-    else:
-        err = _build.lib().pht_conv3x3(*args, _cuda_stream(x))
+    lib = _build.lib()
+    err = (lib.pht_conv3x3_sm90 if body == "sm90" else lib.pht_conv3x3)(*args, _cuda_stream(x))
     conv3x3_cuda.launches += 1
     conv3x3_cuda.body_launches[body] += 1
     _build.check(err, f"conv3x3_cuda ({body} body)")
@@ -476,8 +455,7 @@ def weight_grad_cuda(x, dy, gate=None, x2=None, *, taps: int = 1,
         err = _build.lib().pht_weight_grad_sm90(
             x.data_ptr(), c1, _ptr(x2), c2, dy.data_ptr(), _ptr(gate), _ptr(g),
             part.data_ptr(), out.data_ptr(), b, h, w, n, taps, pad, int(colsum),
-            plan.splits, plan.pix_per_split, int(weight_grad_a_by_tma(c1, w, taps)),
-            _cuda_stream(x),
+            plan.splits, plan.pix_per_split, _cuda_stream(x),
         )
     else:
         err = _build.lib().pht_weight_grad(

@@ -11,15 +11,12 @@ import torch
 
 from pixel_heal_thyself_tpu_torch.ops.block_cuda import (
     MAX_SMEM,
-    SM90_CLUSTER,
     SM90_TILE,
     conv3x3,
-    conv3x3_a_by_tma,
     conv3x3_body,
     conv3x3_cuda,
     sm90_smem,
     weight_grad,
-    weight_grad_a_by_tma,
     weight_grad_body,
     weight_grad_cuda,
     wgrad_plan,
@@ -27,14 +24,18 @@ from pixel_heal_thyself_tpu_torch.ops.block_cuda import (
 
 H100_SMS = 132
 PROD_PIXELS = 8 * 128 * 128
+# the configs' training batches (batch × patch²) besides prod's 8 × 128²:
+# dev 8 × 32², ci 2 × 32², stag 8 × 64²
+CONFIG_PIXELS = [8 * 32 * 32, 2 * 32 * 32, 8 * 64 * 64]
 
 
 @pytest.mark.parametrize("m,n", [(9 * 256, 256), (256, 256), (512, 256), (9 * 64, 64),
                                  (9 * 512, 512), (72, 8)])
-@pytest.mark.parametrize("pixels", [PROD_PIXELS, 4096, 1000, 130, 64, 1])
+@pytest.mark.parametrize("pixels", [PROD_PIXELS, *CONFIG_PIXELS, 4096, 1000, 130, 64, 1])
 def test_wgrad_plan_covers_every_pixel_once(m, n, pixels):
     plan = wgrad_plan(m, n, pixels, H100_SMS)
     assert plan.body == "sm90"
+    assert plan.row_tiles * plan.col_tiles * plan.splits <= H100_SMS  # one wave
     assert plan.pix_per_split % SM90_TILE[2] == 0
     # splits [s·per, min(P, (s+1)·per)) tile [0, P) with none empty
     starts = [s * plan.pix_per_split for s in range(plan.splits)]
@@ -54,19 +55,18 @@ def test_wgrad_plan_is_one_wave_at_prod(m, n, splits):
     """Prod widths: 9 taps (18 row tiles × 7 splits = 126 CTAs), one tap,
     one tap with the second operand; at most one CTA per SM."""
     plan = wgrad_plan(m, n, PROD_PIXELS, H100_SMS)
-    ctas = -(-plan.row_tiles // SM90_CLUSTER) * SM90_CLUSTER * plan.col_tiles * plan.splits
     assert plan.splits == splits
-    assert ctas <= H100_SMS
+    assert plan.row_tiles * plan.col_tiles * plan.splits <= H100_SMS
 
 
 @pytest.mark.parametrize("m", [9 * 64, 9 * 72, 72, 256 + 72])
-def test_wgrad_plan_pads_row_tiles_to_clusters(m):
-    """An odd count of row tiles runs with one empty tile, so that every
-    cluster is whole; the grid still fits one wave."""
+def test_wgrad_plan_odd_row_tiles_fill_one_wave(m):
+    """An odd count of row tiles (a partial last tile too): the grid fits one
+    wave, and one 64-pixel stage less per split would not."""
     plan = wgrad_plan(m, 256, PROD_PIXELS, H100_SMS)
-    grid_rows = -(-plan.row_tiles // SM90_CLUSTER) * SM90_CLUSTER
-    assert grid_rows % SM90_CLUSTER == 0 and grid_rows - plan.row_tiles < SM90_CLUSTER
-    assert grid_rows * plan.col_tiles * plan.splits <= H100_SMS
+    tiles = plan.row_tiles * plan.col_tiles
+    assert tiles * plan.splits <= H100_SMS
+    assert tiles * -(-PROD_PIXELS // (plan.pix_per_split - SM90_TILE[2])) > H100_SMS
 
 
 def test_wgrad_plan_general_body_keeps_its_rule():
@@ -106,21 +106,6 @@ def test_conv3x3_body_gate(c, n, body):
 def test_weight_grad_body_gate(c1, c2, n, body):
     x = torch.zeros(1, 2, 2, c1, dtype=torch.bfloat16)
     assert weight_grad_body(c1, c2, n, x, None) == body
-
-
-@pytest.mark.parametrize("w,tma", [(128, True), (64, True), (512, True), (24, False), (13, False)])
-def test_conv3x3_a_by_tma(w, tma):
-    """K3 loads its image by TMA when a 64-pixel half tile lies in one row."""
-    assert conv3x3_a_by_tma(w) is tma
-
-
-@pytest.mark.parametrize("c1,w,taps,tma", [(256, 128, 9, True), (256, 24, 9, False),
-                                           (256, 24, 1, True), (64, 64, 9, True),
-                                           (72, 128, 1, False), (72, 128, 9, False)])
-def test_weight_grad_a_by_tma(c1, w, taps, tma):
-    """K6 loads x by TMA when a 64-row box holds one tap and, with 9 taps, a
-    64-pixel stage lies in one frame row."""
-    assert weight_grad_a_by_tma(c1, w, taps) is tma
 
 
 def test_bodies_need_16_byte_aligned_operands():
