@@ -13,11 +13,13 @@ exits non-zero. Phases:
    `build/kernels/` (or load the library built from the same sources).
 3. Kernels against their plain PyTorch versions at the prod shapes
    (8 × 128² × 256, 4 heads, halo 3), with TF32 off: attention K1 in bf16
-   and fp32 (and at halo 8, its key-chunked path), the pointwise GEMM K2,
-   the 3×3 conv K3, the whole TransformerBlock forward in the three
-   padding modes; the attention backward K4 (bf16, fp32), the conv input
-   gradient K5, the weight gradient K6 (9 taps and 1 tap, each also equal
-   to the bit across two calls) and the whole
+   and fp32 (and at halo 8, its key-chunked path), the pointwise GEMM K2
+   (n_aux's two operands; one operand, k = n·Wk; two operands with the
+   backward's f32 residual, also equal to the bit across two calls), the
+   3×3 conv K3, the whole TransformerBlock forward in the three padding
+   modes; the attention backward K4 (bf16, fp32), the conv input gradient
+   K5 (also equal to the bit across two calls), the weight gradient K6 (9
+   taps and 1 tap, each also equal to the bit across two calls) and the whole
    block backward in the three padding modes. Prints deviations and
    CUDA-event times of kernel and plain version. (K7's rows run in phase
    7, K7-emit's and K8's in phase 8, beside the paths they serve.)
@@ -26,15 +28,15 @@ exits non-zero. Phases:
    `preprocess_data` and the device tiler (tile 64, margin 32, batch 8),
    the path `inference.run_inference` takes. Checks the outputs, that every
    block of every batch went through K1, K2 and K3 (launch counters), that
-   every K3 launch took its Hopper body (per-body counters), and
+   every K2 and K3 launch took its Hopper body (per-body counters), and
    frame 0 against the model's plain path on the card.
 5. Training: the prod GAN step (`training.train_step.make_train_step`,
    WGAN-GP + L1, Adam with the MultiStep schedule) on the prod-width
    AFGSANet in train mode and DiscriminatorVGG(128, 64, bf16), seeded
    random weights, batch 8 of 128² numpy patches: 2 warm-up and 5 timed
    steps. Checks finite losses, that every block of every step ran its
-   backward through K4, K5 and K6 (launch counters), that every K3 and K6
-   launch took its Hopper body (per-body counters), prints patches/s and
+   backward through K4, K5 and K6 (launch counters), that every K2, K3, K5
+   and K6 launch took its Hopper body (per-body counters), prints patches/s and
    peak memory, then one step from identical state (with a float32
    critic, see STEP_LOSS_TOL, and cuDNN's deterministic algorithms)
    through the kernel route and the plain route on the card, beside the
@@ -226,11 +228,11 @@ _TPU = "pixel_heal_thyself_tpu/ops/"
 KERNELS = {
     "K1": ("block_halo_attention_fwd (K1)", _SRC + "attention_fwd.cu",
            _TPU + "attention_pallas.py:217"),
-    "K2": ("pointwise_gemm (K2)", _SRC + "block_fwd.cu", _TPU + "block_mega.py:413"),
+    "K2": ("pointwise_gemm (K2)", _SRC + "pointwise_sm90.cu", _TPU + "block_mega.py:413"),
     "K3": ("conv3x3 (K3)", _SRC + "conv3x3_sm90.cu", _TPU + "block_mega.py:413"),
     "K4": ("block_halo_attention_bwd (K4)", _SRC + "attention_bwd.cu",
            _TPU + "attention_pallas.py:383"),
-    "K5": ("conv3x3_dgrad (K5)", _SRC + "block_bwd.cu", _TPU + "block_mega.py:662"),
+    "K5": ("conv3x3_dgrad (K5)", _SRC + "dgrad_sm90.cu", _TPU + "block_mega.py:662"),
     "K6": ("weight_grad (K6)", _SRC + "wgrad_sm90.cu", _TPU + "block_mega.py:662"),
     "K7": ("fused_mamba_chain (K7)", _SRC + "ssd_fwd.cu", _TPU + "ssd_mega.py:256"),
     "K7e": ("fused_mamba_chain_emit (K7 emit)", _SRC + "ssd_fwd.cu", _TPU + "ssd_mega.py:252"),
@@ -336,10 +338,11 @@ def read_counts() -> dict:
 
 
 def check_bodies(tag: str, launches: dict) -> None:
-    """K3 and K6 launch by body: on the prod shapes (widths 256) every launch
-    must take the Hopper body (`sm90`), none the general WMMA body."""
+    """K2, K3, K5 and K6 launch by body: on the prod shapes (widths 256)
+    every launch must take the Hopper body (`sm90`), none the general WMMA
+    body."""
     fns = counters()
-    for name in ("K3", "K6"):
+    for name in ("K2", "K3", "K5", "K6"):
         bodies = dict(fns[name].body_launches)
         log(f"[{tag}] {name} launches by body: {bodies} (total {launches[name]})")
         if bodies["general"] or bodies["sm90"] != launches[name]:
@@ -485,6 +488,28 @@ def phase_kernels(device) -> dict:
         work=(nbytes(x, a, wts["wcat"], wts["bcat"], x), 2 * pixels * 2 * c * c, bf),
         library=lambda: torch.addmm(wts["bcat"], xa, wts["wcat"]),
     )
+    # one operand: k = n·Wk (the most frequent launch: k, v, q and the
+    # backward's recompute)
+    x2d = x.reshape(pixels, c)
+    res["K2 1 operand"] = compare(
+        "K2 pointwise GEMM, 1 operand (k = n·Wk)",
+        lambda: pointwise_gemm_cuda(x, wts["wk"]), lambda: pointwise_gemm_torch(x, wts["wk"]),
+        TOL["bf16"], work=(nbytes(x, wts["wk"], x), 2 * pixels * c * c, bf),
+        library=lambda: torch.mm(x2d, wts["wk"]),
+    )
+    # two operands with the f32 residual: the backward's dx = round(dx1 +
+    # dv·Wvᵀ + dz·Wcat[:C]ᵀ)
+    dxa = (q, wts["wv"], k, wts["wq"], None, False, do)
+    qk = torch.cat([q, k], dim=-1).reshape(pixels, 2 * c)
+    w_qk = torch.cat([wts["wv"], wts["wq"]], dim=0)
+    res["K2 pre_residual"] = compare(
+        "K2 pointwise GEMM, 2 operands + f32 residual (dx)",
+        lambda: pointwise_gemm_cuda(*dxa), lambda: pointwise_gemm_torch(*dxa), TOL["bf16"],
+        work=(nbytes(q, k, wts["wv"], wts["wq"], do, x), 2 * pixels * 2 * c * c, bf),
+        library=lambda: torch.addmm(do.reshape(pixels, c), qk, w_qk),
+    )
+    assert_deterministic("K2 pointwise GEMM, 2 operands + f32 residual",
+                         lambda: (pointwise_gemm_cuda(*dxa),))
     cv = (x, wts["w1"], wts["b1"], "replicate", True, a)
     res["K3"] = compare(
         "K3 conv3x3 (replicate, relu, residual)",
@@ -523,6 +548,7 @@ def phase_kernels(device) -> dict:
         work=(nbytes(do, a, wts["w2"], x, x), conv_flops, bf),
         library=lambda: torch.nn.grad.conv2d_input(tuple(nchw(xp).shape), w2k, nchw(do)),
     )
+    assert_deterministic("K5 conv3x3 input gradient", lambda: (conv3x3_dgrad_cuda(*dg),))
     wg9 = dict(taps=9, padding_mode="replicate", colsum=True)
     assert_deterministic("K6 weight gradient, 9 taps", lambda: weight_grad_cuda(x, do, a, **wg9))
     assert_deterministic("K6 weight gradient, 1 tap",

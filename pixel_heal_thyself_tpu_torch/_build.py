@@ -52,6 +52,8 @@ _SIGNATURES = {
     "pht_attention_bwd": [_P] * 12 + [_I] * 9 + [_F, _P],
     # a1, w1, k1, a2, w2, k2, bias, relu, pre_residual, out, M, N, stream
     "pht_pointwise_gemm": [_P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P],
+    # the same (K2's Hopper body)
+    "pht_pointwise_gemm_sm90": [_P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P],
     # x, w, bias, relu, residual, out, out2, B, H, W, C, N, pad_mode, stream
     "pht_conv3x3": [_P, _P, _P, _I, _P, _P, _P] + [_I] * 6 + [_P],
     # x, w, bias, relu, residual, out, out2, B, H, W, C, N, pad_mode, stream
@@ -60,6 +62,12 @@ _SIGNATURES = {
     "pht_conv3x3_sm90_smem": [],
     # dy, gate, wt, pre_residual, out, B, H, W, N, C, pad_mode, stream
     "pht_conv3x3_dgrad": [_P] * 5 + [_I] * 6 + [_P],
+    # dy, gate, g, w, pre_residual, fold, out, B, H, W, N, C, pad_mode, stream
+    # (K5's Hopper body)
+    "pht_conv3x3_dgrad_sm90": [_P] * 7 + [_I] * 6 + [_P],
+    # g, w, fold, B, H, W, N, C, pad_mode, stream: K5's fold pre-pass alone
+    # (test-only)
+    "pht_conv3x3_dgrad_fold": [_P] * 3 + [_I] * 6 + [_P],
     # a1, C1, a2, C2, dy, gate, part, out, B, H, W, N, taps, pad_mode,
     # colsum, splits, stream
     "pht_weight_grad": [_P, _I, _P, _I, _P, _P, _P, _P] + [_I] * 8 + [_P],
@@ -69,9 +77,9 @@ _SIGNATURES = {
     "pht_weight_grad_sm90_smem": [],
     # CTAs of one wave of the Hopper bodies
     "pht_sm90_wave_ctas": [],
-    # a, b, d, a_mn_major, b_tma, stream: one wgmma tile through sm90_gemm.cuh
-    # (test-only)
-    "pht_sm90_probe": [_P, _P, _P, _I, _I, _P],
+    # a, b, d, a_mn_major, b_tma, b_k_major, stream: one wgmma tile through
+    # sm90_gemm.cuh (test-only)
+    "pht_sm90_probe": [_P, _P, _P, _I, _I, _I, _P],
     # part, out, len, splits, stream
     "pht_sum_splits": [_P, _P, ctypes.c_longlong, _I, _P],
     # zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w, xbc, dt, cum, states,

@@ -1,4 +1,8 @@
-// TransformerBlock backward GEMMs (kernels K5 and K6 of the PyTorch port).
+// TransformerBlock backward GEMMs: the general (WMMA) bodies of kernels K5 and
+// K6 of the PyTorch port, for the widths 8 does not divide or operands that
+// are not 16-byte aligned; the Hopper bodies (dgrad_sm90.cu, wgrad_sm90.cu)
+// take the rest (ops/block_cuda.py's gates). `pht_sum_splits` serves both
+// K6 bodies.
 //
 // Replace the matrix products of the TPU whole-block backward `_bwd_kernel`
 // in pixel_heal_thyself_tpu/ops/block_mega.py:662 (launched by `_mega_bwd`,
@@ -36,7 +40,8 @@
 // per CTA over 32-deep K steps staged in shared memory, 8 warps of bf16
 // WMMA 16x16x16 with f32 accumulators, 16-byte loads where widths allow.
 // K6 reads x as a column-major A operand (pixels are its K dimension), so
-// no transposed copy is made. No cp.async pipelining, TMA or wgmma yet.
+// no transposed copy is made. No copy pipeline (the Hopper bodies have TMA,
+// an mbarrier ring and wgmma).
 
 #include <mma.h>
 

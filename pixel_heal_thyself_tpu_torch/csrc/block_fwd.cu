@@ -1,4 +1,7 @@
-// TransformerBlock forward GEMMs (kernels K2 and K3 of the PyTorch port).
+// TransformerBlock forward GEMMs: the general (WMMA) bodies of kernels K2 and
+// K3 of the PyTorch port, for the widths 8 does not divide or operands that
+// are not 16-byte aligned; the Hopper bodies (pointwise_sm90.cu,
+// conv3x3_sm90.cu, on sm90_body.cuh) take the rest (ops/block_cuda.py's gates).
 //
 // Replace the matrix products of the TPU whole-block kernel `_block_kernel`
 // in pixel_heal_thyself_tpu/ops/block_mega.py:413 (launched by `_mega_fwd`,
@@ -30,8 +33,8 @@
 // ridge. The design tiles 128 x 128 outputs per CTA over 32-deep K steps
 // staged in shared memory, and each of 8 warps runs bf16 WMMA (mma.sync)
 // 16x16x16 products with f32 accumulators. Loads are 16-byte vectors when
-// the widths allow and element-wise with bounds checks otherwise. There
-// is no cp.async pipelining, TMA or wgmma yet: those are later work.
+// the widths allow and element-wise with bounds checks otherwise; no copy
+// pipeline (the Hopper bodies have TMA, an mbarrier ring and wgmma).
 
 #include <mma.h>
 

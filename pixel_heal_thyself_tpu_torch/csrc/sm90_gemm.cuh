@@ -1,14 +1,15 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels: the shared-
 // memory ring's mbarriers, 16-byte cp.async copies with zero fill, the
 // 128-byte-swizzled operand layouts and their wgmma descriptors, and the
-// m64n256k16 bf16 wgmma with f32 accumulators. K3's new body
-// (conv3x3_sm90.cu) and K6's (wgrad_sm90.cu) include it; sm90_probe.cu
-// holds the layouts against a plain product on one tile.
+// m64n256k16 bf16 wgmma with f32 accumulators. The body of K2, K3 and K5
+// (sm90_body.cuh) and K6's (wgrad_sm90.cu) include it; sm90_probe.cu holds
+// the layouts against a plain product on one tile.
 //
 // Operand layouts (bf16, 128-byte swizzle; an "atom" is 8 rows of 128 bytes,
 // 1,024-byte aligned, whose 16-byte chunk c of row r sits at chunk c ^ (r % 8)):
-//   K-major:  each of the 64 M rows holds 64 K values (128 bytes) at r * 128;
-//             descriptor SBO = 1,024 (the next 8 rows); a k16 step adds 32 bytes.
+//   K-major:  each of the 64 M rows (256 N rows: K5's B) holds 64 K values
+//             (128 bytes) at r * 128; descriptor SBO = 1,024 (the next 8
+//             rows); a k16 step adds 32 bytes.
 //   MN-major: each K row holds 64 M/N values (128 bytes) at k * 128; wider
 //             operands repeat the 64-value column block every `mn_block` bytes
 //             (LBO), SBO = 1,024 (the next 8 K rows); a k16 step adds 2,048 bytes.
@@ -237,13 +238,14 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
 
 // ---- the ring ----------------------------------------------------------------
 
-// The warp-specialized layout of both bodies: two consumer warpgroups and a
+// The warp-specialized layout of the Hopper bodies: two consumer warpgroups and a
 // producer warpgroup, whose setmaxnreg moves registers to the consumers: their
 // 128 f32 accumulators would otherwise spill under the 168 a 384-thread CTA
 // gets. When both operands come by TMA, one producer thread issues every copy;
 // the others serve the cp.async gather of the shapes TMA cannot take, each
 // keeping kLag stages in flight. PHT_SM90_DIAG (a diagnostic build,
-// bench_sm90.py): 1 skips the wgmmas, 2 skips the copies.
+// bench_sm90.py): 1 skips the wgmmas, 2 skips the copies, 3 skips the
+// epilogue of the body of K2, K3 and K5 (sm90_body.cuh).
 #ifndef PHT_SM90_DIAG
 #define PHT_SM90_DIAG 0
 #endif
@@ -264,7 +266,8 @@ __device__ __forceinline__ void consumer_regs() {
 // B's TMA bytes: with the cp.async gather, one per producer thread (once its
 // copies of the stage have landed and been fenced for the async proxy); with
 // A by TMA (producers = 1), the patching warp's, once A's boxes have landed
-// (landed[s], which expects their bytes) and their frame edges are patched.
+// (landed[s], which expects their bytes) and their frame edges are patched,
+// or, where nothing is patched (K2, K5), the arrival that expects A's bytes.
 // empty[s] counts the consumer warps (lane 0 of each arrives once its wgmmas
 // on the slot are done).
 template <int S> struct Ring {
@@ -343,18 +346,22 @@ __device__ __forceinline__ void release(Ring<S>& ring, int i) {
   if ((threadIdx.x & 31) == 0) mbar_arrive(&ring.empty[i % S]);
 }
 
-// B of stage i by TMA: four 64 x 64 boxes at columns c0 + 64 box, row c1,
+// B of stage i by TMA: four 64 x 64 boxes at columns c0 + 64 box, row c1
+// (MN-major B: 64 K rows of 256 columns), or with `k_major` at column c0,
+// rows c1 + 64 box (K-major B: 256 rows of 64 K values, each box 64 rows),
 // into the slot's B block at `dst`
 template <int S>
 __device__ __forceinline__ void load_b(Ring<S>& ring, int i, uint32_t dst, const CUtensorMap* map,
-                                       int c0, int c1) {
+                                       int c0, int c1, bool k_major = false) {
   uint64_t* bar = &ring.full[i % S];
 #if PHT_SM90_DIAG == 2
   mbar_arrive(bar);
 #else
   mbar_arrive_expect_tx(bar, 4 * 8192);
 #pragma unroll
-  for (int box = 0; box < 4; ++box) tma_load_2d(dst + box * 8192, map, c0 + 64 * box, c1, bar);
+  for (int box = 0; box < 4; ++box)
+    tma_load_2d(dst + box * 8192, map, k_major ? c0 : c0 + 64 * box,
+                k_major ? c1 + 64 * box : c1, bar);
 #endif
 }
 

@@ -1,8 +1,9 @@
 // One warpgroup's product through the layouts of sm90_gemm.cuh:
 //     d[64, 256] = a[64, 64] . b[64, 256]   (bf16 in, f32 out, all row-major)
-// as four m64n256k16 wgmmas, with A staged K-major (K3's A) or MN-major
-// (K6's A) and B MN-major (the B of both), B stored by the threads or loaded
-// by TMA in 64 x 64 boxes (as both kernels load it). A test holds it against
+// as four m64n256k16 wgmmas, with A staged K-major (K2's, K3's and K5's A) or
+// MN-major (K6's A) and B MN-major (the B of K2, K3 and K6) or K-major (K5's
+// B: W read with its n as K), B stored by the threads or loaded by TMA in
+// 64 x 64 boxes (as the kernels load it). A test holds it against
 // a plain product: a descriptor, swizzle or fragment-order mismatch gives wrong
 // numbers here before it gives them in a kernel. Test-only: no entry point
 // of the port calls `pht_sm90_probe` (tests/test_torch_port_cuda.py does).
@@ -19,7 +20,7 @@ __global__ void __launch_bounds__(128) probe_kernel(const __grid_constant__ CUte
                                                     const bf16* __restrict__ a,
                                                     const bf16* __restrict__ b,
                                                     float* __restrict__ d, int a_mn_major,
-                                                    int b_tma) {
+                                                    int b_tma, int b_k_major) {
   __shared__ __align__(1024) unsigned char smem[8192 + 32768];
   __shared__ uint64_t bar;
   unsigned char* as = smem;
@@ -33,7 +34,8 @@ __global__ void __launch_bounds__(128) probe_kernel(const __grid_constant__ CUte
   if (t == 0 && b_tma) {
     mbar_arrive_expect_tx(&bar, 32768);
     for (int box = 0; box < 4; ++box)
-      tma_load_2d(smem_u32(bs) + box * 8192, &bmap, 64 * box, 0, &bar);
+      tma_load_2d(smem_u32(bs) + box * 8192, &bmap, b_k_major ? 0 : 64 * box,
+                  b_k_major ? 64 * box : 0, &bar);
   }
   for (int i = t; i < 64 * 64; i += 128) {
     const int m = i / 64, k = i % 64;
@@ -41,8 +43,13 @@ __global__ void __launch_bounds__(128) probe_kernel(const __grid_constant__ CUte
     *reinterpret_cast<bf16*>(as + off) = a[i];
   }
   for (int i = t; i < 64 * 256 && !b_tma; i += 128) {
-    const int k = i / 256, n = i % 256;
-    *reinterpret_cast<bf16*>(bs + (n / 64) * 8192 + sw128(k, (n % 64) / 8) + (n % 8) * 2) = b[i];
+    if (b_k_major) {  // b holds B^T [256, 64]: row n at n * 128
+      const int n = i / 64, k = i % 64;
+      *reinterpret_cast<bf16*>(bs + sw128(n, k / 8) + (k % 8) * 2) = b[i];
+    } else {
+      const int k = i / 256, n = i % 256;
+      *reinterpret_cast<bf16*>(bs + (n / 64) * 8192 + sw128(k, (n % 64) / 8) + (n % 8) * 2) = b[i];
+    }
   }
   fence_proxy_async();
   __syncthreads();
@@ -55,11 +62,17 @@ __global__ void __launch_bounds__(128) probe_kernel(const __grid_constant__ CUte
   wgmma_fence();
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const uint64_t db = make_desc(b0 + 2048 * j, 8192, 1024);
-    if (a_mn_major)
-      wgmma_m64n256k16<1, 1>(acc, make_desc(a0 + 2048 * j, 8192, 1024), db, 1);
-    else
-      wgmma_m64n256k16<0, 1>(acc, make_desc(a0 + 32 * j, 16, 1024), db, 1);
+    const uint64_t da = a_mn_major ? make_desc(a0 + 2048 * j, 8192, 1024)
+                                   : make_desc(a0 + 32 * j, 16, 1024);
+    if (b_k_major) {
+      const uint64_t db = make_desc(b0 + 32 * j, 16, 1024);
+      if (a_mn_major) wgmma_m64n256k16<1, 0>(acc, da, db, 1);
+      else wgmma_m64n256k16<0, 0>(acc, da, db, 1);
+    } else {
+      const uint64_t db = make_desc(b0 + 2048 * j, 8192, 1024);
+      if (a_mn_major) wgmma_m64n256k16<1, 1>(acc, da, db, 1);
+      else wgmma_m64n256k16<0, 1>(acc, da, db, 1);
+    }
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -75,13 +88,14 @@ __global__ void __launch_bounds__(128) probe_kernel(const __grid_constant__ CUte
 
 }  // namespace
 
+// b: B [64, 256] row-major, or with b_k_major B^T [256, 64] row-major
 extern "C" int pht_sm90_probe(const void* a, const void* b, void* d, int a_mn_major,
-                              int b_tma, void* stream) {
+                              int b_tma, int b_k_major, void* stream) {
   CUtensorMap bmap;
-  const int err = make_tma_2d(&bmap, b, 64, 256);
+  const int err = b_k_major ? make_tma_2d(&bmap, b, 256, 64) : make_tma_2d(&bmap, b, 64, 256);
   if (err) return err;
   probe_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       bmap, static_cast<const bf16*>(a), static_cast<const bf16*>(b), static_cast<float*>(d),
-      a_mn_major, b_tma);
+      a_mn_major, b_tma, b_k_major);
   return (int)cudaGetLastError();
 }

@@ -30,8 +30,9 @@
 // - two consumer warpgroups run m64n256k16 wgmmas (both operands through the
 //   transpose flag) with f32 accumulators in registers, keeping one stage's
 //   wgmmas in flight while they wait for the next;
-// - the ReLU gate is applied by a separate elementwise pass (`mask_kernel`:
-//   g = dy where gate > 0, else 0, exact in bf16) before the contraction;
+// - the ReLU gate is applied by a separate elementwise pass (`mask_kernel`,
+//   `pht_relu_gate`, which K5 runs too: g = dy where gate > 0, else 0,
+//   exact in bf16) before the contraction;
 //   the consumers of the row-tile-0 CTAs sum db from each stage of g while
 //   its wgmmas run;
 // - each split writes an f32 partial (db too), and `pht_sum_splits` adds
@@ -332,6 +333,18 @@ int configure() {
 
 extern "C" {
 
+// The ReLU gate of K5 and K6: g = dy where gate > 0, else 0, over `elems`
+// bf16 values (a multiple of 8, 16-byte aligned)
+int pht_relu_gate(const void* dy, const void* gate, void* g, long long elems, void* stream) {
+  const int64_t vectors = elems / 8;
+  const int blocks = (int)std::min<int64_t>((vectors + 255) / 256, 132 * 8);
+  if (blocks == 0) return 0;
+  mask_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint4*>(dy), static_cast<const uint4*>(gate), static_cast<uint4*>(g),
+      vectors);
+  return (int)cudaGetLastError();
+}
+
 // A comes by TMA when C1 % 64 == 0 and, with 9 taps, W % 64 == 0; else by the
 // cp.async gather from a1 (and a2).
 // g: [P, N] bf16 scratch (used when gate); part: [splits][len] f32 scratch;
@@ -353,13 +366,8 @@ int pht_weight_grad_sm90(const void* a1, int C1, const void* a2, int C2, const v
   p.a_tma = a_tma;
   p.g = static_cast<const bf16*>(dy);
   if (gate) {
-    const int64_t vectors = P * N / 8;
-    const int blocks = (int)std::min<int64_t>((vectors + 255) / 256, 132 * 8);
-    mask_kernel<<<blocks, 256, 0, s>>>(static_cast<const uint4*>(dy),
-                                       static_cast<const uint4*>(gate), static_cast<uint4*>(g),
-                                       vectors);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    const int err = pht_relu_gate(dy, gate, g, (long long)(P * N), stream);
+    if (err) return err;
     p.g = static_cast<const bf16*>(g);
   }
   p.part = static_cast<float*>(part);

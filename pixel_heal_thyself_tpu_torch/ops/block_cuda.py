@@ -41,10 +41,12 @@ the parameters' own (OIHW, f32) layout.
 Each kernel has a dispatcher (`pointwise_gemm`, `conv3x3`,
 `conv3x3_dgrad`, `weight_grad`) that launches the kernel for CUDA tensors
 and runs the plain version (`*_torch`) for CPU tensors; `*_cuda.launches`
-counts the launches. None is differentiable: `TransformerBlockFn` is the
-differentiable block, whose forward runs `transformer_block_fwd` (or the
-plain `transformer_block_torch`) and whose backward runs
-`transformer_block_bwd` (or `transformer_block_bwd_torch`).
+counts the launches and `*_cuda.body_launches` the launches of each body:
+the Hopper body (`*_body` gates: widths 8 divides, 16-byte aligned
+operands) or the general WMMA body. None is differentiable:
+`TransformerBlockFn` is the differentiable block, whose forward runs
+`transformer_block_fwd` (or the plain `transformer_block_torch`) and whose
+backward runs `transformer_block_bwd` (or `transformer_block_bwd_torch`).
 """
 
 from __future__ import annotations
@@ -69,9 +71,10 @@ from pixel_heal_thyself_tpu_torch.ops.padding import pad2d
 PAD_MODES = {"zeros": 0, "reflect": 1, "replicate": 2}
 # the block's parameters, in the order TransformerBlockFn takes them
 PARAM_NAMES = ("wcat", "bcat", "wq", "wk", "wv", "rel_h", "rel_w", "w1", "b1", "w2", "b2")
-# the Hopper bodies of K3 and K6 (csrc/conv3x3_sm90.cu, csrc/wgrad_sm90.cu):
-# CTA tiles of 128 rows × 256 columns over 64-deep K stages, a ring of 4
-# stages of A (128 × 64 bf16) and B (64 × 256 bf16) in dynamic shared memory
+# the Hopper bodies of K2, K3, K5 (csrc/sm90_body.cuh) and K6
+# (csrc/wgrad_sm90.cu): CTA tiles of 128 rows × 256 columns over 64-deep K
+# stages, a ring of 4 stages of A (128 × 64 bf16) and B (64 × 256 bf16) in
+# dynamic shared memory
 SM90_TILE = (128, 256, 64)
 SM90_STAGES = 4
 # the general (WMMA) bodies: 128 × 128 tiles, two 256-thread CTAs per SM
@@ -91,11 +94,12 @@ class WgradPlan(NamedTuple):
 
 
 def sm90_smem() -> int:
-    """Dynamic shared memory of one CTA of a Hopper body (K3 and K6 alike):
-    the ring's stages, its 3 × 4 mbarriers, 4 KB of coordinate tables (K3:
-    two of 128 pixels; K6: two of 64) and 1 KB to align to 1,024. K6's gate
-    is applied by a separate pass, so it adds no stage bytes; with 9 taps or
-    1, one operand or two, the sum is the same."""
+    """Dynamic shared memory of one CTA of a Hopper body (K2, K3, K5 and K6
+    alike): the ring's stages, its 3 × 4 mbarriers, 4 KB of coordinate
+    tables (K3, K5: two of 128 pixels; K6: two of 64) and 1 KB to align to
+    1,024. The gate of K5 and K6 is applied by a separate pass, K5's pad fold
+    by a pre-pass, so neither adds stage bytes; with 9 taps or 1, one
+    operand or two, the sum is the same."""
     bm, bn, bk = SM90_TILE
     return SM90_STAGES * (bm + bn) * bk * 2 + 3 * SM90_STAGES * 8 + 4096 + 1024
 
@@ -121,24 +125,36 @@ def wgrad_plan(m: int, n: int, pixels: int, wave: int, body: str = "sm90") -> Wg
     return WgradPlan(body, rows, cols, splits, per, sm90_smem() if body == "sm90" else 0)
 
 
-def _aligned(*tensors) -> bool:
-    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+def _body(widths: tuple, tensors: tuple) -> str:
+    """The rule of every body gate: a Hopper body needs 16-byte rows (each
+    width a multiple of 8) and 16-byte aligned operands; other shapes take
+    the general body. (A Hopper body itself picks how it loads its
+    operands: TMA boxes where the shape allows, else a cp.async gather.)"""
+    aligned = all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+    return "sm90" if aligned and all(w % 8 == 0 for w in widths) else "general"
 
 
 def conv3x3_body(c: int, n: int, *tensors) -> str:
     """K3's body for input channels `c`, output channels `n` and the
-    operands `tensors`: the Hopper body needs 16-byte rows (c, n multiples
-    of 8) and 16-byte aligned operands; other shapes take the general body.
-    (The Hopper body itself picks how it loads the image: by TMA when 64
-    divides W, else by its cp.async gather.)"""
-    return "sm90" if c % 8 == 0 and n % 8 == 0 and _aligned(*tensors) else "general"
+    operands `tensors` (`_body`'s rule)."""
+    return _body((c, n), tensors)
+
+
+def pointwise_gemm_body(k1: int, k2: int, n: int, *tensors) -> str:
+    """K2's body for the operands' widths `k1`, `k2` (0: one operand) and
+    `n` output channels (`_body`'s rule)."""
+    return _body((k1, k2, n), tensors)
+
+
+def conv3x3_dgrad_body(c: int, n: int, *tensors) -> str:
+    """K5's body for the conv's input channels `c` (the gradient's) and
+    output channels `n` (dy's) (`_body`'s rule)."""
+    return _body((c, n), tensors)
 
 
 def weight_grad_body(c1: int, c2: int, n: int, *tensors) -> str:
-    """K6's body: the Hopper body needs C1, C2 and N multiples of 8 and
-    16-byte aligned operands; other shapes take the general body."""
-    ok = c1 % 8 == 0 and c2 % 8 == 0 and n % 8 == 0 and _aligned(*tensors)
-    return "sm90" if ok else "general"
+    """K6's body for the widths C1, C2 and N (`_body`'s rule)."""
+    return _body((c1, c2, n), tensors)
 
 
 def supports_shapes(
@@ -245,16 +261,22 @@ def pointwise_gemm_cuda(a1, w1, a2=None, w2=None, bias=None, relu: bool = False,
     _check_image("bias", bias, (n,))
     _check_image("pre_residual", pre_residual, (*a1.shape[:-1], n))
     out = torch.empty(*a1.shape[:-1], n, dtype=a1.dtype, device=a1.device)
-    err = _build.lib().pht_pointwise_gemm(
+    body = pointwise_gemm_body(k1, k2, n, a1, w1, a2, w2, bias, pre_residual, out)
+    lib = _build.lib()
+    err = (lib.pht_pointwise_gemm_sm90 if body == "sm90" else lib.pht_pointwise_gemm)(
         a1.data_ptr(), w1.data_ptr(), k1, _ptr(a2), _ptr(w2) if a2 is not None else None, k2,
         _ptr(bias), int(relu), _ptr(pre_residual), out.data_ptr(), m, n, _cuda_stream(a1),
     )
     pointwise_gemm_cuda.launches += 1
-    _build.check(err, "pointwise_gemm_cuda")
+    pointwise_gemm_cuda.body_launches[body] += 1
+    _build.check(err, f"pointwise_gemm_cuda ({body} body)")
     return out
 
 
+# all launches, and by body: "sm90" (csrc/pointwise_sm90.cu) or "general"
+# (block_fwd.cu's WMMA body)
 pointwise_gemm_cuda.launches = 0
+pointwise_gemm_cuda.body_launches = {"sm90": 0, "general": 0}
 
 
 def pointwise_gemm(a1, w1, a2=None, w2=None, bias=None, relu: bool = False,
@@ -349,6 +371,50 @@ def _fold_pad_grad(gp: torch.Tensor, padding_mode: str) -> torch.Tensor:
     return gp[:, 1:-1, 1:-1]
 
 
+def fold_lines(n: int, padding_mode: str) -> tuple[int, int]:
+    """The coordinates onto which reflect (1, n − 2) and replicate (0, n − 1)
+    padding fold the gradient of the padded ring, on the low and high side."""
+    return (1, n - 2) if padding_mode == "reflect" else (0, n - 1)
+
+
+def dgrad_fold_floats(b: int, h: int, w: int, c: int, padding_mode: str) -> int:
+    """f32 entries of K5's fold side buffer: a row-line part [B][2][W][C]
+    and a column-line part [B][H][2][C]; none for zero padding."""
+    return 0 if padding_mode == "zeros" else 2 * b * (w + h) * c
+
+
+def dgrad_fold_torch(g, w, padding_mode: str) -> torch.Tensor:
+    """Plain version of K5's fold pre-pass: the f32 terms that reflect or
+    replicate padding folds onto the lines next to the frame edge, in the
+    side buffer's layout (flat f32, `dgrad_fold_floats` entries). g [B,H,W,N]
+    is the gated output gradient, w [9C, N]. Row line s (top 0, bottom 1)
+    at pixel x: Σ_kx g[row, x + 1 − kx]·W[ky, kx]ᵀ over in-frame sources,
+    with row 0, ky 0 (top) or row H − 1, ky 2 (bottom), plus the corner
+    terms on the column fold lines (column 0 through kx 0, column W − 1
+    through kx 2). Column line s at pixel y: Σ_ky g[y + 1 − ky, col]·W[ky,
+    kx]ᵀ with column 0, kx 0 (left) or W − 1, kx 2 (right)."""
+    if padding_mode not in ("reflect", "replicate"):
+        raise ValueError(f"no pad fold for {padding_mode!r} padding")
+    b, h, wd, n = g.shape
+    c = w.shape[0] // 9
+    wt = w.float().view(3, 3, c, n)
+    gf = g.float()
+    gz = F.pad(gf, (0, 0, 1, 1, 1, 1))  # zeros around the frame: [b, h + 2, w + 2, n]
+    (tx0, tx1), sides = fold_lines(wd, padding_mode), ((0, 0), (2, -1))
+    rows = []
+    for k, src in sides:  # k: the fold tap's ky; src: the source row
+        line = gz[:, src % h + 1]  # [b, w + 2, n]
+        acc = sum(line[:, 2 - kx:2 - kx + wd] @ wt[k, kx].t() for kx in range(3))
+        acc[:, tx0] += gf[:, src % h, 0] @ wt[k, 0].t()
+        acc[:, tx1] += gf[:, src % h, wd - 1] @ wt[k, 2].t()
+        rows.append(acc)
+    cols = []
+    for k, src in sides:  # k: the fold tap's kx; src: the source column
+        line = gz[:, :, src % wd + 1]  # [b, h + 2, n]
+        cols.append(sum(line[:, 2 - ky:2 - ky + h] @ wt[ky, k].t() for ky in range(3)))
+    return torch.cat([torch.stack(rows, 1).reshape(-1), torch.stack(cols, 2).reshape(-1)])
+
+
 def conv3x3_dgrad_torch(dy, gate, w, padding_mode: str, residual=None):
     """Plain K5: round(fold(Σ_taps (dy⊙[gate>0])·W[tap]ᵀ) [+ residual]),
     every term summed in f32. dy/gate [B,H,W,N], w [9C, N] (the forward's
@@ -377,18 +443,33 @@ def conv3x3_dgrad_cuda(dy, gate, w, padding_mode: str, residual=None):
         raise ValueError("reflect padding needs H, W ≥ 2")
     _check_image("gate", gate, dy.shape)
     _check_image("residual", residual, (b, h, wd, c))
-    wt = w.view(9, c, n).transpose(1, 2).contiguous()  # per-tap Wᵀ [9, N, C]
     out = torch.empty(b, h, wd, c, dtype=dy.dtype, device=dy.device)
-    err = _build.lib().pht_conv3x3_dgrad(
-        dy.data_ptr(), _ptr(gate), wt.data_ptr(), _ptr(residual), out.data_ptr(),
-        b, h, wd, n, c, PAD_MODES[padding_mode], _cuda_stream(dy),
-    )
+    body = conv3x3_dgrad_body(c, n, dy, gate, w, residual, out)
+    pad = PAD_MODES[padding_mode]
+    if body == "sm90":  # W as it is: the body reads it K-major
+        g = torch.empty_like(dy) if gate is not None else None  # dy ⊙ [gate > 0]
+        floats = dgrad_fold_floats(b, h, wd, c, padding_mode)
+        fold = torch.empty(floats, dtype=torch.float32, device=dy.device) if floats else None
+        err = _build.lib().pht_conv3x3_dgrad_sm90(
+            dy.data_ptr(), _ptr(gate), _ptr(g), w.data_ptr(), _ptr(residual), _ptr(fold),
+            out.data_ptr(), b, h, wd, n, c, pad, _cuda_stream(dy),
+        )
+    else:
+        wt = w.view(9, c, n).transpose(1, 2).contiguous()  # per-tap Wᵀ [9, N, C]
+        err = _build.lib().pht_conv3x3_dgrad(
+            dy.data_ptr(), _ptr(gate), wt.data_ptr(), _ptr(residual), out.data_ptr(),
+            b, h, wd, n, c, pad, _cuda_stream(dy),
+        )
     conv3x3_dgrad_cuda.launches += 1
-    _build.check(err, "conv3x3_dgrad_cuda")
+    conv3x3_dgrad_cuda.body_launches[body] += 1
+    _build.check(err, f"conv3x3_dgrad_cuda ({body} body)")
     return out
 
 
+# all launches, and by body: "sm90" (csrc/dgrad_sm90.cu) or "general"
+# (block_bwd.cu's WMMA body)
 conv3x3_dgrad_cuda.launches = 0
+conv3x3_dgrad_cuda.body_launches = {"sm90": 0, "general": 0}
 
 
 def conv3x3_dgrad(dy, gate, w, padding_mode: str, residual=None):

@@ -36,12 +36,15 @@ GROUPS = [
     ("ssd_state_pass", "K7 state pass"), ("ssd_prologue", "K7 prologue"),
     ("gated_rmsnorm", "K7 gated RMSNorm"), ("attention_fwd", "K1 attention"),
     ("attention_bwd", "K4 attention backward"), ("attention_bias_reduce", "K4 attention backward"),
-    ("conv3x3_dgrad", "K5 conv3x3 dgrad"), ("weight_grad", "K6 weight gradient"),
+    # K5: its Hopper body (conv3x3_dgrad_sm90_kernel) and general body, its
+    # fold pre-pass; the ReLU gate pass that K5 and K6 run
+    ("conv3x3_dgrad", "K5 conv3x3 dgrad"), ("dgrad_fold", "K5 fold pre-pass"),
+    ("weight_grad", "K6 weight gradient"),
     ("sum_splits", "K6 weight gradient"), ("wgrad_kernel", "K6 weight gradient"),
-    ("mask_kernel", "K6 gate pass"), ("conv3x3_kernel", "K3 conv3x3"),
-    # K2, and K3's general body for widths 8 does not divide (cuBLAS names
-    # hold "gemm_bf16")
-    ("gemm_bf16_kernel", "K2 GEMM"),
+    ("mask_kernel", "K5/K6 gate pass"), ("conv3x3_kernel", "K3 conv3x3"),
+    # K2's Hopper body; its general body, and K3's for widths 8 does not
+    # divide (cuBLAS names hold "gemm_bf16")
+    ("pointwise_gemm", "K2 GEMM"), ("gemm_bf16_kernel", "K2 GEMM"),
     ("fprop", "cuDNN conv"), ("implicit", "cuDNN conv"), ("conv", "cuDNN conv"),
     ("cudnn", "cuDNN conv"), ("gemm", "cuBLAS GEMM"), ("Kernel2", "cuBLAS GEMM"),
     ("reduce", "reductions"),

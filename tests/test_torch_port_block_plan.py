@@ -1,7 +1,8 @@
-"""The host side of K3's and K6's Hopper bodies, on the CPU: K6's split
-planner, the shared memory of one CTA, the gate that picks a body, and the
-per-body launch counters. (The kernels themselves run only on the card:
-tests/test_torch_port_cuda.py.)"""
+"""The host side of the Hopper bodies of K2, K3, K5 and K6, on the CPU: K6's
+split planner, the shared memory of one CTA, the gates that pick a body,
+and the per-body launch counters. (The kernels themselves run only on the
+card: tests/test_torch_port_cuda.py; K5's fold algebra:
+tests/test_torch_port_dgrad_plan.py.)"""
 
 from __future__ import annotations
 
@@ -15,6 +16,12 @@ from pixel_heal_thyself_tpu_torch.ops.block_cuda import (
     conv3x3,
     conv3x3_body,
     conv3x3_cuda,
+    conv3x3_dgrad,
+    conv3x3_dgrad_body,
+    conv3x3_dgrad_cuda,
+    pointwise_gemm,
+    pointwise_gemm_body,
+    pointwise_gemm_cuda,
     sm90_smem,
     weight_grad,
     weight_grad_body,
@@ -108,6 +115,39 @@ def test_weight_grad_body_gate(c1, c2, n, body):
     assert weight_grad_body(c1, c2, n, x, None) == body
 
 
+@pytest.mark.parametrize("k1,k2,n,body", [(256, 0, 256, "sm90"), (256, 256, 256, "sm90"),
+                                          (40, 0, 24, "sm90"), (8, 8, 8, "sm90"),
+                                          (12, 20, 136, "general"), (256, 12, 256, "general"),
+                                          (256, 0, 20, "general")])
+def test_pointwise_gemm_body_gate(k1, k2, n, body):
+    a1 = torch.zeros(4, k1, dtype=torch.bfloat16)
+    w1 = torch.zeros(k1, n, dtype=torch.bfloat16)
+    assert pointwise_gemm_body(k1, k2, n, a1, w1, None) == body
+
+
+@pytest.mark.parametrize("c,n,body", [(256, 256, "sm90"), (64, 72, "sm90"), (8, 8, "sm90"),
+                                      (12, 20, "general"), (64, 20, "general"),
+                                      (12, 64, "general")])
+def test_conv3x3_dgrad_body_gate(c, n, body):
+    dy = torch.zeros(1, 2, 2, n, dtype=torch.bfloat16)
+    w = torch.zeros(9 * c, n, dtype=torch.bfloat16)
+    assert conv3x3_dgrad_body(c, n, dy, None, w, None) == body
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_k2_k5_bodies_need_16_byte_aligned_operands(offset):
+    """An operand `offset` bf16 values (2 × offset bytes) past an aligned
+    start takes the general body; the aligned one the Hopper body."""
+    base = torch.zeros(2 * 2 * 64 + 8, dtype=torch.bfloat16)
+    moved = base[offset:offset + 2 * 2 * 64]
+    w = torch.zeros(64, 64, dtype=torch.bfloat16)
+    assert pointwise_gemm_body(64, 0, 64, moved.view(4, 64), w) == "general"
+    assert pointwise_gemm_body(64, 0, 64, base[:256].view(4, 64), w) == "sm90"
+    w9 = torch.zeros(9 * 64, 64, dtype=torch.bfloat16)
+    assert conv3x3_dgrad_body(64, 64, moved.view(1, 2, 2, 64), None, w9) == "general"
+    assert conv3x3_dgrad_body(64, 64, base[:256].view(1, 2, 2, 64), None, w9) == "sm90"
+
+
 def test_bodies_need_16_byte_aligned_operands():
     base = torch.zeros(2 * 2 * 64 + 8, dtype=torch.bfloat16)
     x = base[1:1 + 2 * 2 * 64].view(1, 2, 2, 64)  # 2 bytes past an aligned start
@@ -117,7 +157,8 @@ def test_bodies_need_16_byte_aligned_operands():
     assert conv3x3_body(64, 64, base[:256].view(1, 2, 2, 64), w) == "sm90"
 
 
-@pytest.mark.parametrize("fn", [conv3x3_cuda, weight_grad_cuda])
+@pytest.mark.parametrize("fn", [conv3x3_cuda, weight_grad_cuda, pointwise_gemm_cuda,
+                                conv3x3_dgrad_cuda])
 def test_per_body_counters_exist(fn):
     assert isinstance(fn.launches, int)
     assert set(fn.body_launches) == {"sm90", "general"}
@@ -135,3 +176,45 @@ def test_cpu_dispatch_counts_no_launch():
     dw, db = weight_grad(x, out, out, taps=9, padding_mode="reflect", colsum=True)
     assert out.shape == (1, 4, 4, 8) and dw.shape == (72, 8) and db.shape == (8,)
     assert (dict(conv3x3_cuda.body_launches), dict(weight_grad_cuda.body_launches)) == before
+
+
+def test_cpu_dispatch_of_k2_k5_counts_no_launch():
+    """K2's and K5's dispatchers on the CPU run their plain versions: no
+    launch and no body counts."""
+    rng = np.random.default_rng(1)
+    bf = torch.bfloat16
+    a = torch.as_tensor(rng.standard_normal((2, 4, 4, 16)), dtype=torch.float32).to(bf)
+    w1 = torch.as_tensor(rng.standard_normal((16, 8)), dtype=torch.float32).to(bf)
+    w9 = torch.as_tensor(rng.standard_normal((72, 16)), dtype=torch.float32).to(bf)
+    fns = (pointwise_gemm_cuda, conv3x3_dgrad_cuda)
+    before = [(fn.launches, dict(fn.body_launches)) for fn in fns]
+    out = pointwise_gemm(a, w1, a, w1, None, True, pre_residual=a[..., :8])
+    din = conv3x3_dgrad(a, a, w9, "replicate", residual=out)
+    assert out.shape == (2, 4, 4, 8) and din.shape == (2, 4, 4, 8)
+    assert [(fn.launches, dict(fn.body_launches)) for fn in fns] == before
+
+
+@pytest.mark.parametrize("name,label", [
+    ("void (anonymous namespace)::pointwise_gemm_kernel(CUtensorMap, CUtensorMap, "
+     "CUtensorMap, CUtensorMap, pht::sm90::body::Params)", "K2 GEMM"),
+    ("void (anonymous namespace)::gemm_bf16_kernel<false>(Params)", "K2 GEMM"),
+    ("void (anonymous namespace)::conv3x3_kernel(CUtensorMap, CUtensorMap, "
+     "pht::sm90::body::Params)", "K3 conv3x3"),
+    ("void (anonymous namespace)::conv3x3_dgrad_sm90_kernel(CUtensorMap, CUtensorMap, "
+     "pht::sm90::body::Params)", "K5 conv3x3 dgrad"),
+    ("void (anonymous namespace)::conv3x3_dgrad_kernel(DgradParams)", "K5 conv3x3 dgrad"),
+    ("void (anonymous namespace)::dgrad_fold_kernel(bf16 const*, bf16 const*, float*, int)",
+     "K5 fold pre-pass"),
+    ("void (anonymous namespace)::mask_kernel(uint4 const*, uint4 const*, uint4*, long)",
+     "K5/K6 gate pass"),
+    ("void (anonymous namespace)::wgrad_kernel(CUtensorMap, CUtensorMap, CUtensorMap, Params)",
+     "K6 weight gradient"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "cuBLAS GEMM"),
+])
+def test_profile_groups_name_the_hopper_bodies(name, label):
+    """The profile tools attribute each body's launches to its kernel (first
+    match wins: K3's fragment must not take K5's launches, nor cuBLAS's
+    K2's)."""
+    from pixel_heal_thyself_tpu_torch.profile_serving import group
+
+    assert group(name) == label

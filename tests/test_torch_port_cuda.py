@@ -166,8 +166,15 @@ def test_attention_kernel(dev, dtype, halo, heads, residual):
         _assert_close(got, ref, 2**-7, 2e-3)
 
 
-@pytest.mark.parametrize("m,k1,k2,n", [(4096, 256, 256, 256), (1000, 40, 0, 24), (777, 12, 20, 136)])
-def test_pointwise_gemm_kernel(dev, m, k1, k2, n):
+# widths 8 divides take K2's Hopper body (a ragged K and N: 40, 24), the
+# others the general WMMA body; prod width at a row count 128 does not
+# divide, one operand (k = n·Wk) and two with the f32 residual (the
+# backward's dx)
+@pytest.mark.parametrize("m,k1,k2,n,pre", [
+    (4096, 256, 256, 256, False), (1000, 40, 0, 24, False), (777, 12, 20, 136, False),
+    (131_072 - 40, 256, 0, 256, False), (131_072 - 40, 256, 256, 256, True),
+])
+def test_pointwise_gemm_kernel(dev, m, k1, k2, n, pre):
     rng = np.random.default_rng(1)
     bf = torch.bfloat16
     a1 = _rand(rng, (m, k1), dev, bf)
@@ -175,11 +182,17 @@ def test_pointwise_gemm_kernel(dev, m, k1, k2, n):
     a2 = _rand(rng, (m, k2), dev, bf) if k2 else None
     w2 = _rand(rng, (k2, n), dev, bf, k2**-0.5) if k2 else None
     bias = _rand(rng, (n,), dev, bf, 0.1)
+    res = _rand(rng, (m, n), dev, bf) if pre else None
+    body = "sm90" if k1 % 8 == 0 and k2 % 8 == 0 and n % 8 == 0 else "general"
     for relu in (False, True):
-        got = pointwise_gemm_cuda(a1, w1, a2, w2, bias, relu)
-        ref = pointwise_gemm_torch(a1, w1, a2, w2, bias, relu)
+        before = dict(pointwise_gemm_cuda.body_launches)
+        got = pointwise_gemm_cuda(a1, w1, a2, w2, bias, relu, pre_residual=res)
+        again = pointwise_gemm_cuda(a1, w1, a2, w2, bias, relu, pre_residual=res)
+        ref = pointwise_gemm_torch(a1, w1, a2, w2, bias, relu, pre_residual=res)
         torch.cuda.synchronize()
         _assert_close(got, ref, 2**-7, 2e-3)
+        assert torch.equal(got, again)
+        assert pointwise_gemm_cuda.body_launches[body] == before[body] + 2
 
 
 # the widths 8 divides take the Hopper bodies of K3/K6 (the prod width, a
@@ -190,20 +203,24 @@ CONV_SHAPES = [(2, 16, 24, 64, 64), (1, 9, 7, 12, 20), (1, 32, 128, 256, 256),
                (1, 10, 13, 64, 72), (2, 6, 64, 64, 136)]
 
 
-@pytest.mark.parametrize("a_mn_major,b_tma", [(0, 0), (1, 0), (0, 1), (1, 1)])
-def test_sm90_wgmma_tile(dev, a_mn_major, b_tma):
+@pytest.mark.parametrize("a_mn_major,b_tma,b_k_major", [
+    (0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0), (0, 0, 1), (0, 1, 1),
+])
+def test_sm90_wgmma_tile(dev, a_mn_major, b_tma, b_k_major):
     """One warpgroup's 64×256×64 product through sm90_gemm.cuh's layouts
-    (A K-major as K3's, or MN-major as K6's; B MN-major, stored by the
-    threads or loaded by TMA as both kernels load it), exact products of
-    small integers summed in f32."""
+    (A K-major as K2's, K3's and K5's, or MN-major as K6's; B MN-major as
+    K2's, K3's and K6's, or K-major as K5's; B stored by the threads or
+    loaded by TMA as the kernels load it), exact products of small integers
+    summed in f32."""
     from pixel_heal_thyself_tpu_torch import _build
 
     rng = np.random.default_rng(11)
     a = torch.as_tensor(rng.integers(-4, 5, (64, 64)), dtype=torch.bfloat16, device=dev)
     b = torch.as_tensor(rng.integers(-4, 5, (64, 256)), dtype=torch.bfloat16, device=dev)
     d = torch.empty(64, 256, dtype=torch.float32, device=dev)
-    err = _build.lib().pht_sm90_probe(a.data_ptr(), b.data_ptr(), d.data_ptr(), a_mn_major,
-                                     b_tma, torch.cuda.current_stream().cuda_stream)
+    staged = b.t().contiguous() if b_k_major else b  # K-major: Bᵀ [256, 64]
+    err = _build.lib().pht_sm90_probe(a.data_ptr(), staged.data_ptr(), d.data_ptr(), a_mn_major,
+                                     b_tma, b_k_major, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "pht_sm90_probe")
     torch.cuda.synchronize()
     assert torch.equal(d, a.float() @ b.float())
@@ -369,8 +386,11 @@ def test_attention_bwd_kernel(dev, dtype, halo, heads, c):
 
 
 @pytest.mark.parametrize("mode", ["zeros", "reflect", "replicate"])
-@pytest.mark.parametrize("shape", [(2, 16, 24, 64, 64), (1, 9, 7, 12, 20), (1, 2, 2, 8, 8)])
+@pytest.mark.parametrize("shape", [*CONV_SHAPES, (1, 2, 2, 8, 8)])
 def test_conv3x3_dgrad_kernel(dev, mode, shape):
+    """K5 (the prod width, frames 64 divides and does not, widths 8 does not
+    divide) with and without the gate and the residual: the body that took
+    the launch, and two calls equal to the bit."""
     rng = np.random.default_rng(7)
     bf = torch.bfloat16
     b, h, w, c, n = shape
@@ -378,11 +398,44 @@ def test_conv3x3_dgrad_kernel(dev, mode, shape):
     gate = _rand(rng, (b, h, w, n), dev, bf)
     wt = _rand(rng, (9 * c, n), dev, bf, (9 * c) ** -0.5)
     res = _rand(rng, (b, h, w, c), dev, bf)
-    for g, r in ((None, None), (gate, res)):
+    body = "sm90" if c % 8 == 0 and n % 8 == 0 else "general"
+    for g, r in ((None, None), (gate, None), (None, res), (gate, res)):
+        before = dict(conv3x3_dgrad_cuda.body_launches)
         got = conv3x3_dgrad_cuda(dy, g, wt, mode, residual=r)
+        again = conv3x3_dgrad_cuda(dy, g, wt, mode, residual=r)
         ref = conv3x3_dgrad_torch(dy, g, wt, mode, residual=r)
         torch.cuda.synchronize()
         _assert_close(got, ref, 2**-7, 2e-3)
+        assert torch.equal(got, again)
+        assert conv3x3_dgrad_cuda.body_launches[body] == before[body] + 2
+
+
+@pytest.mark.parametrize("mode", ["reflect", "replicate"])
+@pytest.mark.parametrize("shape", [(2, 16, 24, 64, 64), (1, 32, 128, 256, 256), (1, 10, 13, 64, 72),
+                                   (1, 3, 3, 8, 8), (1, 2, 2, 8, 8)])
+def test_conv3x3_dgrad_fold_prepass(dev, mode, shape):
+    """K5's fold pre-pass (WMMA; f32 sums of exact bf16 products) against
+    `dgrad_fold_torch`, in the side buffer's layout."""
+    from pixel_heal_thyself_tpu_torch import _build
+    from pixel_heal_thyself_tpu_torch.ops.block_cuda import (
+        PAD_MODES,
+        dgrad_fold_floats,
+        dgrad_fold_torch,
+    )
+
+    rng = np.random.default_rng(13)
+    bf = torch.bfloat16
+    b, h, w, c, n = shape
+    g = _rand(rng, (b, h, w, n), dev, bf)
+    wt = _rand(rng, (9 * c, n), dev, bf, (9 * c) ** -0.5)
+    fold = torch.full((dgrad_fold_floats(b, h, w, c, mode),), float("nan"), device=dev)
+    err = _build.lib().pht_conv3x3_dgrad_fold(g.data_ptr(), wt.data_ptr(), fold.data_ptr(),
+                                              b, h, w, n, c, PAD_MODES[mode],
+                                              torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "pht_conv3x3_dgrad_fold")
+    ref = dgrad_fold_torch(g, wt, mode)
+    torch.cuda.synchronize()
+    _assert_close(fold, ref, 1e-5, 1e-6)
 
 
 @pytest.mark.parametrize("taps,mode", [(9, "zeros"), (9, "reflect"), (9, "replicate"), (1, "zeros")])
