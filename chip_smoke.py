@@ -48,20 +48,25 @@ exits non-zero. Phases:
    at the prod serving shape (8 windows of 128² = 16,384 tokens, d_inner
    1024, d_state 64, 16 heads, chunk 128) in bf16 and fp32, beside a
    control that the bf16 bound must fail (the plain chain with xBC and y
-   rounded to bf16, which the TPU kernel never does); then three
-   synthetic 512² frames denoised by the prod-width MambaDenoiserNet
-   (seeded random weights, bf16, replicate padding) through the device
-   tiler. Checks the outputs, that every layer of every batch went through
-   K7 (launch counter), and frame 0 against the model's plain path.
-8. Mamba training: K7's emit variant and the fused Mamba2 backward K8
-   against their plain versions at the prod shape in bf16 and fp32 (every
-   gradient at its bound, MAMBA_BWD_TOL), beside a control that the bounds
-   must fail (the plain backward with the reverse carry of the state
-   gradient cut); then the prod GAN step of phase 5 with the prod-width
-   MambaDenoiserNet as the generator: 2 warm-up and 5 timed steps, every
-   layer of every step through K7-emit and K8 (launch counters), and one
-   step through the kernel and plain routes beside the witnesses that set
-   MAMBA_STEP_GRAD_TOL.
+   rounded to bf16, which the TPU kernel never does), and K7's device time
+   per launch (torch.profiler); then three synthetic 512² frames denoised
+   by the prod-width MambaDenoiserNet (seeded random weights, bf16,
+   replicate padding) through the device tiler. Checks the outputs, that
+   every layer of every batch went through K7 (launch counter) on its
+   tensor-core body (per-body counters), and frame 0 against the model's
+   plain path.
+8. Mamba training: K7's emit variant on the prod generator's own layer
+   inputs (its first training forward) within K7's bf16 bounds; K7's emit
+   variant and the fused Mamba2 backward K8 against their plain versions
+   at the prod shape in bf16 and fp32 (every gradient at its bound,
+   MAMBA_BWD_TOL), K8's device time per launch, two K8 calls equal to the
+   bit, beside a control that the bounds must fail (the plain backward
+   with the reverse carry of the state gradient cut); then the prod GAN
+   step of phase 5 with the prod-width MambaDenoiserNet as the generator:
+   2 warm-up and 5 timed steps, every layer of every step through K7-emit
+   and K8 (launch counters) on their tensor-core bodies (per-body
+   counters), and one step through the kernel and plain routes beside the
+   witnesses that set MAMBA_STEP_GRAD_TOL.
 9. The literal Mamba route: the fused causal conv1d + SiLU forward K9 and
    backward K10 against their plain versions at zxbcdt [8, 16,384, 2192]
    (window 1024 + 1152) and the chunked SSD scan K11 at x [8, 16,384, 16,
@@ -337,15 +342,21 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in counters().items()}
 
 
+# the kernels with two bodies → the body every prod-shape launch must take:
+# K2, K3, K5 and K6 the Hopper wgmma body (widths 256), K7, K7e and K8 the
+# tensor-core body (d_state 64, headdim 64, chunk 128)
+PROD_BODIES = {"K2": "sm90", "K3": "sm90", "K5": "sm90", "K6": "sm90", "K7": "tc", "K7e": "tc",
+               "K8": "tc"}
+
+
 def check_bodies(tag: str, launches: dict) -> None:
-    """K2, K3, K5 and K6 launch by body: on the prod shapes (widths 256)
-    every launch must take the Hopper body (`sm90`), none the general WMMA
-    body."""
+    """The launches of each kernel of PROD_BODIES by body: every one must
+    have taken its prod body, none the general one."""
     fns = counters()
-    for name in ("K2", "K3", "K5", "K6"):
+    for name, body in PROD_BODIES.items():
         bodies = dict(fns[name].body_launches)
         log(f"[{tag}] {name} launches by body: {bodies} (total {launches[name]})")
-        if bodies["general"] or bodies["sm90"] != launches[name]:
+        if bodies["general"] or bodies[body] != launches[name]:
             raise AssertionError(f"[{tag}] {name}: {bodies['general']} prod-shape launches "
                                  f"took the general body ({bodies})")
 
@@ -688,6 +699,15 @@ def mamba_inputs(device) -> tuple:
     return zx, params, dict(d_inner=di, d_state=n, headdim=p, chunk=q)
 
 
+def log_per_launch(name: str, run) -> None:
+    """A kernel's device time per call by launch (torch.profiler)."""
+    from pixel_heal_thyself_tpu_torch.profile_serving import per_launch
+
+    rows = per_launch(run)
+    log(f"[kernels] {name} per launch: total {sum(rows.values()):.4f} ms; "
+        + ", ".join(f"{label} {ms:.4f}" for label, ms in rows.items()))
+
+
 def phase_mamba(device, frames) -> tuple[dict, dict]:
     """Phase 7. Returns (K7's row at the prod serving shape, the launch
     counts of the Mamba serving run)."""
@@ -712,6 +732,8 @@ def phase_mamba(device, frames) -> tuple[dict, dict]:
             MAMBA_TOL[label], iters=10, plain_iters=2,
             work=(nbytes(*args) + out_bytes, flops, dtype),
         )
+    log_per_launch(f"K7 bf16 ({b} × {l} tokens)",
+                   lambda: fused_mamba_chain_cuda(zx, *params, **dims))
     ctl = deviation(bf16_intermediates_chain(zx, *params, **dims),
                     fused_mamba_chain_torch(zx, *params, **dims))
     log(f"[kernels] control: plain chain with xBC and y rounded to bf16 vs plain: "
@@ -783,6 +805,32 @@ def carry_cut_chain_bwd(zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w, states, d
     return torch.cat([dz, dxr, ddtr], dim=-1).to(zxbcdt.dtype), dw, db, dbias, dA, dD, dnw
 
 
+def generator_layer_calls(device) -> list:
+    """The Mamba2 layer calls of the prod generator's first training forward
+    (seeded weights and batch, train mode): [(args, dims)] as
+    `MambaChainFn` hands them to K7's emit variant. The kernels' own rows
+    run on random inputs; these are the inputs the main path gives them."""
+    from pixel_heal_thyself_tpu_torch.models.mamba import MambaDenoiserNet, mamba_prod_kwargs
+    from pixel_heal_thyself_tpu_torch.ops import ssd_mega
+    from pixel_heal_thyself_tpu_torch.training.train_step import prepare_batch
+
+    g, _, data = _train_state(device, torch.float32, mamba_prod_kwargs(), TRAIN["patch"],
+                              TRAIN["batch"], seed=3, net=MambaDenoiserNet)
+    calls, emit = [], ssd_mega.fused_mamba_chain_emit
+
+    def record(*args, **dims):
+        calls.append(([t.detach().clone() for t in args], dims))
+        return emit(*args, **dims)
+
+    ssd_mega.fused_mamba_chain_emit = record
+    try:
+        noisy, _, aux = prepare_batch(data["noisy"], data["gt"], data["aux"])
+        g(noisy, aux)
+    finally:
+        ssd_mega.fused_mamba_chain_emit = emit
+    return calls
+
+
 def phase_mamba_kernels(device) -> dict:
     """Phase 8, kernels: K7's emit variant and K8 against their plain
     versions at 8 × 16,384 tokens in bf16 and fp32, and the carry-cut
@@ -797,6 +845,18 @@ def phase_mamba_kernels(device) -> dict:
         fused_mamba_chain_emit_cuda,
     )
 
+    # K7's emit variant on the prod generator's own layer inputs (bf16): its
+    # output and entering states within K7's bf16 bounds
+    for i, (args, dims) in enumerate(generator_layer_calls(device)):
+        got = fused_mamba_chain_emit_cuda(*args, **dims)
+        ref = fused_mamba_chain_torch(*args, **dims, emit=True)
+        devs = {name: deviation(g, r) for name, g, r in zip(("out", "states"), got, ref)}
+        log(f"[kernels] K7 emit on the prod generator's layer {i} inputs: " + ", ".join(
+            f"{name} max_rel {dv['max_rel']:.3e} rms_rel {dv['rms_rel']:.3e}"
+            for name, dv in devs.items()) + f" (bounds {MAMBA_TOL['bf16']})")
+        for name, dv in devs.items():
+            check(f"K7 emit, generator layer {i} {name}", dv, MAMBA_TOL["bf16"])
+        del got, ref, args
     zx, params, dims = mamba_inputs(device)
     b, l, _ = zx.shape
     di, n, p, q = (dims[key] for key in ("d_inner", "d_state", "headdim", "chunk"))
@@ -831,6 +891,9 @@ def phase_mamba_kernels(device) -> dict:
         )
         if label == "bf16":
             rows["K7e"], rows["K8"] = emit, bwd
+            run = partial(fused_mamba_chain_bwd_cuda, *bwd_args, **dims)
+            log_per_launch(f"K8 {tag}", run)
+            assert_deterministic(f"K8 {tag}", run)
             devs = named_devs(MAMBA_BWD_TOL[label], carry_cut_chain_bwd(*bwd_args, **dims),
                               fused_mamba_chain_bwd_torch(*bwd_args, **dims))
             bad = outside(devs, MAMBA_BWD_TOL[label])

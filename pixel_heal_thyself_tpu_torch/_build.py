@@ -86,6 +86,12 @@ _SIGNATURES = {
     # y, out, states_emit, B, L, d_inner, d_state, heads, d_conv, chunk,
     # is_bf16, stream
     "pht_ssd_chain_fwd": [_P] * 14 + [_I] * 8 + [_P],
+    # chunk, d_state, headdim: the body K7 and K8 take (1 tensor cores)
+    "pht_ssd_chain_body": [_I] * 3,
+    # chunk, d_state, headdim, kernel: a tensor-core kernel's shared memory
+    "pht_ssd_chain_tc_smem": [_I] * 4,
+    # a, b, d, passes, stream: one 64×64×64 tf32x3.cuh product (test-only)
+    "pht_tf32x3_probe": [_P] * 3 + [_I, _P],
     # zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w, states, dy; scratch xbc,
     # dt, cum, y, dstate, W, dS, dcum, dxbc, wb_part, nw_part, pv_part;
     # dzx, dwb, dpv, dnw, B, L, d_inner, d_state, heads, d_conv, chunk,

@@ -7,9 +7,16 @@
 // a plain product: a descriptor, swizzle or fragment-order mismatch gives wrong
 // numbers here before it gives them in a kernel. Test-only: no entry point
 // of the port calls `pht_sm90_probe` (tests/test_torch_port_cuda.py does).
+//
+// `pht_tf32x3_probe` does the same for tf32x3.cuh, the fragment product of
+// K7's and K8's tensor-core bodies: d[64, 64] = a[64, 64] . b[64, 64] (f32,
+// row-major) through load_a / load_b and three mma.sync passes (or, with
+// passes 1, the one-pass tf32 product the split exists to avoid), which the
+// test holds against an f64 product.
 
 #include "common.cuh"
 #include "sm90_gemm.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -86,7 +93,35 @@ __global__ void __launch_bounds__(128) probe_kernel(const __grid_constant__ CUte
       d[(row + 8 * (i / 2)) * 256 + 8 * j + col + i % 2] = acc[4 * j + i];
 }
 
+__global__ void __launch_bounds__(128) tf32x3_probe_kernel(const float* __restrict__ a,
+                                                          const float* __restrict__ b,
+                                                          float* __restrict__ d, int passes) {
+  using namespace pht::tf32;
+  const int r0 = 16 * (threadIdx.x / 32);
+  float acc[8][4] = {};
+  for (int k0 = 0; k0 < 64; k0 += 8) {
+    const FragA fa = load_a([&](int r, int k) { return a[r * 64 + k]; }, r0, k0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const FragB fb = load_b([&](int k, int c) { return b[k * 64 + c]; }, k0, 8 * j);
+      if (passes == 3) mma3(acc[j], fa, fb);
+      else mma(acc[j], fa.hi, fb.hi);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[acc_row(r0, i) * 64 + acc_col(8 * j, i)] = acc[j][i];
+}
+
 }  // namespace
+
+// a, b, d [64, 64] f32 row-major; passes 3 (3xTF32) or 1 (one tf32 pass)
+extern "C" int pht_tf32x3_probe(const void* a, const void* b, void* d, int passes, void* stream) {
+  tf32x3_probe_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(d), passes);
+  return (int)cudaGetLastError();
+}
 
 // b: B [64, 256] row-major, or with b_k_major B^T [256, 64] row-major
 extern "C" int pht_sm90_probe(const void* a, const void* b, void* d, int a_mn_major,

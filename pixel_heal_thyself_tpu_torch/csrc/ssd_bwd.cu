@@ -16,46 +16,53 @@
 // Design. The TPU kernel walks the chunks of a sequence in reverse in a
 // sequential (batch, chunk) grid, holding all heads and an f32 dstate
 // [n, di] (256 KB at prod) in VMEM: more than one CTA's 227 KB, and only 8
-// programs on 132 SMs. K8 takes K7's chunked design in reverse: (batch,
-// chunk, head) work items, a short elementwise pass that carries dstate
-// from the last chunk back, and launches of their own for what reduces
-// across heads (the norm, dB and dC, which all 16 heads share). Launches:
+// programs on 132 SMs. K8 takes K7's chunked design in reverse: chunk work
+// items, a short elementwise pass that carries dstate from the last chunk
+// back, and launches of their own for what reduces across heads (the norm,
+// dB and dC, which all 16 heads share). Two bodies, chosen by tc_body
+// (ssd_chain.cuh), as K7's. The tensor-core body, ten launches:
 //   1. prologue and 2. chunk output: K7's own (ssd_chain.cuh), recomputing
-//      xbc, dt, cum and y_ssd, the chunk output reading the saved states.
+//      xbc, dt, cum and y_ssd, the chunk output (tensor-core body, states
+//      in the input dtype) reading the saved states.
 //   3. norm backward (chunk, batch): per token, the gated RMSNorm's VJP ->
 //      dy_ssd (f32, over y_ssd in place) and dz; per-chunk dnw partials.
-//   4. dstate local (head, chunk, batch): C^T (dy_ssd exp(cum)) [n, p], the
-//      chunk's own term of the gradient of the state entering it.
+//   4. dstate local (chunk, batch; ssd_chain.cuh's per-head [n, p] product):
+//      C^T (dy_ssd exp(cum)), the chunk's own term of the gradient of the
+//      state entering it.
 //   5. reverse state pass (element, head, batch): walks the chunks from the
 //      last back and leaves in each the gradient of the state leaving it.
-//   6. intra (head, chunk, batch): scores C.B^T and dW = dy_ssd . xdt^T;
-//      writes W = scores * decay and dS = dW * decay per head to device
-//      memory, and the intra-chunk dcum = rowsum - colsum of dW * W.
-//   7. head rest (head, chunk, batch): dxdt (intra + state), the readout and
-//      state-decay dcum terms, the reverse in-chunk cumsum to ddA, the D
-//      skip, softplus -> dx (post-SiLU), ddt_raw, per-chunk dt_bias/A/D
-//      partials.
-//   8. dB, dC (chunk, batch): sum dS over heads in order, then dC = dS B +
-//      dr st^T and dB = dS^T C + xdt_s dst^T over all heads.
+//   6'. intra and head rest (chunk, batch): the scores C.B^T once, then per
+//      head dW = dy_ssd . xdt^T, W (in shared memory only), the dcum row and
+//      column sums of dW * W, the readout C.st, dxdt = W^T dy_ssd + (B.dst)
+//      decay, the reverse in-chunk cumsum to ddA, the D skip, softplus ->
+//      dx (post-SiLU), ddt_raw, per-chunk dt_bias/A/D partials; and the sum
+//      over heads of dS = dW * decay, in head order, to device memory.
+//   8'. dB, dC (chunk, batch): dC = (sum dS) B + sum_h dr_h st_h^T, dB =
+//      (sum dS)^T C + sum_h xdt_s,h dst_h^T.
 //   9. conv backward (chunk, batch, channel slab): recomputes the conv's
 //      pre-activation, dpre = dxBC * silu'(pre) (f32, in place), per-chunk
 //      tap and bias partials.
 //  10. conv transpose (chunk, batch, channel slab): dxBC_raw[t] = sum_j
 //      w[j] dpre[t + k - 1 - j], reading the next chunk's first rows.
 //  11. three fixed-order sums of the per-chunk partials.
+// Every chunk product of 2, 4, 6' and 8' runs on mma.sync at 3xTF32
+// (tf32x3.cuh); 6' and 8' run 8 warps in 225,856 and 217,088 bytes of
+// shared memory at prod. The general body (other shapes) runs 4 and 6-8 per
+// (head, chunk, batch) on scalar f32 FMAs: 6 writes W and dS per head to
+// device memory, 7 (head rest) reads W back, 8 sums dS over heads.
 // No float atomics anywhere: every cross-CTA sum goes through per-chunk
-// partials and a fixed-order pass, so K8 is deterministic.
+// partials and a fixed-order pass, and 6' sums dS over heads in order, so
+// K8 is deterministic.
 //
 // What bounds it on the H100. The function reads zxbcdt, the states and dy
 // once and writes dzx once (1.55 GB at the prod training shape B 8,
 // L 16,384, di 1024, n 64, h 16, bf16: 0.46 ms at 3.35 TB/s) against
-// ~210 GFLOP (0.21 ms at the bf16 tensor-core peak): memory. This plan runs
-// ~110 GFMA on scalar f32 FMAs (>= 3.3 ms at the 67 TFLOP/s f32 peak) and
-// moves ~11 GB of f32 intermediates through device memory (W and dS alone
-// are 1.07 GB each), so it is far from that bound; tensor cores, W and dS
-// kept on chip and fewer launches are later work. Launches 4, 6, 7 and 8
-// stage their operands in shared memory (7 at prod: 203 KB, one CTA per
-// SM) and register-block 4 x 4 outputs per thread.
+// ~210 GFLOP (0.21 ms at the bf16 tensor-core peak): memory. This plan moves
+// ~7 GB of f32 intermediates through device memory (2.1 GB of scratch at
+// prod; the general body's per-head W and dS, 1.07 GB each, stay on chip
+// in 6'), so it is far from that bound; the tensor-core launches are held
+// back by their fragment work, as K7's (PERF.md, PR 8). ptxas (sm_90a): 6'
+// 186 registers (bf16: 187), 8' 142 (147), no spills.
 
 #include "ssd_chain.cuh"
 
@@ -159,7 +166,7 @@ __global__ void __launch_bounds__(kThreads) ssd_norm_bwd_kernel(
   for (int e = threadIdx.x; e < d.di; e += kThreads) part[e] = s_dnw[e];
 }
 
-// ---- 4. dstate local ------------------------------------------------------------
+// ---- 4. dstate local, general body ---------------------------------------------
 __host__ __device__ inline size_t dlocal_smem_floats(int q, int n, int p) {
   return (size_t)q * n + (size_t)q * p;
 }
@@ -222,7 +229,7 @@ __global__ void __launch_bounds__(kThreads) ssd_dstate_reverse_kernel(
   }
 }
 
-// ---- 6. intra ---------------------------------------------------------------------
+// ---- 6. intra, general body --------------------------------------------------------
 __host__ __device__ inline size_t intra_smem_floats(int q, int n, int p) {
   return 2 * (size_t)n * (q + 4) + (size_t)q * p + (size_t)p * (q + 4) + q +
          2 * (size_t)q * (q / 4);
@@ -305,7 +312,7 @@ __global__ void __launch_bounds__(kThreads) ssd_intra_bwd_kernel(
   }
 }
 
-// ---- 7. head rest -----------------------------------------------------------------
+// ---- 7. head rest, general body ----------------------------------------------------
 __host__ __device__ inline size_t rest_smem_floats(int q, int n, int p) {
   return (size_t)q * q + (size_t)q * p + 2 * (size_t)n * (q + 4) + 2 * (size_t)n * p + 8 * q;
 }
@@ -452,7 +459,7 @@ __global__ void __launch_bounds__(kThreads) ssd_head_bwd_kernel(
   }
 }
 
-// ---- 8. dB, dC ----------------------------------------------------------------------
+// ---- 8. dB, dC, general body -------------------------------------------------------
 __host__ __device__ inline size_t bc_smem_floats(int q, int n, int p) {
   const size_t one = (size_t)q * (q + 4) + 2 * (size_t)q * n;
   const size_t two = 2 * (size_t)q * (p + 4) + 2 * (size_t)p * (n + 4);
@@ -545,6 +552,485 @@ __global__ void __launch_bounds__(kThreads) ssd_bc_bwd_kernel(
     for (int r = 0; r < 4; ++r)
       st4(dxbc + (row0 + r0 + r) * d.dc + ch, acc[m][r][0], acc[m][r][1], acc[m][r][2],
           acc[m][r][3]);
+  }
+}
+
+// ---- 6'. intra and head rest, tensor-core body ----------------------------------
+// Launches 6 and 7 fused, with W kept on chip: one CTA per (chunk, batch)
+// computes the scores C.B^T of its 16 x 8 tiles on or below the diagonal
+// once into registers (warp w takes tiles w, w + 8, ...), then walks the
+// heads in order. Per head: dW = dy_ssd . xdt^T on those tiles, W = scores
+// decay into shared memory (packed tiles), dS = dW decay summed over the
+// heads in registers (fixed head order), the dcum row and column sums of
+// dW * W per warp; then per 16-row tile (warp w: {w % 4, 7 - w % 4}, of the
+// column half w / 4) the readout C.st, dxdt_s = B.dst and W^T.dy_ssd on
+// tensor cores and the head rest of launch 7. The sum over heads of dS [tri][16][8] is the only q x q value
+// that leaves the chip. W and the sum of dS are packed 16 x 8 tiles in
+// tri_tile's order, row-major and unswizzled: their A fragments are read
+// transposed here (and as stored in 8'), conflict-free without a swizzle.
+// Layout (floats): W [tri][16][8] | B [q][n+4] | C
+// [q][n+4] | dy_ssd [q][p+4] | x [q][p+4] | st [n][p+8] (T) | dst [n][p+8] |
+// cum, dt [2q] | dd row and column sums [2][kWarps][q] | pc, pd, px per
+// column half [3][2][q] | dcum [q] | 16 reduction slots.
+constexpr int kMaxTri = 9;  // causal tiles a warp holds: ceil(8 * 9 / kWarps) at q = 128
+
+__host__ __device__ inline size_t intra_rest_tc_floats(int q, int n, int p) {
+  const size_t mts = q / 16;
+  return mts * (mts + 1) * 128 + 2 * (size_t)q * (n + 4) + 2 * (size_t)q * (p + 4) +
+         2 * (size_t)n * (p + 8) + (2 + 2 * kWarps + 6 + 1) * (size_t)q + 16;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) ssd_intra_rest_tc_kernel(
+    const T* __restrict__ zx, const float* __restrict__ xbc, const float* __restrict__ dt,
+    const float* __restrict__ cum, const float* __restrict__ dys, const T* __restrict__ states,
+    const float* __restrict__ dstate, const float* __restrict__ dt_bias,
+    const float* __restrict__ A, const float* __restrict__ Dp, float* __restrict__ dxbc,
+    T* __restrict__ dzx, float* __restrict__ ds_sum, float* __restrict__ pv_part, Dims d) {
+  using namespace tf32;
+  const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x, warp = tid >> 5;
+  const int lane = tid & 31, g8 = lane >> 2, c4 = lane & 3;
+  const int q = d.q, n = d.n, p = d.p, ldn = n + 4, ldq = p + 4, lds = p + 8;
+  const int mts = q / 16, tri = mts * (mts + 1);
+  const long row0 = (long)b * d.L + (long)c * q;
+  extern __shared__ __align__(16) float smem[];
+  float* s_w = smem;                      // [tri][16][8]  W of the head
+  float* s_b = s_w + (size_t)tri * 128;   // [q][n+4]  B
+  float* s_c = s_b + (size_t)q * ldn;     // [q][n+4]  C
+  float* s_dy = s_c + (size_t)q * ldn;    // [q][p+4]  dy_ssd of the head
+  float* s_x = s_dy + (size_t)q * ldq;    // [q][p+4]  x of the head
+  float* s_st = s_x + (size_t)q * ldq;    // [n][p+8]  the entering state (T)
+  float* s_dst = s_st + (size_t)n * lds;  // [n][p+8]  the leaving state's gradient
+  float* s_cum = s_dst + (size_t)n * lds; // [q]
+  float* s_dt = s_cum + q;                // [q]
+  float* s_rs = s_dt + q;                 // [kWarps][q]  row sums of dW * W
+  float* s_cs = s_rs + kWarps * q;        // [kWarps][q]  column sums of dW * W
+  float* s_pc = s_cs + kWarps * q;        // [2][q]  readout dcum: sum_e dy exp(cum) C.st
+  float* s_pd = s_pc + 2 * q;             // [2][q]  state-decay dcum: sum_e dxdt_s xdt_s
+  float* s_px = s_pd + 2 * q;             // [2][q]  sum_e dxdt x
+  float* s_da = s_px + 2 * q;             // [q]  dcum, then ddA
+  float* s_red = s_da + q;                // [16]
+  const T* s_s = reinterpret_cast<const T*>(s_st);
+
+  stage<float>(s_b, ldn, xbc + row0 * d.dc + d.di, d.dc, q, n);
+  stage<float>(s_c, ldn, xbc + row0 * d.dc + d.di + n, d.dc, q, n);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+  float sg[kMaxTri][4], sds[kMaxTri][4];  // the scores and the sum over heads of dS
+#pragma unroll
+  for (int s = 0; s < kMaxTri; ++s) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sg[s][i] = sds[s][i] = 0.f;
+    const int u = warp + kWarps * s;
+    if (u >= tri) continue;
+    const int2 at = tri_tile(u);
+    for (int k0 = 0; k0 < n; k0 += 8) {
+      const FragA a = load_a([&](int t, int i) { return s_c[t * ldn + i]; }, at.x, k0);
+      const FragB bb = load_b([&](int i, int j) { return s_b[j * ldn + i]; }, k0, at.y);
+      mma3(sg[s], a, bb);
+    }
+  }
+
+  const long st0 = ((long)b * d.nc + c) * d.h * n * p;
+  const int rg = warp & 3, half = warp >> 2, nts = p / 16, c0 = half * (p / 2);
+  const int trn = c4 * 8 + g8;  // this lane's offset of a transposed packed-tile A fragment
+  for (int hh = 0; hh < d.h; ++hh) {
+    stage<float>(s_dy, ldq, dys + row0 * d.di + hh * p, d.di, q, p);
+    stage<float>(s_x, ldq, xbc + row0 * d.dc + hh * p, d.dc, q, p);
+    stage<T>(reinterpret_cast<T*>(s_st), lds, states + st0 + (long)hh * n * p, p, n, p);
+    stage<float>(s_dst, lds, dstate + st0 + (long)hh * n * p, p, n, p);
+    sm90::cp_async_commit();
+    for (int t = tid; t < q; t += kThreads) {
+      s_cum[t] = cum[(row0 + t) * d.h + hh];
+      s_dt[t] = dt[(row0 + t) * d.h + hh];
+    }
+    for (int i = tid; i < 2 * kWarps * q; i += kThreads) s_rs[i] = 0.f;  // s_rs, s_cs
+    sm90::cp_async_wait<0>();
+    __syncthreads();
+
+    // the causal tiles: dW, W, dS, the dcum sums
+    float* rs = s_rs + warp * q;
+    float* cs = s_cs + warp * q;
+#pragma unroll
+    for (int s = 0; s < kMaxTri; ++s) {
+      const int u = warp + kWarps * s;
+      if (u >= tri) break;
+      const int2 at = tri_tile(u);
+      float dw[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int k0 = 0; k0 < p; k0 += 8) {  // dW[t][j] = dy_t . x_j dt_j
+        const FragA a = load_a([&](int t, int e) { return s_dy[t * ldq + e]; }, at.x, k0);
+        const FragB bb =
+            load_b([&](int e, int j) { return s_x[j * ldq + e] * s_dt[j]; }, k0, at.y);
+        mma3(dw, a, bb);
+      }
+      float w[4], dd[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = acc_row(at.x, i), j = acc_col(at.y, i);
+        const float lm = j <= t ? expf(s_cum[t] - s_cum[j]) : 0.f;
+        w[i] = sg[s][i] * lm;
+        sds[s][i] += dw[i] * lm;
+        dd[i] = dw[i] * w[i];
+      }
+      float* wt = s_w + u * 128;
+      *reinterpret_cast<float2*>(wt + g8 * 8 + 2 * c4) = make_float2(w[0], w[1]);
+      *reinterpret_cast<float2*>(wt + (g8 + 8) * 8 + 2 * c4) = make_float2(w[2], w[3]);
+      // rows g8, g8 + 8 over the tile's 8 columns (the 4 lanes of a row);
+      // columns 2 c4, 2 c4 + 1 over its 16 rows (the 8 lanes of a column)
+      float r0s = dd[0] + dd[1], r1s = dd[2] + dd[3], c0s = dd[0] + dd[2], c1s = dd[1] + dd[3];
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        r0s += __shfl_xor_sync(0xffffffffu, r0s, o);
+        r1s += __shfl_xor_sync(0xffffffffu, r1s, o);
+      }
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        c0s += __shfl_xor_sync(0xffffffffu, c0s, o);
+        c1s += __shfl_xor_sync(0xffffffffu, c1s, o);
+      }
+      if (c4 == 0) {  // one lane per row and column: no two lanes add to one entry
+        rs[at.x + g8] += r0s;
+        rs[at.x + g8 + 8] += r1s;
+      }
+      if (g8 == 0) {
+        cs[at.y + 2 * c4] += c0s;
+        cs[at.y + 2 * c4 + 1] += c1s;
+      }
+    }
+    __syncthreads();
+
+    // per 16-row tile: the readout, dxdt = W^T dy + (B.dst) d2, the D skip
+    const float last = s_cum[q - 1], Dh = Dp[hh];
+    float dD = 0.f;
+    for (int sl = 0; sl < 2; ++sl) {
+      const int mt = sl ? 7 - rg : rg;
+      if (mt >= mts) continue;
+      const int r0 = 16 * mt, ra = r0 + g8, rb = ra + 8;
+      float acc[4][4] = {}, ab[4][4] = {};
+      for (int k0 = 0; k0 < n; k0 += 8) {  // C_t . st and B_j . dst
+        const FragA ac = load_a([&](int t, int i) { return s_c[t * ldn + i]; }, r0, k0);
+        const FragA abm = load_a([&](int j, int i) { return s_b[j * ldn + i]; }, r0, k0);
+#pragma unroll
+        for (int jn = 0; jn < 4; ++jn) {
+          if (jn >= nts) break;
+          const FragB bs =
+              load_b([&](int i, int e) { return to_f32(s_s[i * lds + e]); }, k0, c0 + 8 * jn);
+          const FragB bd = load_b([&](int i, int e) { return s_dst[i * lds + e]; }, k0, c0 + 8 * jn);
+          mma3(acc[jn], ac, bs);
+          mma3(ab[jn], abm, bd);
+        }
+      }
+      const float ea = expf(s_cum[ra]), eb = expf(s_cum[rb]);
+      float pca = 0.f, pcb = 0.f;
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) {
+        if (jn >= nts) break;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int t = acc_row(r0, i), e = acc_col(c0 + 8 * jn, i);
+          const float v = s_dy[t * ldq + e] * (i < 2 ? ea : eb) * acc[jn][i];
+          if (i < 2) pca += v;
+          else pcb += v;
+          acc[jn][i] = 0.f;
+        }
+      }
+      for (int k0 = r0; k0 < q; k0 += 8) {  // dxdt_intra[j] = sum_{t >= j} W[t][j] dy_t
+        const int mk = k0 >> 4;
+        const FragA a = load_a_at(s_w + (mk * (mk + 1) + (r0 >> 3)) * 128 + (k0 & 15) * 8, trn,
+                                  trn + 128, trn + 32, trn + 160);
+#pragma unroll
+        for (int jn = 0; jn < 4; ++jn) {
+          if (jn >= nts) break;
+          const FragB bb = load_b([&](int t, int e) { return s_dy[t * ldq + e]; }, k0, c0 + 8 * jn);
+          mma3(acc[jn], a, bb);
+        }
+      }
+      const float dta = s_dt[ra], dtb = s_dt[rb];
+      const float d2a = expf(last - s_cum[ra]), d2b = expf(last - s_cum[rb]);
+      float pda = 0.f, pdb = 0.f, pxa = 0.f, pxb = 0.f;
+#pragma unroll
+      for (int jn = 0; jn < 4; ++jn) {
+        if (jn >= nts) break;
+#pragma unroll
+        for (int i = 0; i < 4; i += 2) {
+          const int j = acc_row(r0, i), e = acc_col(c0 + 8 * jn, i);
+          const float dti = i < 2 ? dta : dtb, d2 = i < 2 ? d2a : d2b;
+          float dx[2], pd = 0.f, px = 0.f;
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const float x = s_x[j * ldq + e + h2], dyv = s_dy[j * ldq + e + h2];
+            const float xdt_s = x * dti * d2, dxs = ab[jn][i + h2];
+            pd = fmaf(dxs, xdt_s, pd);
+            const float dxdt = fmaf(dxs, d2, acc[jn][i + h2]);
+            px = fmaf(dxdt, x, px);
+            dD = fmaf(dyv, x, dD);
+            dx[h2] = fmaf(dxdt, dti, dyv * Dh);
+          }
+          *reinterpret_cast<float2*>(dxbc + (row0 + j) * d.dc + hh * p + e) =
+              make_float2(dx[0], dx[1]);
+          if (i < 2) {
+            pda += pd;
+            pxa += px;
+          } else {
+            pdb += pd;
+            pxb += px;
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        pca += __shfl_xor_sync(0xffffffffu, pca, o);
+        pcb += __shfl_xor_sync(0xffffffffu, pcb, o);
+        pda += __shfl_xor_sync(0xffffffffu, pda, o);
+        pdb += __shfl_xor_sync(0xffffffffu, pdb, o);
+        pxa += __shfl_xor_sync(0xffffffffu, pxa, o);
+        pxb += __shfl_xor_sync(0xffffffffu, pxb, o);
+      }
+      if (c4 == 0) {
+        s_pc[half * q + ra] = pca;
+        s_pc[half * q + rb] = pcb;
+        s_pd[half * q + ra] = pda;
+        s_pd[half * q + rb] = pdb;
+        s_px[half * q + ra] = pxa;
+        s_px[half * q + rb] = pxb;
+      }
+    }
+    float sst = 0.f;
+    for (int idx = tid; idx < n * p; idx += kThreads) {
+      const int i = idx / p, e = idx - i * p;
+      sst = fmaf(s_dst[i * lds + e], to_f32(s_s[i * lds + e]), sst);
+    }
+    const float2 tot = block_sum2(sst, dD, s_red);  // its barriers publish the row sums
+    for (int i = tid; i < q; i += kThreads) {
+      float rsum = 0.f, csum = 0.f;
+      for (int w = 0; w < kWarps; ++w) {
+        rsum += s_rs[w * q + i];
+        csum += s_cs[w * q + i];
+      }
+      s_da[i] = (rsum - csum) + (s_pc[i] + s_pc[q + i]) - (s_pd[i] + s_pd[q + i]);
+    }
+    __syncthreads();
+    if (warp == 0) {
+      // dcum_last = exp(cum_last) sum(dst st) + sum_j pd[j]; then ddA[j] =
+      // sum_{t >= j} dcum[t] + dcum_last, 32 rows at a time from the last
+      float pds = 0.f;
+      for (int i = lane; i < q; i += 32) pds += s_pd[i] + s_pd[q + i];
+      const float dlast = fmaf(expf(last), tot.x, warp_sum(pds));
+      float carry = 0.f;
+      for (int base = q - 32; base >= 0; base -= 32) {
+        float v = s_da[base + lane];
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const float up = __shfl_down_sync(0xffffffffu, v, o);
+          if (lane + o < 32) v += up;
+        }
+        s_da[base + lane] = v + carry + dlast;
+        carry += __shfl_sync(0xffffffffu, v, 0);
+      }
+    }
+    __syncthreads();
+    const float Ah = A[hh], bias = dt_bias[hh];
+    float sb = 0.f, sa = 0.f;
+    for (int i = tid; i < q; i += kThreads) {
+      const long row = row0 + i;
+      const float ddA = s_da[i];
+      const float ddt = fmaf(ddA, Ah, s_px[i] + s_px[q + i]);
+      const float ddtr = ddt * sigmoid(to_f32(zx[row * d.W + d.di + d.dc + hh]) + bias);
+      dzx[row * d.W + d.di + d.dc + hh] = from_f32<T>(ddtr);
+      sa += ddA * s_dt[i];
+      sb += ddtr;
+    }
+    const float2 sums = block_sum2(sb, sa, s_red);
+    if (tid == 0) {
+      float* part = pv_part + ((long)b * d.nc + c) * 3 * d.h;
+      part[hh] = sums.x;            // dt_bias
+      part[d.h + hh] = sums.y;      // A
+      part[2 * d.h + hh] = tot.y;   // D
+    }
+    __syncthreads();
+  }
+  float* o = ds_sum + ((long)b * d.nc + c) * tri * 128;
+#pragma unroll
+  for (int s = 0; s < kMaxTri; ++s) {
+    const int u = warp + kWarps * s;
+    if (u >= tri) break;
+    *reinterpret_cast<float2*>(o + u * 128 + g8 * 8 + 2 * c4) = make_float2(sds[s][0], sds[s][1]);
+    *reinterpret_cast<float2*>(o + u * 128 + (g8 + 8) * 8 + 2 * c4) =
+        make_float2(sds[s][2], sds[s][3]);
+  }
+}
+
+// ---- 8'. dB, dC, tensor-core body --------------------------------------------------
+// One CTA per (chunk, batch); warps 0-3 compute dC, warps 4-7 dB, each warp
+// the row tiles {w % 4, 7 - w % 4} and every column, accumulating in
+// registers: first the sum over heads of dS (from launch 6') against B and
+// C, then per head dr . st^T and xdt_s . dst^T, heads double-buffered by
+// cp.async. Layout (floats): region 0 = sum dS [tri][16][8] | B [q][n+8] |
+// C [q][n+8], then the buffer of odd heads; region 1 = the buffer of even
+// heads: dy_ssd [q][p+4] | x [q][p+4] | st [n][p+8] (T) | dst [n][p+4] |
+// exp(cum), dt exp(cum_last - cum) [2q].
+__host__ __device__ inline size_t bc_tc_head_floats(int q, int n, int p) {
+  return 2 * (size_t)q * (p + 4) + (size_t)n * (p + 8) + (size_t)n * (p + 4) + 2 * (size_t)q;
+}
+
+__host__ __device__ inline size_t bc_tc_floats(int q, int n, int p) {
+  const size_t mts = q / 16, one = mts * (mts + 1) * 128 + 2 * (size_t)q * (n + 8);
+  const size_t head = bc_tc_head_floats(q, n, p);
+  return (one > head ? one : head) + head;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) ssd_bc_tc_kernel(
+    const float* __restrict__ xbc, const float* __restrict__ dt, const float* __restrict__ cum,
+    const float* __restrict__ dys, const T* __restrict__ states,
+    const float* __restrict__ dstate, const float* __restrict__ ds_sum,
+    float* __restrict__ dxbc, Dims d) {
+  using namespace tf32;
+  const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x, warp = tid >> 5;
+  const int q = d.q, n = d.n, p = d.p, ldn = n + 8, ldq = p + 4, ldd = p + 4;
+  const int ldst = sizeof(T) == 4 ? p + 4 : p + 8;  // in T: conflict-free B loads either way
+  const int mts = q / 16, tri = mts * (mts + 1), nn = n / 8;
+  const long row0 = (long)b * d.L + (long)c * q, bc = (long)b * d.nc + c;
+  const size_t one = (size_t)tri * 128 + 2 * (size_t)q * ldn, head = bc_tc_head_floats(q, n, p);
+  extern __shared__ __align__(16) float smem[];
+  float* s_ds = smem;                      // [tri][16][8]  sum over heads of dS
+  float* s_b = s_ds + (size_t)tri * 128;   // [q][n+8]  B
+  float* s_c = s_b + (size_t)q * ldn;      // [q][n+8]  C
+  float* region1 = smem + (one > head ? one : head);
+  const long st0 = bc * d.h * n * p;
+
+  auto stage_head = [&](int hh, float* buf) {
+    stage<float>(buf, ldq, dys + row0 * d.di + hh * p, d.di, q, p);
+    stage<float>(buf + (size_t)q * ldq, ldq, xbc + row0 * d.dc + hh * p, d.dc, q, p);
+    float* st = buf + 2 * (size_t)q * ldq;
+    stage<T>(reinterpret_cast<T*>(st), ldst, states + st0 + (long)hh * n * p, p, n, p);
+    stage<float>(st + (size_t)n * (p + 8), ldd, dstate + st0 + (long)hh * n * p, p, n, p);
+  };
+  // threads t < q: the next head's cum_t, dt_t and cum_last, loaded while
+  // the current head computes, stored as exp(cum_t), dt_t exp(cum_last - cum_t)
+  float next_cum = 0.f, next_dt = 0.f, next_last = 0.f;
+  auto load_vec = [&](int hh) {
+    if (tid < q) {
+      next_cum = cum[(row0 + tid) * d.h + hh];
+      next_dt = dt[(row0 + tid) * d.h + hh];
+      next_last = cum[(row0 + q - 1) * d.h + hh];
+    }
+  };
+  auto store_vec = [&](float* buf) {
+    float* ecum = buf + 2 * (size_t)q * ldq + (size_t)n * (p + 8) + (size_t)n * ldd;
+    if (tid < q) {
+      ecum[tid] = expf(next_cum);
+      ecum[q + tid] = next_dt * expf(next_last - next_cum);
+    }
+  };
+  stage<float>(s_ds, 128, ds_sum + bc * tri * 128, 128, tri, 128);
+  stage<float>(s_b, ldn, xbc + row0 * d.dc + d.di, d.dc, q, n);
+  stage<float>(s_c, ldn, xbc + row0 * d.dc + d.di + n, d.dc, q, n);
+  sm90::cp_async_commit();
+  stage_head(0, region1);
+  sm90::cp_async_commit();
+  load_vec(0);
+  store_vec(region1);
+  sm90::cp_async_wait<1>();
+  __syncthreads();
+
+  const int rg = warp & 3;
+  const bool is_dc = warp < 4;
+  // this lane's offsets of a packed-tile A fragment, as stored and transposed
+  const int nrm = ((tid & 31) >> 2) * 8 + (tid & 3), trn = (tid & 3) * 8 + ((tid & 31) >> 2);
+  float acc[2][8][4] = {};
+  // dC[t] = sum_{j <= t} dS[t][j] B_j;  dB[j] = sum_{t >= j} dS[t][j] C_t
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int mt = s ? 7 - rg : rg, r0 = 16 * mt;
+    if (mt >= mts) continue;
+    if (is_dc) {
+      const float* ds_row = s_ds + mt * (mt + 1) * 128;  // row tile mt's first tile
+      for (int k0 = 0; k0 < r0 + 16; k0 += 8, ds_row += 128) {
+        const FragA a = load_a_at(ds_row, nrm, nrm + 64, nrm + 4, nrm + 68);
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+          if (jn >= nn) break;
+          const FragB bb = load_b([&](int j, int i) { return s_b[j * ldn + i]; }, k0, 8 * jn);
+          mma3(acc[s][jn], a, bb);
+        }
+      }
+    } else {
+      for (int k0 = r0; k0 < q; k0 += 8) {
+        const int mk = k0 >> 4;
+        const FragA a = load_a_at(s_ds + (mk * (mk + 1) + (r0 >> 3)) * 128 + (k0 & 15) * 8, trn,
+                                  trn + 128, trn + 32, trn + 160);
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn) {
+          if (jn >= nn) break;
+          const FragB bb = load_b([&](int t, int i) { return s_c[t * ldn + i]; }, k0, 8 * jn);
+          mma3(acc[s][jn], a, bb);
+        }
+      }
+    }
+  }
+  __syncthreads();  // region 0 is free for the odd heads
+
+  // dC[t] += (dy_ssd_t exp(cum_t)) . st^T;  dB[j] += (x_j dt_j exp(cum_last - cum_j)) . dst^T
+  for (int hh = 0; hh < d.h; ++hh) {
+    float* cur = (hh & 1) ? smem : region1;
+    float* next = (hh & 1) ? region1 : smem;
+    if (hh + 1 < d.h) {
+      stage_head(hh + 1, next);
+      load_vec(hh + 1);
+    }
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();
+    __syncthreads();
+    const float* s_dy = cur;
+    const float* s_x = cur + (size_t)q * ldq;
+    const T* s_st = reinterpret_cast<const T*>(cur + 2 * (size_t)q * ldq);
+    const float* s_dst = cur + 2 * (size_t)q * ldq + (size_t)n * (p + 8);
+    const float* s_e = s_dst + (size_t)n * ldd;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int mt = s ? 7 - rg : rg, r0 = 16 * mt;
+      if (mt >= mts) continue;
+      for (int k0 = 0; k0 < p; k0 += 8) {
+        if (is_dc) {
+          const FragA a =
+              load_a([&](int t, int e) { return s_dy[t * ldq + e] * s_e[t]; }, r0, k0);
+#pragma unroll
+          for (int jn = 0; jn < 8; ++jn) {
+            if (jn >= nn) break;
+            const FragB bb =
+                load_b([&](int e, int i) { return to_f32(s_st[i * ldst + e]); }, k0, 8 * jn);
+            mma3(acc[s][jn], a, bb);
+          }
+        } else {
+          const FragA a =
+              load_a([&](int j, int e) { return s_x[j * ldq + e] * s_e[q + j]; }, r0, k0);
+#pragma unroll
+          for (int jn = 0; jn < 8; ++jn) {
+            if (jn >= nn) break;
+            const FragB bb = load_b([&](int e, int i) { return s_dst[i * ldd + e]; }, k0, 8 * jn);
+            mma3(acc[s][jn], a, bb);
+          }
+        }
+      }
+    }
+    if (hh + 1 < d.h) store_vec(next);
+    __syncthreads();
+  }
+  const int ch = d.di + (is_dc ? n : 0);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int mt = s ? 7 - rg : rg, r0 = 16 * mt;
+    if (mt >= mts) continue;
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn) {
+      if (jn >= nn) break;
+#pragma unroll
+      for (int i = 0; i < 4; i += 2)
+        *reinterpret_cast<float2*>(dxbc + (row0 + acc_row(r0, i)) * d.dc + ch +
+                                   acc_col(8 * jn, i)) = make_float2(acc[s][jn][i], acc[s][jn][i + 1]);
+    }
   }
 }
 
@@ -657,12 +1143,16 @@ int launch_bwd(const T* zx, const float* conv_w, const float* conv_b, const floa
                const float* A, const float* D, const float* norm_w, const T* states,
                const T* dy, const Bufs& w, T* dzx, float* dwb, float* dpv, float* dnw, Dims d,
                cudaStream_t s) {
-  const size_t out_smem = output_smem_floats(d.q, d.n, d.p) * sizeof(float);
-  const size_t norm_smem = (size_t)d.di * sizeof(float);
-  const size_t local_smem = dlocal_smem_floats(d.q, d.n, d.p) * sizeof(float);
-  const size_t intra_smem = intra_smem_floats(d.q, d.n, d.p) * sizeof(float);
-  const size_t rest_smem = rest_smem_floats(d.q, d.n, d.p) * sizeof(float);
-  const size_t bc_smem = bc_smem_floats(d.q, d.n, d.p) * sizeof(float);
+  const bool tc = tc_body(d.q, d.n, d.p);
+  const size_t f = sizeof(float);
+  const size_t out_smem = (tc ? output_tc_floats(d.q, d.n, d.p) : output_smem_floats(d.q, d.n, d.p)) * f;
+  const size_t norm_smem = (size_t)d.di * f;
+  const size_t local_smem =
+      (tc ? head_state_tc_floats(d.q, d.n, d.p) : dlocal_smem_floats(d.q, d.n, d.p)) * f;
+  const size_t intra_smem =
+      (tc ? intra_rest_tc_floats(d.q, d.n, d.p) : intra_smem_floats(d.q, d.n, d.p)) * f;
+  const size_t rest_smem = tc ? 0 : rest_smem_floats(d.q, d.n, d.p) * f;
+  const size_t bc_smem = (tc ? bc_tc_floats(d.q, d.n, d.p) : bc_smem_floats(d.q, d.n, d.p)) * f;
   const int pc4 = d.p / 4;
   if (out_smem > kMaxSmem || norm_smem > 48 * 1024 || local_smem > kMaxSmem ||
       intra_smem > kMaxSmem || rest_smem > kMaxSmem || bc_smem > kMaxSmem ||
@@ -678,35 +1168,54 @@ int launch_bwd(const T* zx, const float* conv_w, const float* conv_b, const floa
   ssd_prologue_kernel<T><<<dim3(d.nc, d.B, slabs + 1), kThreads, 0, s>>>(
       zx, conv_w, conv_b, dt_bias, A, w.xbc, w.dt, w.cum, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = set_smem(ssd_chunk_output_kernel<T>, out_smem)) != cudaSuccess) return (int)err;
-  ssd_chunk_output_kernel<T><<<heads, kThreads, out_smem, s>>>(w.xbc, w.dt, w.cum, states, D,
-                                                                w.y, d);
+  OutputKernel<T> out_kern = tc ? ssd_chunk_output_tc_kernel<T> : ssd_chunk_output_kernel<T>;
+  if ((err = set_smem(out_kern, out_smem)) != cudaSuccess) return (int)err;
+  out_kern<<<tc ? chunks : heads, tc ? kTcThreads : kThreads, out_smem, s>>>(
+      w.xbc, w.dt, w.cum, states, D, w.y, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // 3
   ssd_norm_bwd_kernel<T><<<chunks, kThreads, norm_smem, s>>>(w.y, zx, dy, norm_w, dzx,
                                                              w.nw_part, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // 4, 5
-  if ((err = set_smem(ssd_dstate_local_kernel, local_smem)) != cudaSuccess) return (int)err;
-  ssd_dstate_local_kernel<<<heads, kThreads, local_smem, s>>>(w.xbc, w.cum, w.y, w.dstate, d);
+  if (tc) {
+    if ((err = set_smem(ssd_dstate_local_tc_kernel, local_smem)) != cudaSuccess) return (int)err;
+    ssd_dstate_local_tc_kernel<<<chunks, kThreads, local_smem, s>>>(w.xbc, w.cum, w.y, w.dstate,
+                                                                    d);
+  } else {
+    if ((err = set_smem(ssd_dstate_local_kernel, local_smem)) != cudaSuccess) return (int)err;
+    ssd_dstate_local_kernel<<<heads, kThreads, local_smem, s>>>(w.xbc, w.cum, w.y, w.dstate, d);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   ssd_dstate_reverse_kernel<<<dim3((d.n * d.p + kThreads - 1) / kThreads, d.h, d.B), kThreads,
                               0, s>>>(w.dstate, w.cum, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  // 6, 7, 8
-  if ((err = set_smem(ssd_intra_bwd_kernel, intra_smem)) != cudaSuccess) return (int)err;
-  ssd_intra_bwd_kernel<<<heads, kThreads, intra_smem, s>>>(w.xbc, w.dt, w.cum, w.y, w.W, w.dS,
-                                                           w.dcum, d);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = set_smem(ssd_head_bwd_kernel<T>, rest_smem)) != cudaSuccess) return (int)err;
-  ssd_head_bwd_kernel<T><<<heads, kThreads, rest_smem, s>>>(
-      zx, w.xbc, w.dt, w.cum, w.y, states, w.dstate, w.W, w.dcum, dt_bias, A, D, w.dxbc, dzx,
-      w.pv_part, d);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = set_smem(ssd_bc_bwd_kernel<T>, bc_smem)) != cudaSuccess) return (int)err;
-  ssd_bc_bwd_kernel<T><<<chunks, kThreads, bc_smem, s>>>(w.xbc, w.dt, w.cum, w.y, states,
-                                                         w.dstate, w.dS, w.dxbc, d);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // 6, 7, 8 (tc: 6' and 8', with the sum over heads of dS in w.dS)
+  if (tc) {
+    if ((err = set_smem(ssd_intra_rest_tc_kernel<T>, intra_smem)) != cudaSuccess) return (int)err;
+    ssd_intra_rest_tc_kernel<T><<<chunks, kThreads, intra_smem, s>>>(
+        zx, w.xbc, w.dt, w.cum, w.y, states, w.dstate, dt_bias, A, D, w.dxbc, dzx, w.dS,
+        w.pv_part, d);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if ((err = set_smem(ssd_bc_tc_kernel<T>, bc_smem)) != cudaSuccess) return (int)err;
+    ssd_bc_tc_kernel<T><<<chunks, kThreads, bc_smem, s>>>(w.xbc, w.dt, w.cum, w.y, states,
+                                                          w.dstate, w.dS, w.dxbc, d);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  } else {
+    if ((err = set_smem(ssd_intra_bwd_kernel, intra_smem)) != cudaSuccess) return (int)err;
+    ssd_intra_bwd_kernel<<<heads, kThreads, intra_smem, s>>>(w.xbc, w.dt, w.cum, w.y, w.W, w.dS,
+                                                             w.dcum, d);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if ((err = set_smem(ssd_head_bwd_kernel<T>, rest_smem)) != cudaSuccess) return (int)err;
+    ssd_head_bwd_kernel<T><<<heads, kThreads, rest_smem, s>>>(
+        zx, w.xbc, w.dt, w.cum, w.y, states, w.dstate, w.W, w.dcum, dt_bias, A, D, w.dxbc, dzx,
+        w.pv_part, d);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    if ((err = set_smem(ssd_bc_bwd_kernel<T>, bc_smem)) != cudaSuccess) return (int)err;
+    ssd_bc_bwd_kernel<T><<<chunks, kThreads, bc_smem, s>>>(w.xbc, w.dt, w.cum, w.y, states,
+                                                           w.dstate, w.dS, w.dxbc, d);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
   // 9, 10
   ssd_conv_bwd_kernel<T><<<slabbed, kThreads, 0, s>>>(zx, conv_w, conv_b, w.dxbc, w.wb_part, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -729,12 +1238,25 @@ int launch_bwd(const T* zx, const float* conv_w, const float* conv_b, const floa
 
 extern "C" {
 
+// Dynamic shared memory (bytes) of one CTA of a tensor-core kernel of K7
+// and K8 at chunk q, d_state n, headdim p: kernel 0 the chunk output, 1 the
+// chunk state / dstate local, 2 K8's fused intra and head rest, 3 K8's
+// dB/dC. (ops/ssd_mega_cuda.ssd_tc_smem states the same sums; a card test
+// holds them equal.)
+int pht_ssd_chain_tc_smem(int q, int n, int p, int kernel) {
+  const size_t floats[4] = {output_tc_floats(q, n, p), head_state_tc_floats(q, n, p),
+                            intra_rest_tc_floats(q, n, p), bc_tc_floats(q, n, p)};
+  return kernel < 0 || kernel > 3 ? -1 : (int)(floats[kernel] * sizeof(float));
+}
+
 // zxbcdt [B, L, 2 di + 2 n + h] (bf16 or f32); f32 conv_w [k, di + 2n],
 // conv_b [di + 2n], dt_bias, A, D [h], norm_w [di]; states [B, L/q, h, n,
 // di/h] and dy [B, L, di] in zxbcdt's dtype. f32 scratch: xbc [B, L, dc],
-// dt, cum [B, L, h], y [B, L, di], dstate [B, L/q, h, n, di/h], W and dS
-// [B, L/q, h, q, q], dcum [B, L, h], dxbc [B, L, dc], wb_part [B L/q, k + 1,
-// dc], nw_part [B L/q, di], pv_part [B L/q, 3, h]. Outputs: dzx like
+// dt, cum [B, L, h], y [B, L, di], dstate [B, L/q, h, n, di/h], dxbc [B, L,
+// dc], wb_part [B L/q, k + 1, dc], nw_part [B L/q, di], pv_part [B L/q, 3,
+// h]; and by body (pht_ssd_chain_body): the general body's W and dS [B, L/q,
+// h, q, q] and dcum [B, L, h]; the tensor-core body's dS, the sum over heads
+// [B L/q, (q/16)(q/16 + 1), 16, 8], with W and dcum null. Outputs: dzx like
 // zxbcdt, f32 dwb [k + 1, dc], dpv [3, h], dnw [di].
 int pht_ssd_chain_bwd(const void* zx, const void* conv_w, const void* conv_b,
                       const void* dt_bias, const void* A, const void* D, const void* norm_w,

@@ -20,50 +20,60 @@
 //          + exp(cum_t) C_t . st + D * x_t
 //     st = exp(cum_{q-1}) st + sum_j B_j^T (dt_j exp(cum_{q-1} - cum_j) x_j)
 //   out  = round_T(g * rsqrt(mean(g^2) + 1e-5) * norm_w),  g = y * silu(z)
-// One rounding, at the output, as the TPU kernel. Every product is a true
-// f32 FMA (no TF32, no tensor cores).
+// One rounding, at the output, as the TPU kernel. Every product is f32-
+// accurate: scalar f32 FMAs in the general body, tensor-core 3xTF32 in the
+// tensor-core body (tf32x3.cuh).
 //
 // Design. The TPU kernel walks the chunks of one sequence in a sequential
 // grid, holding all heads and an f32 state [n, di] (256 KB at prod) in
 // VMEM. That is more than one Hopper CTA's 227 KB, and a (batch) grid
 // would run 8 CTAs on 132 SMs. The SSD is independent per head (B and C
-// are shared, ngroups 1), so this kernel takes mamba_ssm's chunked design
-// instead of a per-(batch, head) walker: the walker has 128 work items at
-// prod, one CTA per SM with nothing to hide its latency, while the chunked
-// design has B * nc * h = 16,384 independent (batch, chunk, head) items
-// and leaves only a short elementwise pass sequential. The gated RMSNorm
-// reduces over all di channels of a token, across heads, so it is a launch
-// of its own. Five launches:
+// are shared, ngroups 1), so this kernel takes mamba_ssm's chunked design:
+// B * nc independent chunks (1,024 at prod) and only a short elementwise
+// pass sequential. The gated RMSNorm reduces over all di channels of a
+// token, across heads, so it is a launch of its own. Five launches:
 //   1. prologue  (chunk, batch, channel slab): conv + SiLU of xBC -> f32
 //      xbc [B, L, di + 2n]; one extra slab per chunk computes dt and cum
 //      [B, L, h]. A chunk reads its k - 1 previous raw rows straight from
 //      device memory, so no conv tail is carried.
-//   2. chunk state (head, chunk, batch): S = B^T (dt decay x) [n, p] from a
-//      zero state -> f32 states [B, nc, h, n, p].
+//   2. chunk state: S = B^T (dt decay x) [n, p] per head from a zero state
+//      -> f32 states [B, nc, h, n, p].
 //   3. state pass (element, head, batch): walks the chunks in order and
 //      overwrites each S with the state entering its chunk (and, emitting,
 //      writes that state rounded to the input dtype beside it).
-//   4. chunk output (head, chunk, batch): the intra-chunk product, the
-//      readout of the entering state and the D skip -> f32 y [B, L, di].
+//   4. chunk output: the intra-chunk product, the readout of the entering
+//      state and the D skip -> f32 y [B, L, di].
 //   5. gated RMSNorm (token): gate, mean square, norm weight, rounding.
+// Launches 2 and 4 have two bodies, chosen here by tc_body (ssd_chain.cuh;
+// `pht_ssd_chain_body` tells the wrappers):
+//   - the tensor-core body (chunk 32..128 by 32, headdim 16/32/64, d_state
+//     16..64 by 16; the prod shape): one CTA per (chunk, batch) walks the
+//     heads. The chunk output computes the scores C.B^T once for all 16
+//     heads, forms W = scores decay dt per head in shared memory, and runs
+//     C.st and W.x (its causal half only) on mma.sync at 3xTF32, 16 warps,
+//     221,184 bytes of shared memory; the chunk state runs B^T.(v x) the
+//     same way, 8 warps, 111,616 bytes. Each head's operands are copied by
+//     cp.async while the previous head computes. ssd_chain.cuh has both.
+//   - the general body (other shapes): one CTA per (head, chunk, batch),
+//     4 x 4 register tiles of scalar f32 FMAs (163 KB at prod).
 //
 // What bounds it on the H100. The function itself reads zxbcdt once and
 // writes the output once (843 MB at the prod serving shape B 8, L 16,384,
 // di 1024, n 64, h 16, bf16: 0.252 ms at 3.35 TB/s), against ~71 GFLOP
 // (0.072 ms at the bf16 tensor-core peak): memory. This plan moves its f32
 // intermediates through device memory (xbc, states twice, y: ~4.8 GB at
-// prod, >= 1.4 ms) and runs ~37 GFMA on scalar f32 FMAs (>= 1.1 ms at the
-// 67 TFLOP/s f32 peak). Launches 2 and 4 stage their chunk in shared memory
-// (4 at prod: 163 KB, one CTA per SM) and register-block 4 x 4 outputs per
-// thread so that two 16-byte shared loads feed 16 FMAs. Fusing the norm
-// (clusters with DSMEM) and tensor-core products are later work.
+// prod, >= 1.4 ms). On the tensor-core body the chunk output and chunk
+// state are held back by their fragment work (shared-memory loads, the
+// 3xTF32 splits, W's exps), not by the tensor cores or by bytes
+// (bench_ssd_tc.py; PERF.md, PR 8). ptxas (sm_90a): the chunk output 110
+// registers, the chunk state 75, no spills.
 // Launches 1 and 4 live in ssd_chain.cuh, shared with K8.
 
 #include "ssd_chain.cuh"
 
 namespace {
 
-// ---- 2. chunk state ----------------------------------------------------------
+// ---- 2. chunk state, general body ----------------------------------------------
 __host__ __device__ inline size_t state_smem_floats(int q, int n, int p) {
   return (size_t)q * n + (size_t)q * p + q;
 }
@@ -169,12 +179,16 @@ template <typename T>
 int launch(const void* zx, const float* conv_w, const float* conv_b, const float* dt_bias,
            const float* A, const float* D, const float* norm_w, float* xbc, float* dt,
            float* cum, float* states, float* y, void* out, void* emit, Dims d, cudaStream_t s) {
-  const size_t state_smem = state_smem_floats(d.q, d.n, d.p) * sizeof(float);
-  const size_t out_smem = output_smem_floats(d.q, d.n, d.p) * sizeof(float);
+  const bool tc = tc_body(d.q, d.n, d.p);
+  const size_t state_smem =
+      (tc ? head_state_tc_floats(d.q, d.n, d.p) : state_smem_floats(d.q, d.n, d.p)) * sizeof(float);
+  const size_t out_smem =
+      (tc ? output_tc_floats(d.q, d.n, d.p) : output_smem_floats(d.q, d.n, d.p)) * sizeof(float);
   if (state_smem > kMaxSmem || out_smem > kMaxSmem || d.k > kMaxConv || d.k < 1 ||
       d.q % 8 || d.n % 4 || d.p % 4)
     return (int)cudaErrorInvalidValue;
   const T* zt = static_cast<const T*>(zx);
+  const dim3 chunks(d.nc, d.B), heads(d.h, d.nc, d.B);
   cudaError_t err;
 
   const int slabs = (d.dc + kThreads - 1) / kThreads;
@@ -182,22 +196,28 @@ int launch(const void* zx, const float* conv_w, const float* conv_b, const float
       zt, conv_w, conv_b, dt_bias, A, xbc, dt, cum, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  err = cudaFuncSetAttribute(ssd_chunk_state_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)state_smem);
-  if (err != cudaSuccess) return (int)err;
-  ssd_chunk_state_kernel<<<dim3(d.h, d.nc, d.B), kThreads, state_smem, s>>>(
-      xbc, dt, cum, states, d);
+  if (tc) {
+    err = cudaFuncSetAttribute(ssd_chunk_state_tc_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)state_smem);
+    if (err != cudaSuccess) return (int)err;
+    ssd_chunk_state_tc_kernel<<<chunks, kThreads, state_smem, s>>>(xbc, dt, cum, states, d);
+  } else {
+    err = cudaFuncSetAttribute(ssd_chunk_state_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)state_smem);
+    if (err != cudaSuccess) return (int)err;
+    ssd_chunk_state_kernel<<<heads, kThreads, state_smem, s>>>(xbc, dt, cum, states, d);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   ssd_state_pass_kernel<T><<<dim3((d.n * d.p + kThreads - 1) / kThreads, d.h, d.B), kThreads,
                              0, s>>>(states, static_cast<T*>(emit), cum, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  err = cudaFuncSetAttribute(ssd_chunk_output_kernel<float>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)out_smem);
+  OutputKernel<float> out_kern =
+      tc ? ssd_chunk_output_tc_kernel<float> : ssd_chunk_output_kernel<float>;
+  err = cudaFuncSetAttribute(out_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)out_smem);
   if (err != cudaSuccess) return (int)err;
-  ssd_chunk_output_kernel<float><<<dim3(d.h, d.nc, d.B), kThreads, out_smem, s>>>(
-      xbc, dt, cum, states, D, y, d);
+  out_kern<<<tc ? chunks : heads, tc ? kTcThreads : kThreads, out_smem, s>>>(xbc, dt, cum, states, D, y, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   gated_rmsnorm_kernel<T><<<(unsigned)((long)d.B * d.L), kThreads, 0, s>>>(
@@ -208,6 +228,12 @@ int launch(const void* zx, const float* conv_w, const float* conv_b, const float
 }  // namespace
 
 extern "C" {
+
+// The body that K7 and K8 take for chunk q, d_state n and headdim p: 1 the
+// tensor-core body, 0 the general one (ssd_chain.cuh's tc_body). The C
+// entries choose by it; the wrappers ask it to count launches by body and
+// to size K8's scratch.
+int pht_ssd_chain_body(int q, int n, int p) { return tc_body(q, n, p) ? 1 : 0; }
 
 // zxbcdt [B, L, 2 di + 2 n + h] (bf16 or f32); f32 conv_w [k, di + 2n],
 // conv_b [di + 2n], dt_bias, A, D [h], norm_w [di]; f32 scratch xbc

@@ -10,16 +10,27 @@ the current stream (prologue, chunk states, state pass, chunk outputs,
 gated RMSNorm; design in the source's header) with f32 scratch allocated
 here: at the prod shape (8 × 16,384 tokens, d_inner 1024, d_state 64)
 1.4 GB. K8 replaces the TPU kernel `_bwd_kernel` (:260): the VJP at those
-saved states, in eleven launches with 4.5 GB of f32 scratch at that shape
-(design in `csrc/ssd_bwd.cu`). The plain versions are
-`ops.ssd_mega.fused_mamba_chain_torch` and `fused_mamba_chain_bwd_torch`.
-`fused_mamba_chain_cuda.launches`, `fused_mamba_chain_emit_cuda.launches`
-and `fused_mamba_chain_bwd_cuda.launches` count the calls that launched.
+saved states, in ten launches (eleven on the general body) with 2.1 GB of
+f32 scratch at that shape (4.2 GB on the general body, which writes W and
+dS per head; design in `csrc/ssd_bwd.cu`). The plain
+versions are `ops.ssd_mega.fused_mamba_chain_torch` and
+`fused_mamba_chain_bwd_torch`. `fused_mamba_chain_cuda.launches`,
+`fused_mamba_chain_emit_cuda.launches` and
+`fused_mamba_chain_bwd_cuda.launches` count the calls that launched, and
+`.body_launches` each body's.
 
-Beyond `supports_shapes`, the card limits a chunk's shared memory to one
-CTA's 227 KB: the C entries refuse a larger one (d_state 128 at headdim 64
-and chunk 128, which no config uses) with cudaErrorInvalidValue before
-they launch anything, and `_build.check` raises.
+Each has two bodies, chosen by the C entries (`pht_ssd_chain_body`): the
+tensor-core body ("tc": every chunk product on mma.sync at 3×TF32, the
+scores computed once per chunk, K8's W kept on chip) for the shapes of
+`ssd_chain_body`, and the general scalar-FMA body for the rest. The
+wrappers ask the library which body it takes, to count it and to size
+K8's scratch; `ssd_chain_body` states the same rule for callers without
+the library, and a card test holds the two equal. Beyond
+`supports_shapes`, the card limits a chunk's shared memory to one CTA's
+227 KB: the C entries refuse a general-body chunk that needs more (d_state
+128 at headdim 64 and chunk 128, which no config uses) with
+cudaErrorInvalidValue before they launch anything, and `_build.check`
+raises.
 """
 
 from __future__ import annotations
@@ -27,6 +38,42 @@ from __future__ import annotations
 import torch
 
 from pixel_heal_thyself_tpu_torch import _build
+
+MAX_SMEM = 232_448  # the opt-in shared memory of one CTA on the H100
+TC_WARPS = 8  # K8's fused intra and head rest: 256 threads, dcum sums per warp
+
+
+def ssd_chain_body(d_state: int, headdim: int, chunk: int) -> str:
+    """The body K7 and K8 take: "tc" (tensor cores) for chunks a multiple
+    of 32 up to 128, headdim 16, 32 or 64 and d_state a multiple of 16 up
+    to 64 (csrc/ssd_chain.cuh `tc_body`); "general" otherwise."""
+    tc = (chunk % 32 == 0 and chunk <= 128 and headdim in (16, 32, 64)
+          and d_state % 16 == 0 and 16 <= d_state <= 64)
+    return "tc" if tc else "general"
+
+
+def ssd_tc_smem(d_state: int, headdim: int, chunk: int) -> dict:
+    """Dynamic shared memory (bytes) of one CTA of each tensor-core kernel
+    of K7 and K8, as the C sources lay it out (`pht_ssd_chain_tc_smem`):
+    the chunk output, the per-head [n, p] product (K7's chunk state, K8's
+    dstate local), K8's fused intra/head rest and its dB/dC."""
+    q, n, p = chunk, d_state, headdim
+    tri = (q // 16) * (q // 16 + 1) * 128  # the causal 16 × 8 tiles, packed
+    bs = q * (n + 4)
+    head = 2 * q * (p + 4) + n * (p + 8) + n * (p + 4) + 2 * q
+    floats = {
+        "output": tri + max(tri, bs) + bs + 2 * q * (p + 8) + 2 * n * (p + 8) + 4 * q,
+        "head_state": q * (n + 8) + 2 * q * (p + 8) + 2 * q,
+        "intra_rest": (tri + 2 * q * (n + 4) + 2 * q * (p + 4) + 2 * n * (p + 8)
+                       + (2 + 2 * TC_WARPS + 6 + 1) * q + 16),
+        "bc": max(tri + 2 * q * (n + 8), head) + head,
+    }
+    return {name: 4 * f for name, f in floats.items()}
+
+
+def _body(chunk: int, d_state: int, headdim: int) -> str:
+    """The body the library takes for this shape."""
+    return "tc" if _build.lib().pht_ssd_chain_body(chunk, d_state, headdim) else "general"
 
 
 def _checked(what: str, zxbcdt, conv_w, dt_bias, d_inner, d_state, headdim, chunk,
@@ -72,7 +119,7 @@ def _launch_fwd(what: str, zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w,
     )
     _build.check(err, what)
     if not emit:
-        return out
+        return out, None
     return out, (states if emitted is None else emitted)
 
 
@@ -82,13 +129,15 @@ def fused_mamba_chain_cuda(
 ) -> torch.Tensor:
     """Launch K7: zxbcdt [b, l, 2·d_inner + 2·d_state + h] (bf16 or fp32,
     contiguous, on a CUDA device) → [b, l, d_inner] in its dtype."""
-    out = _launch_fwd("fused_mamba_chain_cuda", zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w,
-                      d_inner, d_state, headdim, chunk, emit=False)
+    out, _ = _launch_fwd("fused_mamba_chain_cuda", zxbcdt, conv_w, conv_b, dt_bias, A, D,
+                         norm_w, d_inner, d_state, headdim, chunk, emit=False)
     fused_mamba_chain_cuda.launches += 1
+    fused_mamba_chain_cuda.body_launches[_body(chunk, d_state, headdim)] += 1
     return out
 
 
 fused_mamba_chain_cuda.launches = 0
+fused_mamba_chain_cuda.body_launches = {"tc": 0, "general": 0}
 
 
 def fused_mamba_chain_emit_cuda(
@@ -101,10 +150,12 @@ def fused_mamba_chain_emit_cuda(
     res = _launch_fwd("fused_mamba_chain_emit_cuda", zxbcdt, conv_w, conv_b, dt_bias, A, D,
                       norm_w, d_inner, d_state, headdim, chunk, emit=True)
     fused_mamba_chain_emit_cuda.launches += 1
+    fused_mamba_chain_emit_cuda.body_launches[_body(chunk, d_state, headdim)] += 1
     return res
 
 
 fused_mamba_chain_emit_cuda.launches = 0
+fused_mamba_chain_emit_cuda.body_launches = {"tc": 0, "general": 0}
 
 
 def fused_mamba_chain_bwd_cuda(
@@ -126,15 +177,22 @@ def fused_mamba_chain_bwd_cuda(
     dy = dy.to(dtype).contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
     params = [t.to(**f32).contiguous() for t in (conv_w, conv_b, dt_bias, A, D, norm_w)]
+    body = _body(chunk, d_state, headdim)
+    if body == "tc":  # W stays on chip; the sum over heads of dS, packed causal tiles
+        intra = [None, torch.empty(b * nc, (q // 16) * (q // 16 + 1), 16, 8, **f32), None]
+    else:
+        intra = [
+            torch.empty(b, nc, h, q, q, **f32),  # W per head
+            torch.empty(b, nc, h, q, q, **f32),  # dscores per head
+            torch.empty(b, l, h, **f32),         # dcum, intra-chunk part
+        ]
     scratch = [
         torch.empty(b, l, dc, **f32),           # xbc (recomputed)
         torch.empty(b, l, h, **f32),            # dt
         torch.empty(b, l, h, **f32),            # cum
         torch.empty(b, l, d_inner, **f32),      # y_ssd, then dy_ssd in place
         torch.empty(b, nc, h, n, p, **f32),     # the state gradient per chunk
-        torch.empty(b, nc, h, q, q, **f32),     # W per head
-        torch.empty(b, nc, h, q, q, **f32),     # dscores per head
-        torch.empty(b, l, h, **f32),            # dcum, intra-chunk part
+        *intra,
         torch.empty(b, l, dc, **f32),           # dxBC post-SiLU, then dpre in place
         torch.empty(b * nc, k + 1, dc, **f32),  # conv tap/bias partials per chunk
         torch.empty(b * nc, d_inner, **f32),    # norm weight partials per chunk
@@ -146,15 +204,17 @@ def fused_mamba_chain_bwd_cuda(
     dnw = torch.empty(d_inner, **f32)
     err = _build.lib().pht_ssd_chain_bwd(
         zxbcdt.data_ptr(), *(t.data_ptr() for t in params), states.data_ptr(), dy.data_ptr(),
-        *(t.data_ptr() for t in scratch),
+        *(None if t is None else t.data_ptr() for t in scratch),
         dzx.data_ptr(), dwb.data_ptr(), dpv.data_ptr(), dnw.data_ptr(),
         b, l, d_inner, d_state, h, k, chunk, int(dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "fused_mamba_chain_bwd_cuda")
     fused_mamba_chain_bwd_cuda.launches += 1
+    fused_mamba_chain_bwd_cuda.body_launches[body] += 1
     return (dzx, dwb[:k].to(conv_w.dtype), dwb[k].to(conv_b.dtype), dpv[0].to(dt_bias.dtype),
             dpv[1].to(A.dtype), dpv[2].to(D.dtype), dnw.to(norm_w.dtype))
 
 
 fused_mamba_chain_bwd_cuda.launches = 0
+fused_mamba_chain_bwd_cuda.body_launches = {"tc": 0, "general": 0}

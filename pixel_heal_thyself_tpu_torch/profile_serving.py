@@ -10,8 +10,9 @@ times them unprofiled (the first is warm-up), then profiles the last one
 again with `torch.profiler` and prints: the unprofiled steady s/frame, the
 profiled frame's wall time and device busy time, and device time by
 kernel, the port's kernels grouped by launch. For Mamba it also profiles
-K7 alone at the prod serving shape (8 × 16,384 tokens), per launch. The
-card's name and power limit come first.
+K7 alone at the prod serving shape (8 × 16,384 tokens), per launch
+(`per_launch`, which chip_smoke's phase 7 prints too), and the body its
+launches took. The card's name and power limit come first.
 """
 
 from __future__ import annotations
@@ -26,10 +27,13 @@ import torch
 # kernel-name fragment → group, first match wins
 GROUPS = [
     # K8's launches first: their names hold "conv" and "norm" too (the
-    # chunk output and prologue K8 recomputes carry K7's names)
+    # chunk output and prologue K8 recomputes carry K7's names). Both bodies
+    # share a label where they do the same work; the tensor-core body's
+    # fused intra and head rest (ssd_intra_rest_tc_kernel) has its own
     ("ssd_norm_bwd", "K8 norm backward"), ("ssd_dstate_local", "K8 dstate local"),
-    ("ssd_dstate_reverse", "K8 reverse state pass"), ("ssd_intra_bwd", "K8 intra"),
-    ("ssd_head_bwd", "K8 head rest"), ("ssd_bc_bwd", "K8 dB/dC"),
+    ("ssd_dstate_reverse", "K8 reverse state pass"), ("ssd_intra_rest", "K8 intra + head rest"),
+    ("ssd_intra_bwd", "K8 intra"), ("ssd_head_bwd", "K8 head rest"),
+    ("ssd_bc_bwd", "K8 dB/dC"), ("ssd_bc_tc", "K8 dB/dC"),
     ("ssd_conv_bwd", "K8 conv backward"), ("ssd_conv_transpose", "K8 conv transpose"),
     ("ssd_sum_parts", "K8 parameter sums"),
     ("ssd_chunk_output", "K7 chunk output"), ("ssd_chunk_state", "K7 chunk state"),
@@ -59,32 +63,45 @@ def group(name: str) -> str:
     return "other"
 
 
-def k7_stages(device) -> None:
-    """K7's five launches at the prod serving shape: device time per call."""
-    from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import fused_mamba_chain_cuda
-
-    b, l, di, n, h, q = 8, 16384, 1024, 64, 16, 128
-    g = torch.Generator(device=device).manual_seed(0)
-    zx = (torch.randn(b, l, 2 * di + 2 * n + h, generator=g, device=device) * 0.5).bfloat16()
-    params = (torch.randn(4, di + 2 * n, generator=g, device=device) * 0.2,
-              torch.randn(di + 2 * n, generator=g, device=device) * 0.1,
-              torch.full((h,), -2.5, device=device), -torch.ones(h, device=device),
-              torch.ones(h, device=device), torch.ones(di, device=device))
-    run = lambda: fused_mamba_chain_cuda(zx, *params, d_inner=di, d_state=n,  # noqa: E731
-                                         headdim=di // h, chunk=q)
-    for _ in range(3):
+def per_launch(run, calls: int = 5) -> dict:
+    """Device time per call of `run` by `GROUPS` label (torch.profiler over
+    `calls` calls after 2 warm-up calls), largest first."""
+    for _ in range(2):
         run()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
+        for _ in range(calls):
             run()
         torch.cuda.synchronize()
     rows = defaultdict(float)
     for evt in prof.key_averages():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
-            rows[group(evt.key)] += evt.device_time_total / 1e3 / 5
-    print(f"[k7] per call at 8 × 16,384 tokens, bf16: total {sum(rows.values()):.4f} ms")
-    for label, ms in sorted(rows.items(), key=lambda r: -r[1]):
+            rows[group(evt.key)] += evt.device_time_total / 1e3 / calls
+    return dict(sorted(rows.items(), key=lambda r: -r[1]))
+
+
+def mamba_layer_inputs(device, seed: int = 0) -> tuple:
+    """(bf16 zxbcdt, f32 parameters, dims) of one prod Mamba2 layer call at
+    8 × 16,384 tokens (d_inner 1024, d_state 64, 16 heads, chunk 128)."""
+    b, l, di, n, h, q = 8, 16384, 1024, 64, 16, 128
+    g = torch.Generator(device=device).manual_seed(seed)
+    zx = (torch.randn(b, l, 2 * di + 2 * n + h, generator=g, device=device) * 0.5).bfloat16()
+    params = (torch.randn(4, di + 2 * n, generator=g, device=device) * 0.2,
+              torch.randn(di + 2 * n, generator=g, device=device) * 0.1,
+              torch.full((h,), -2.5, device=device), -torch.ones(h, device=device),
+              torch.ones(h, device=device), torch.ones(di, device=device))
+    return zx, params, dict(d_inner=di, d_state=n, headdim=di // h, chunk=q)
+
+
+def k7_stages(device) -> None:
+    """K7's five launches at the prod serving shape: device time per call."""
+    from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import fused_mamba_chain_cuda
+
+    zx, params, dims = mamba_layer_inputs(device)
+    rows = per_launch(lambda: fused_mamba_chain_cuda(zx, *params, **dims))
+    print(f"[k7] per call at 8 × 16,384 tokens, bf16: total {sum(rows.values()):.4f} ms; "
+          f"bodies {fused_mamba_chain_cuda.body_launches}")
+    for label, ms in rows.items():
         print(f"[k7]   {label}: {ms:.4f} ms")
 
 

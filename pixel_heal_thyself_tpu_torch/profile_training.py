@@ -11,7 +11,10 @@ patches. Times 8 steps unprofiled (the first 2 are warm-up), then profiles
 2 more with `torch.profiler` and prints: the unprofiled steady s/step and
 peak memory, the profiled steps' wall and device busy time, and device
 time per step by kernel group (`profile_serving.GROUPS`), the port's
-kernels by launch. The card's name and power limit come first.
+kernels by launch. For Mamba it also profiles K8 alone at the prod
+training shape (8 × 16,384 tokens, bf16), per launch (`k8_stages`, which
+chip_smoke's phase 8 prints too), and the body its launches took. The
+card's name and power limit come first.
 """
 
 from __future__ import annotations
@@ -24,9 +27,28 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from pixel_heal_thyself_tpu_torch.profile_serving import group
+from pixel_heal_thyself_tpu_torch.profile_serving import group, mamba_layer_inputs, per_launch
 
 PATCH, BATCH, WARMUP, TIMED, PROFILED = 128, 8, 2, 6, 2
+
+
+def k8_stages(device) -> None:
+    """K8's launches at the prod training shape: device time per call, at
+    the states K7's emit variant saves for these inputs."""
+    from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import (
+        fused_mamba_chain_bwd_cuda,
+        fused_mamba_chain_emit_cuda,
+    )
+
+    zx, params, dims = mamba_layer_inputs(device)
+    _, states = fused_mamba_chain_emit_cuda(zx, *params, **dims)
+    dy = torch.randn(zx.shape[0], zx.shape[1], dims["d_inner"], device=device,
+                     generator=torch.Generator(device=device).manual_seed(1)).bfloat16()
+    rows = per_launch(lambda: fused_mamba_chain_bwd_cuda(zx, *params, states, dy, **dims))
+    print(f"[k8] per call at 8 × 16,384 tokens, bf16: total {sum(rows.values()):.4f} ms; "
+          f"bodies {fused_mamba_chain_bwd_cuda.body_launches}")
+    for label, ms in rows.items():
+        print(f"[k8]   {label}: {ms:.4f} ms")
 
 
 def main() -> None:
@@ -92,6 +114,8 @@ def main() -> None:
     for label, ms in sorted(rows.items(), key=lambda r: -r[1]):
         print(f"[step]   {label}: {ms:.2f} ms ({100 * ms / busy:.1f}%), "
               f"{launches[label] / PROFILED:g} launches per step")
+    if args.model == "mamba":
+        k8_stages(device)
 
 
 if __name__ == "__main__":

@@ -28,6 +28,11 @@ from pixel_heal_thyself_tpu_torch.ops.block_cuda import (
     weight_grad_cuda,
     wgrad_plan,
 )
+from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import (
+    fused_mamba_chain_bwd_cuda,
+    fused_mamba_chain_cuda,
+    fused_mamba_chain_emit_cuda,
+)
 
 H100_SMS = 132
 PROD_PIXELS = 8 * 128 * 128
@@ -158,10 +163,14 @@ def test_bodies_need_16_byte_aligned_operands():
 
 
 @pytest.mark.parametrize("fn", [conv3x3_cuda, weight_grad_cuda, pointwise_gemm_cuda,
-                                conv3x3_dgrad_cuda])
+                                conv3x3_dgrad_cuda, fused_mamba_chain_cuda,
+                                fused_mamba_chain_emit_cuda, fused_mamba_chain_bwd_cuda])
 def test_per_body_counters_exist(fn):
+    """K2, K3, K5 and K6 count their Hopper ("sm90") and general bodies; K7,
+    its emit variant and K8 their tensor-core ("tc") and general bodies."""
+    mamba = fn in (fused_mamba_chain_cuda, fused_mamba_chain_emit_cuda, fused_mamba_chain_bwd_cuda)
     assert isinstance(fn.launches, int)
-    assert set(fn.body_launches) == {"sm90", "general"}
+    assert set(fn.body_launches) == {"tc" if mamba else "sm90", "general"}
     assert all(isinstance(v, int) for v in fn.body_launches.values())
 
 

@@ -116,6 +116,8 @@ from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import (
     fused_mamba_chain_bwd_cuda,
     fused_mamba_chain_cuda,
     fused_mamba_chain_emit_cuda,
+    ssd_chain_body,
+    ssd_tc_smem,
 )
 
 pytestmark = pytest.mark.cuda
@@ -600,17 +602,66 @@ def _chain_inputs(rng, dev, dtype, b, l, d_inner, d_state, headdim, k=4):
     )
 
 
+def test_tf32x3_fragment_product(dev):
+    """tf32x3.cuh's fragment product (K7's and K8's tensor-core bodies) on one
+    64×64×64 tile against an f64 product: the 3×TF32 split lands within
+    2**-20 of the largest output, and one tf32 pass, which the split exists
+    to avoid, does not. A fragment-layout mismatch gives wrong numbers here
+    before it gives them in a kernel."""
+    from pixel_heal_thyself_tpu_torch import _build
+
+    rng = np.random.default_rng(11)
+    a, b = rng.standard_normal((64, 64)), rng.standard_normal((64, 64))
+    ref = a.astype(np.float32).astype(np.float64) @ b.astype(np.float32).astype(np.float64)
+    errs = {}
+    for passes in (3, 1):
+        ta, tb = (torch.as_tensor(m, dtype=torch.float32, device=dev) for m in (a, b))
+        d = torch.empty(64, 64, dtype=torch.float32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _build.check(_build.lib().pht_tf32x3_probe(ta.data_ptr(), tb.data_ptr(), d.data_ptr(),
+                                                   passes, stream), "tf32x3 probe")
+        torch.cuda.synchronize()
+        errs[passes] = np.abs(d.cpu().double().numpy() - ref).max() / np.abs(ref).max()
+    assert errs[3] <= 2**-20, errs
+    assert errs[1] > 2**-20, errs
+
+
+@pytest.mark.parametrize("d_state,headdim,chunk", [
+    (64, 64, 128), (16, 32, 128), (32, 32, 32), (48, 16, 96), (64, 64, 64), (8, 128, 128),
+    (32, 8, 16), (128, 64, 128), (64, 128, 128), (64, 64, 48),
+])
+def test_ssd_chain_body_matches_library(dev, d_state, headdim, chunk):
+    """The library's body choice and tensor-core shared memory are what
+    `ssd_chain_body` and `ssd_tc_smem` state."""
+    from pixel_heal_thyself_tpu_torch import _build
+
+    lib = _build.lib()
+    body = "tc" if lib.pht_ssd_chain_body(chunk, d_state, headdim) else "general"
+    assert body == ssd_chain_body(d_state, headdim, chunk)
+    for i, (name, size) in enumerate(ssd_tc_smem(d_state, headdim, chunk).items()):
+        assert lib.pht_ssd_chain_tc_smem(chunk, d_state, headdim, i) == size, name
+
+
+# the prod width at one sequence of 1,024 tokens takes the tensor-core body;
+# so do the first four; d_state 8 and headdim 8 take the general body
+MAMBA_CONFIGS = [(2, 256, 128, 64, 64, 64), (1, 128, 128, 32, 32, 32), (2, 192, 256, 64, 64, 64),
+                 (2, 1024, 128, 16, 32, 128), (1, 512, 256, 8, 128, 128), (1, 256, 128, 32, 8, 16),
+                 (1, 1024, 1024, 64, 64, 128)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("cfg", [(2, 256, 128, 64, 64, 64), (1, 128, 128, 32, 32, 32),
-                                 (2, 192, 256, 64, 64, 64), (2, 1024, 128, 16, 32, 128),
-                                 (1, 512, 256, 8, 128, 128), (1, 256, 128, 32, 8, 16)])
+@pytest.mark.parametrize("cfg", MAMBA_CONFIGS)
 def test_fused_mamba_chain_kernel(dev, dtype, cfg):
     b, l, d_inner, d_state, headdim, chunk = cfg
     args = _chain_inputs(np.random.default_rng(0), dev, dtype, b, l, d_inner, d_state, headdim)
     dims = dict(d_inner=d_inner, d_state=d_state, headdim=headdim, chunk=chunk)
     before = fused_mamba_chain_cuda.launches
+    body = ssd_chain_body(d_state, headdim, chunk)
+    bodies = dict(fused_mamba_chain_cuda.body_launches)
     got = fused_mamba_chain(*args, **dims)
     assert fused_mamba_chain_cuda.launches == before + 1
+    assert fused_mamba_chain_cuda.body_launches[body] == bodies[body] + 1
+    assert torch.equal(got, fused_mamba_chain(*args, **dims))
     ref = fused_mamba_chain_torch(*args, **dims)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (b, l, d_inner)
@@ -662,8 +713,6 @@ def test_mamba_denoiser_kernel_route(dev, dtype):
         _assert_close(got, ref, 3e-2, 4e-3)
 
 
-MAMBA_CONFIGS = [(2, 256, 128, 64, 64, 64), (1, 128, 128, 32, 32, 32), (2, 192, 256, 64, 64, 64),
-                 (2, 1024, 128, 16, 32, 128), (1, 512, 256, 8, 128, 128), (1, 256, 128, 32, 8, 16)]
 MAMBA_BOUNDS = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (8e-3, 1e-4)}
 # conv_w, conv_b, dt_bias, A, D, norm_w
 PARAM_GRAD_BOUNDS = ((1e-4, 1e-5), (1e-4, 1e-5), (1e-4, 1e-4), (1e-4, 1e-4), (1e-4, 1e-4),
@@ -677,8 +726,13 @@ def test_fused_mamba_chain_emit_kernel(dev, dtype, cfg):
     args = _chain_inputs(np.random.default_rng(0), dev, dtype, b, l, d_inner, d_state, headdim)
     dims = dict(d_inner=d_inner, d_state=d_state, headdim=headdim, chunk=chunk)
     before = fused_mamba_chain_emit_cuda.launches
+    body = ssd_chain_body(d_state, headdim, chunk)
+    bodies = dict(fused_mamba_chain_emit_cuda.body_launches)
     got, states = fused_mamba_chain_emit(*args, **dims)
     assert fused_mamba_chain_emit_cuda.launches == before + 1
+    assert fused_mamba_chain_emit_cuda.body_launches[body] == bodies[body] + 1
+    again, states_again = fused_mamba_chain_emit(*args, **dims)
+    assert torch.equal(got, again) and torch.equal(states, states_again)
     ref, ref_states = fused_mamba_chain_torch(*args, **dims, emit=True)
     torch.cuda.synchronize()
     h = d_inner // headdim
@@ -697,8 +751,13 @@ def test_fused_mamba_chain_bwd_kernel(dev, dtype, cfg):
     _, states = fused_mamba_chain_torch(*args, **dims, emit=True)
     dy = _rand(rng, (b, l, d_inner), dev, dtype)
     before = fused_mamba_chain_bwd_cuda.launches
+    body = ssd_chain_body(d_state, headdim, chunk)
+    bodies = dict(fused_mamba_chain_bwd_cuda.body_launches)
     got = fused_mamba_chain_bwd(*args, states, dy, **dims)
     assert fused_mamba_chain_bwd_cuda.launches == before + 1
+    assert fused_mamba_chain_bwd_cuda.body_launches[body] == bodies[body] + 1
+    again = fused_mamba_chain_bwd(*args, states, dy, **dims)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
     ref = fused_mamba_chain_bwd_torch(*args, states, dy, **dims)
     torch.cuda.synchronize()
     assert got[0].dtype == dtype and got[0].shape == args[0].shape
