@@ -13,12 +13,18 @@ exits non-zero. Phases:
    `build/kernels/` (or load the library built from the same sources).
 3. Kernels against their plain PyTorch versions at the prod shapes
    (8 × 128² × 256, 4 heads, halo 3), with TF32 off: attention K1 in bf16
-   and fp32 (and at halo 8, its key-chunked path), the pointwise GEMM K2
+   (its tensor-core body, checked by its body counter, beside its general
+   body and SDPA over pre-gathered windows) and fp32 (the general body),
+   and at halo 8 (the tensor-core body's two passes, the general body's
+   key-chunked path), the pointwise GEMM K2
    (n_aux's two operands; one operand, k = n·Wk; two operands with the
    backward's f32 residual, also equal to the bit across two calls), the
    3×3 conv K3, the whole TransformerBlock forward in the three padding
-   modes; the attention backward K4 (bf16, fp32), the conv input gradient
-   K5 (also equal to the bit across two calls), the weight gradient K6 (9
+   modes; the attention backward K4 (bf16: the tensor-core body, equal to
+   the bit across two calls, its device time per launch, beside the general
+   body and SDPA's autograd backward; fp32: the general body), the conv
+   input gradient K5 (also equal to the bit across two calls), the weight
+   gradient K6 (9
    taps and 1 tap, each also equal to the bit across two calls) and the whole
    block backward in the three padding modes. Prints deviations and
    CUDA-event times of kernel and plain version. (K7's rows run in phase
@@ -28,15 +34,17 @@ exits non-zero. Phases:
    `preprocess_data` and the device tiler (tile 64, margin 32, batch 8),
    the path `inference.run_inference` takes. Checks the outputs, that every
    block of every batch went through K1, K2 and K3 (launch counters), that
-   every K2 and K3 launch took its Hopper body (per-body counters), and
-   frame 0 against the model's plain path on the card.
+   every K1 launch took its tensor-core body and every K2 and K3 launch its
+   Hopper body (per-body counters), and frame 0 against the model's plain
+   path on the card.
 5. Training: the prod GAN step (`training.train_step.make_train_step`,
    WGAN-GP + L1, Adam with the MultiStep schedule) on the prod-width
    AFGSANet in train mode and DiscriminatorVGG(128, 64, bf16), seeded
    random weights, batch 8 of 128² numpy patches: 2 warm-up and 5 timed
    steps. Checks finite losses, that every block of every step ran its
-   backward through K4, K5 and K6 (launch counters), that every K2, K3, K5
-   and K6 launch took its Hopper body (per-body counters), prints patches/s and
+   backward through K4, K5 and K6 (launch counters), that every K1 and K4
+   launch took its tensor-core body and every K2, K3, K5 and K6 launch its
+   Hopper body (per-body counters), prints patches/s and
    peak memory, then one step from identical state (with a float32
    critic, see STEP_LOSS_TOL, and cuDNN's deterministic algorithms)
    through the kernel route and the plain route on the card, beside the
@@ -82,7 +90,8 @@ exits non-zero. Phases:
    the literal route (8 × 128²) with the q/k/v projections folded into
    the attention op against the unfolded model: both run K1 and K4, which
    the counters check on the folded route, so only the projections'
-   rounding differs (FRAME_TOL, STEP_GRAD_TOL).
+   rounding differs (FRAME_TOL, STEP_GRAD_TOL); every K1 and K4 launch of
+   the folded run took its tensor-core body.
 
 Every kernel row states its bound (the least time the card could take:
 the larger of the bytes its function must move over 3.35 TB/s and its
@@ -344,9 +353,10 @@ def read_counts() -> dict:
 
 # the kernels with two bodies → the body every prod-shape launch must take:
 # K2, K3, K5 and K6 the Hopper wgmma body (widths 256), K7, K7e and K8 the
-# tensor-core body (d_state 64, headdim 64, chunk 128)
-PROD_BODIES = {"K2": "sm90", "K3": "sm90", "K5": "sm90", "K6": "sm90", "K7": "tc", "K7e": "tc",
-               "K8": "tc"}
+# tensor-core body (d_state 64, headdim 64, chunk 128), K1 and K4 the
+# tensor-core body (bf16, head_ch 64, block 8)
+PROD_BODIES = {"K1": "tc", "K2": "sm90", "K3": "sm90", "K4": "tc", "K5": "sm90", "K6": "sm90",
+               "K7": "tc", "K7e": "tc", "K8": "tc"}
 
 
 def check_bodies(tag: str, launches: dict) -> None:
@@ -359,6 +369,53 @@ def check_bodies(tag: str, launches: dict) -> None:
         if bodies["general"] or bodies[body] != launches[name]:
             raise AssertionError(f"[{tag}] {name}: {bodies['general']} prod-shape launches "
                                  f"took the general body ({bodies})")
+
+
+def expect_body(name: str, body: str, run):
+    """`run()` with kernel `name`'s counters set to 0 first: every launch it
+    made must have taken `body`. Returns what `run` returns."""
+    fn = counters()[name]
+    fn.launches = 0
+    for key in fn.body_launches:
+        fn.body_launches[key] = 0
+    result = run()
+    bodies = dict(fn.body_launches)
+    log(f"[kernels] {name} launches by body: {bodies} (total {fn.launches})")
+    if not fn.launches or bodies[body] != fn.launches:
+        raise AssertionError(f"{name}: a prod-shape launch took another body than {body} "
+                             f"({bodies})")
+    return result
+
+
+def sdpa_windows(x, bs: int, halo: int, heads: int, keys: bool = False, rel=None):
+    """The library yardstick's operands: [windows, heads, n, head_ch] copies
+    of the query blocks (or, with `keys`, of the key/value windows, k_eff
+    biased and rounded when `rel` = (rel_h, rel_w) is given), gathered once
+    and never timed."""
+    from pixel_heal_thyself_tpu_torch.ops.attention import (
+        blocks_from_image,
+        extract_halo_windows,
+        rel_bias,
+    )
+
+    b, h, w, c = x.shape
+    hd, window = c // heads, bs + 2 * halo
+    if not keys:
+        wins = blocks_from_image(x, bs)
+    else:
+        wins = extract_halo_windows(x, bs, halo)
+        if rel is not None:
+            wins = wins.reshape(*wins.shape[:5], heads, hd).float()
+            wins = (wins + rel_bias(*rel)[:, :, None, :]).to(x.dtype)
+        wins = wins.reshape(b, h // bs, w // bs, window * window, c)
+    n = wins.shape[3]
+    return wins.reshape(-1, n, heads, hd).permute(0, 2, 1, 3).contiguous()
+
+
+# K4's launches by name fragment (first match wins) for its per-launch times
+K4_LAUNCHES = [("attention_bwd_tc", "main (tc body)"), ("attention_bwd_kernel", "main (general)"),
+               ("attention_bwd_gather", "dk/dv gather"), ("attention_bias_reduce", "bias reduce"),
+               ("sum_splits", "bias group sum"), ("reduce", "drel_h/drel_w sums")]
 
 
 def nbytes(*tensors) -> int:
@@ -415,6 +472,7 @@ def phase_kernels(device) -> dict:
         block_halo_attention_torch,
     )
     from pixel_heal_thyself_tpu_torch.ops.attention_cuda import (
+        attention_body_launch,
         block_halo_attention_bwd_cuda,
         block_halo_attention_cuda,
     )
@@ -467,28 +525,49 @@ def phase_kernels(device) -> dict:
     w1k, w2k = oihw(wts["w1"]), oihw(wts["w2"])
 
     res = {}
-    res["K1"] = compare(
-        "K1 attention bf16",
-        lambda: block_halo_attention_cuda(q, k, v, wts["rel_h"], wts["rel_w"], **att),
-        lambda: block_halo_attention_torch(q, k, v, wts["rel_h"], wts["rel_w"], **att),
-        TOL["bf16"], work=(nbytes(q, k, v, wts["rel_h"], wts["rel_w"], q), attn_flops, bf),
+    # the library yardstick of K1 and K4: SDPA (flash) over the windows,
+    # gathered once beforehand with k_eff biased; the gather is not timed
+    rels = (wts["rel_h"], wts["rel_w"])
+    qw = sdpa_windows(q, BS, HALO, HEADS)
+    kw_ = sdpa_windows(k, BS, HALO, HEADS, keys=True, rel=rels)
+    vw = sdpa_windows(v, BS, HALO, HEADS, keys=True)
+    res["K1"] = expect_body("K1", "tc", lambda: compare(
+        "K1 attention bf16 (tc body; library: SDPA on pre-gathered windows, gather untimed)",
+        lambda: block_halo_attention_cuda(q, k, v, *rels, **att),
+        lambda: block_halo_attention_torch(q, k, v, *rels, **att),
+        TOL["bf16"], work=(nbytes(q, k, v, *rels, q), attn_flops, bf),
+        library=lambda: F.scaled_dot_product_attention(qw, kw_, vw),
+    ))
+    compare(
+        "K1 attention bf16, general body",
+        lambda: attention_body_launch("general", q, k, v, *rels, **att),
+        lambda: block_halo_attention_torch(q, k, v, *rels, **att),
+        TOL["bf16"], work=(nbytes(q, k, v, *rels, q), attn_flops, bf),
     )
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    compare(
-        "K1 attention fp32",
-        lambda: block_halo_attention_cuda(qf, kf, vf, wts["rel_h"], wts["rel_w"], **att),
-        lambda: block_halo_attention_torch(qf, kf, vf, wts["rel_h"], wts["rel_w"], **att),
+    expect_body("K1", "general", lambda: compare(
+        "K1 attention fp32 (general body)",
+        lambda: block_halo_attention_cuda(qf, kf, vf, *rels, **att),
+        lambda: block_halo_attention_torch(qf, kf, vf, *rels, **att),
         TOL["fp32"],
-    )
-    # halo 8 at head_ch 64: the one-stage plan exceeds 227 KB in both
-    # dtypes, so K1 walks the keys in chunks
+    ))
+    # halo 8 at head_ch 64: 36 key tiles, which the tensor-core body walks in
+    # two passes; the general body's one-stage plan exceeds 227 KB in both
+    # dtypes, so it walks the keys in chunks
     big = dict(att, halo_size=8)
     rel8 = [rand((BS + 16, c // HEADS // 2), dtype=torch.float32) for _ in range(2)]
+    expect_body("K1", "tc", lambda: compare(
+        "K1 attention bf16 halo 8 (tc body, two passes)",
+        lambda: block_halo_attention_cuda(q, k, v, *rel8, **big),
+        lambda: block_halo_attention_torch(q, k, v, *rel8, **big),
+        TOL["bf16"], iters=3, plain_iters=1,
+    ))
     for dt, tol, (qq, kk, vv) in (("bf16", TOL["bf16"], (q, k, v)),
                                   ("fp32", TOL["fp32"], (qf, kf, vf))):
         compare(
-            f"K1 attention {dt} halo 8 (key-chunked)",
-            lambda qq=qq, kk=kk, vv=vv: block_halo_attention_cuda(qq, kk, vv, *rel8, **big),
+            f"K1 attention {dt} halo 8 (general body, key-chunked)",
+            lambda qq=qq, kk=kk, vv=vv: attention_body_launch("general", qq, kk, vv, *rel8,
+                                                              **big),
             lambda qq=qq, kk=kk, vv=vv: block_halo_attention_torch(qq, kk, vv, *rel8, **big),
             tol, iters=3, plain_iters=1,
         )
@@ -538,20 +617,40 @@ def phase_kernels(device) -> dict:
         )
     # ---- backward kernels -------------------------------------------------
     ab = (wts["rel_h"], wts["rel_w"])
-    res["K4"] = compare(
-        "K4 attention backward bf16 (dq, dk, dv, drel_h, drel_w)",
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qw, kw_, vw))
+    og = F.scaled_dot_product_attention(qg, kg, vg)
+    dow = sdpa_windows(do, BS, HALO, HEADS)
+    k4_work = (nbytes(q, k, v, do, *ab) + nbytes(q, k, v, *ab), attn_flops * 5 // 2, bf)
+    res["K4"] = expect_body("K4", "tc", lambda: compare(
+        "K4 attention backward bf16 (dq, dk, dv, drel_h, drel_w; tc body; library: SDPA's "
+        "backward on pre-gathered windows, gather untimed)",
         lambda: block_halo_attention_bwd_cuda(q, k, v, *ab, do, **att),
         lambda: block_halo_attention_bwd_torch(q, k, v, *ab, do, **att),
         TOL["bf16"], iters=5, plain_iters=2,
         # five window products: logits, dP, dV, dQ, dK
-        work=(nbytes(q, k, v, do, *ab) + nbytes(q, k, v, *ab), attn_flops * 5 // 2, bf),
-    )
+        work=k4_work,
+        library=lambda: torch.autograd.grad(og, (qg, kg, vg), dow, retain_graph=True),
+    ))
+    del qg, kg, vg, og, dow, qw, kw_, vw
+    expect_body("K4", "tc", lambda: assert_deterministic(
+        "K4 attention backward bf16 (tc body)",
+        lambda: block_halo_attention_bwd_cuda(q, k, v, *ab, do, **att)))
+    log_per_launch("K4 attention backward bf16 (tc body)",
+                   lambda: block_halo_attention_bwd_cuda(q, k, v, *ab, do, **att), K4_LAUNCHES)
     compare(
-        "K4 attention backward fp32",
+        "K4 attention backward bf16, general body",
+        lambda: attention_body_launch("general", q, k, v, *ab, do, **att),
+        lambda: block_halo_attention_bwd_torch(q, k, v, *ab, do, **att),
+        TOL["bf16"], iters=5, plain_iters=2, work=k4_work,
+    )
+    log_per_launch("K4 attention backward bf16 (general body)",
+                   lambda: attention_body_launch("general", q, k, v, *ab, do, **att), K4_LAUNCHES)
+    expect_body("K4", "general", lambda: compare(
+        "K4 attention backward fp32 (general body)",
         lambda: block_halo_attention_bwd_cuda(qf, kf, vf, *ab, dof, **att),
         lambda: block_halo_attention_bwd_torch(qf, kf, vf, *ab, dof, **att),
         TOL["fp32"], iters=5, plain_iters=2,
-    )
+    ))
     dg = (do, a, wts["w2"], "replicate", x)
     res["K5"] = compare(
         "K5 conv3x3 input gradient (replicate, ReLU mask, residual)",
@@ -699,11 +798,12 @@ def mamba_inputs(device) -> tuple:
     return zx, params, dict(d_inner=di, d_state=n, headdim=p, chunk=q)
 
 
-def log_per_launch(name: str, run) -> None:
-    """A kernel's device time per call by launch (torch.profiler)."""
-    from pixel_heal_thyself_tpu_torch.profile_serving import per_launch
+def log_per_launch(name: str, run, groups=None) -> None:
+    """A kernel's device time per call by launch (torch.profiler), labelled
+    by `groups` (default: the profile tools' GROUPS)."""
+    from pixel_heal_thyself_tpu_torch.profile_serving import GROUPS, per_launch
 
-    rows = per_launch(run)
+    rows = per_launch(run, groups=groups or GROUPS)
     log(f"[kernels] {name} per launch: total {sum(rows.values()):.4f} ms; "
         + ", ".join(f"{label} {ms:.4f}" for label, ms in rows.items()))
 
@@ -1318,6 +1418,7 @@ def phase_fold_qkv(device) -> dict:
         out_f, grads_f = fwd_bwd(folded)
         torch.cuda.synchronize()
         launches = read_counts()
+        check_bodies("fold-qkv", launches)
         out_u, grads_u = fwd_bwd(plain)
     for name in ("K1", "K4"):
         if launches[name] < kwargs["num_sa"]:

@@ -50,6 +50,11 @@ _SIGNATURES = {
     # q, k, v, rel_h, rel_w, do, dq, dk, dv, dk_part, dv_part, bias_part,
     # bias_group, B, H, W, C, bs, halo, heads, is_bf16, scale, stream
     "pht_attention_bwd": [_P] * 12 + [_I] * 9 + [_F, _P],
+    # the same (K1's and K4's tensor-core bodies)
+    "pht_attention_fwd_tc": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "pht_attention_bwd_tc": [_P] * 12 + [_I] * 9 + [_F, _P],
+    # which (0 K1, 1 K4), bs, halo, head_ch: a tensor-core CTA's shared memory
+    "pht_attention_tc_smem": [_I] * 4,
     # a1, w1, k1, a2, w2, k2, bias, relu, pre_residual, out, M, N, stream
     "pht_pointwise_gemm": [_P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P],
     # the same (K2's Hopper body)

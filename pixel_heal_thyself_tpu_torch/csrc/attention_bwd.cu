@@ -23,9 +23,9 @@
 //
 // Hopper has no sequential grid to carry image accumulators in, and the
 // reductions here are made deterministic without float atomics:
-//   1. `attention_bwd_kernel`: one CTA per (window, head) writes dq
-//      straight to the image (queries do not overlap) and its f32 dk_w/dv_w
-//      to per-window partial buffers [windows, nk, C];
+//   1. the main kernel: one CTA per (window, head) writes dq straight to
+//      the image (queries do not overlap) and its f32 dk_w/dv_w to
+//      per-window partial buffers [windows, nk, C];
 //   2. `attention_bwd_gather_kernel`: each key pixel sums the partials of
 //      the windows that hold it, in a fixed order, and rounds once (the TPU
 //      kernel adds bf16-rounded window gradients in bf16; the port's plain
@@ -34,16 +34,44 @@
 //      the heads, and `pht_sum_splits` (block_bwd.cu) sums the groups.
 // A rerun on the card gives the same bits.
 //
-// What bounds it on the H100: like K1, shared-memory bandwidth of scalar
-// f32 FMAs (five window products per CTA instead of two), plus the
-// partials' HBM traffic (2 x 411 MB written and read once at prod, about
-// 0.5 ms at 3.35 TB/s). Each CTA stages q, do, k_eff and v (rows padded to
-// an odd word stride so a warp walking keys hits distinct banks), the f32
-// probabilities and dattn/dl for all keys (bf16 halo 3: 186 KB, one CTA
-// per SM). When that plan does not fit (fp32, or large halos), the keys
-// are walked in chunks in three passes (row max/sum, the row sums of
-// dattn * P, then the gradients), recomputing each chunk's logits.
+// Two main kernels. The tensor-core body (`attention_bwd_tc_kernel`, bf16,
+// head_ch a multiple of 16 up to 64, block 4 or 8; the prod shape) is what
+// the H100 runs. Its five window products (q.k_eff^T, do.v^T, dl.k_eff,
+// dl^T.q, round(P)^T.do) are 5 x 64 x 196 x 64 multiply-adds a (window,
+// head), bf16 operands exact in f32: 0.07 ms of the card's tensor-core rate
+// over the 8,192 items of a prod call. With them on tensor cores, what
+// bounds K4 is the partials' traffic (2 x 411 MB written here, read by the
+// gather, and dk_w a third time by the bias reduce: about 0.6 ms of HBM
+// against a 0.14 ms bound for the call; the gather reads them 16 bytes a
+// thread) and, in the main kernel, latency at two CTAs an SM (255
+// registers, 97 KB of shared memory at halo 3). The design: one CTA per
+// (window, head), 4 warps of 16 query rows; q, do and v arrive by cp.async
+// in row-skewed shared memory, k_eff through registers (the bias added and
+// rounded on the way; for K4 faster than K1's cp.async and in-place pass,
+// PERF.md). Each product is mma.sync m16n8k16 fed by ldmatrix. A warp keeps
+// its rows' probabilities P in registers (16 x 208 f32 at halo 3): row max
+// and sum by quad shuffles, then D = sum_j dattn * P from dattn tiles
+// against the unrounded P, then per key tile dattn again, dl and round(P)
+// packed to bf16 fragments; dl feeds dq = dl.k_eff straight from
+// registers, and both go to shared memory in sub-chunks of 4 key tiles,
+// where after a barrier each warp takes one key tile of dk_w = dl^T.q and
+// dv_w = round(P)^T.do (ldmatrix .trans of the [query][key] tiles) and
+// stores its f32 partial rows. No f32 P or dattn tile is ever in shared
+// memory. Key-tile counts other than 3, 4, 7, 9, 13 and 16 (halo >= 5 at
+// block 8) take the same body in three passes over the key tiles (row max
+// and sum online, D, the gradients), recomputing the logits and dattn.
+// fp32 takes the general body (K1's header says why).
+//
+// The general body (`attention_bwd_kernel`: fp32, and shapes the
+// tensor-core body does not take) runs the five products as scalar f32
+// FMAs from shared memory: q, do, k_eff and v staged (rows padded to an
+// odd word stride), the f32 probabilities and dattn/dl for all keys (bf16
+// halo 3: 186 KB, one CTA per SM). When that plan does not fit (fp32, or
+// large halos), the keys are walked in chunks in three passes (row max/sum,
+// the row sums of dattn * P, then the gradients), recomputing each chunk's
+// logits. Only f32 summation order differs between the bodies.
 
+#include "attention_tc.cuh"
 #include "common.cuh"
 
 namespace {
@@ -287,21 +315,263 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_kernel(
   }
 }
 
+
+// ---- the tensor-core body -------------------------------------------------
+
+// acc[n][i] = 0
+__device__ __forceinline__ void zero(float (&acc)[attn::kMaxHead / 8][4]) {
+#pragma unroll
+  for (int n = 0; n < attn::kMaxHead / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+}
+
+// the f32 partial rows of key tile t (keys < nk) of this window and head:
+// part[win][key][c0 + d] = acc * mul
+__device__ __forceinline__ void store_partial(const attn::Win& g,
+                                              const float (&acc)[attn::kMaxHead / 8][4],
+                                              float mul, int t, float* part) {
+  const int lane = threadIdx.x & 31;
+  const int key = 16 * t + (lane >> 2), col = g.c0 + 2 * (lane & 3);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (key + 8 * h >= g.nk) continue;
+    float* row = part + ((size_t)g.win * g.nk + key + 8 * h) * g.C + col;
+#pragma unroll
+    for (int n = 0; n < attn::kMaxHead / 8; ++n)
+      if (n < g.hd / 8)
+        *reinterpret_cast<float2*>(row + 8 * n) =
+            make_float2(acc[n][2 * h] * mul, acc[n][2 * h + 1] * mul);
+  }
+}
+
+// NT > 0: the window's NT key tiles, each warp's probabilities held in
+// registers; NT == 0: any count, three passes over the key tiles
+template <int NT>
+__global__ void __launch_bounds__(128, 2) attention_bwd_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ rel_h, const float* __restrict__ rel_w,
+    const bf16* __restrict__ dout, bf16* __restrict__ dq, float* __restrict__ dk_part,
+    float* __restrict__ dv_part, int H, int W, int C, int bs, int halo, int heads,
+    float scale) {
+  constexpr int kH8 = attn::kMaxHead / 8;
+  const attn::Win g = attn::win_geom(H, W, C, bs, halo, heads);
+  const int lds = attn::kSub * 16 + attn::kSkew;  // row stride of the dl / round(P) tiles
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* s_q = reinterpret_cast<bf16*>(smem);      // [nq][ld]
+  bf16* s_do = s_q + (size_t)g.nq * g.ld;          // [nq][ld]
+  bf16* s_k = s_do + (size_t)g.nq * g.ld;          // [16 nt][ld] k, then k_eff
+  bf16* s_v = s_k + (size_t)16 * g.nt * g.ld;      // [16 nt][ld]
+  bf16* s_dl = s_v + (size_t)16 * g.nt * g.ld;     // [nq][lds] dl, kSub key tiles
+  bf16* s_pr = s_dl + (size_t)g.nq * lds;          // [nq][lds] round(P)
+  attn::stage_queries(g, q, s_q);
+  attn::stage_queries(g, dout, s_do);
+#if PHT_ATTN_DIAG != 3  // k through registers: the faster for K4
+  attn::stage_keys(g, k, v, rel_h, rel_w, s_k, s_v);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+#else
+  attn::stage_keys_async(g, k, v, s_k, s_v);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+  attn::add_bias(g, rel_h, rel_w, s_k);
+#endif
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  const int hk = g.hd / 16, r0 = 16 * warp;
+  const int row = r0 + (lane >> 2), col = 2 * (lane & 3);
+  uint32_t qa[attn::kMaxHead / 16][4], da[attn::kMaxHead / 16][4];
+  attn::load_rows(qa, s_q, g.ld, r0, hk);
+  attn::load_rows(da, s_do, g.ld, r0, hk);
+  // row statistics and D of rows g (index 0) and g + 8 (index 1)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dsum[2] = {0.f, 0.f};
+  float dqa[kH8][4];
+  zero(dqa);
+
+  // P of key tile t from its logits and the final statistics
+  auto probs = [&](int t, float (&p)[8]) {
+    attn::logits(qa, s_k, g, t, scale, p);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) p[i] = expf(p[i] - m[(i >> 1) & 1]) / l[(i >> 1) & 1];
+  };
+  // D += sum over key tile t of dattn * P
+  auto add_d = [&](int t, const float (&p)[8]) {
+    float da_t[8];
+    attn::rows_dot_keys(da, s_v, g.ld, t, hk, da_t);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dsum[(i >> 1) & 1] += da_t[i] * p[i];
+  };
+  // key tile t of sub-chunk sc: dl = round(P (dattn - D)) and round(P) into
+  // the shared tiles, dq += dl . k_eff
+  auto grads = [&](int t, int sc, const float (&p)[8]) {
+    float dl[8];
+    attn::rows_dot_keys(da, s_v, g.ld, t, hk, dl);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dl[i] = p[i] * (dl[i] - dsum[(i >> 1) & 1]);
+    uint32_t dla[4], pra[4];
+    attn::pack_tile(dl, dla);
+    attn::pack_tile(p, pra);
+    const int c = 16 * (t - sc) + col;
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {  // (row, c), (row + 8, c), (row, c + 8), (row + 8, c + 8)
+      const size_t o = (size_t)(row + 8 * (f & 1)) * lds + c + 8 * (f >> 1);
+      *reinterpret_cast<uint32_t*>(s_dl + o) = dla[f];
+      *reinterpret_cast<uint32_t*>(s_pr + o) = pra[f];
+    }
+    attn::times_rows(dla, s_k, g.ld, t, hk, dqa);
+  };
+  // after a barrier: each warp's key tiles of sub-chunk sc, dk_w = dl^T.q
+  // * scale and dv_w = round(P)^T.do (the [query][key] tiles read by
+  // ldmatrix .trans), to the partials
+  auto key_grads = [&](int sc) {
+    const int n = min(attn::kSub, g.nt - sc);
+    for (int tt = warp; tt < n; tt += nwarps) {
+      float acc[kH8][4];
+#pragma unroll
+      for (int which = 0; which < 2; ++which) {
+        const bf16* a = which ? s_pr : s_dl;
+        zero(acc);
+#pragma unroll
+        for (int kq = 0; kq < 4; ++kq) {  // 16 queries a step
+          if (16 * kq >= g.nq) break;
+          uint32_t at[4];
+          attn::ldsm_x4_t(at, a + (size_t)(16 * kq + (lane & 7) + (lane >> 4) * 8) * lds +
+                                  16 * tt + ((lane >> 3) & 1) * 8);
+          attn::times_rows(at, which ? s_do : s_q, g.ld, kq, hk, acc);
+        }
+        store_partial(g, acc, which ? 1.f : scale, sc + tt, which ? dv_part : dk_part);
+      }
+    }
+  };
+
+  if constexpr (NT > 0) {
+    float p[NT][8];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      attn::logits(qa, s_k, g, t, scale, p[t]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], p[t][i]);
+    }
+    m[0] = attn::quad_max(m[0]);
+    m[1] = attn::quad_max(m[1]);
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        p[t][i] = expf(p[t][i] - m[(i >> 1) & 1]);
+        l[(i >> 1) & 1] += p[t][i];
+      }
+    l[0] = attn::quad_sum(l[0]);
+    l[1] = attn::quad_sum(l[1]);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) p[t][i] /= l[(i >> 1) & 1];
+      add_d(t, p[t]);
+    }
+    dsum[0] = attn::quad_sum(dsum[0]);
+    dsum[1] = attn::quad_sum(dsum[1]);
+#pragma unroll
+    for (int sc = 0; sc < NT; sc += attn::kSub) {
+#pragma unroll
+      for (int t = sc; t < sc + attn::kSub && t < NT; ++t) grads(t, sc, p[t]);
+      __syncthreads();
+      key_grads(sc);
+      __syncthreads();
+    }
+  } else {
+#pragma unroll 1
+    for (int t = 0; t < g.nt; ++t) {
+      float s[8];
+      attn::logits(qa, s_k, g, t, scale, s);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mt = fmaxf(fmaxf(s[2 * r], s[2 * r + 1]), fmaxf(s[4 + 2 * r], s[5 + 2 * r]));
+        const float mn = fmaxf(m[r], mt);
+        l[r] = l[r] * expf(m[r] - mn) + expf(s[2 * r] - mn) + expf(s[2 * r + 1] - mn) +
+               expf(s[4 + 2 * r] - mn) + expf(s[5 + 2 * r] - mn);
+        m[r] = mn;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mq = attn::quad_max(m[r]);
+      l[r] = attn::quad_sum(l[r] * expf(m[r] - mq));
+      m[r] = mq;
+    }
+#pragma unroll 1
+    for (int t = 0; t < g.nt; ++t) {
+      float p[8];
+      probs(t, p);
+      add_d(t, p);
+    }
+    dsum[0] = attn::quad_sum(dsum[0]);
+    dsum[1] = attn::quad_sum(dsum[1]);
+#pragma unroll 1
+    for (int sc = 0; sc < g.nt; sc += attn::kSub) {
+#pragma unroll 1
+      for (int t = sc; t < sc + attn::kSub && t < g.nt; ++t) {
+        float p[8];
+        probs(t, p);
+        grads(t, sc, p);
+      }
+      __syncthreads();
+      key_grads(sc);
+      __syncthreads();
+    }
+  }
+  attn::store_rows(g, dqa, scale, s_q, nullptr, dq);
+}
+
+template <int NT>
+int launch_tc_main(const bf16* q, const bf16* k, const bf16* v, const float* rel_h,
+                   const float* rel_w, const bf16* dout, bf16* dq, float* dk_part,
+                   float* dv_part, int nwin, int H, int W, int C, int bs, int halo, int heads,
+                   float scale, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_tc_kernel<NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_tc_kernel<NT><<<dim3((unsigned)nwin, (unsigned)heads), 2 * bs * bs, smem,
+                                stream>>>(q, k, v, rel_h, rel_w, dout, dq, dk_part, dv_part, H,
+                                          W, C, bs, halo, heads, scale);
+  return (int)cudaGetLastError();
+}
+
+// dst[0..V) = round(x)
+template <typename T, int V>
+__device__ __forceinline__ void store_rounded(T* dst, const float (&x)[V]) {
+  if constexpr (V == 4 && sizeof(T) == 2) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
+    *reinterpret_cast<uint2*>(dst) = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                                *reinterpret_cast<const uint32_t*>(&hi));
+  } else if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) dst[e] = from_f32<T>(x[e]);
+  }
+}
+
 // dk/dv[b, y, x, c] = round(sum over the windows holding (y, x) of the
-// partials), windows in raster order
-template <typename T>
+// partials), windows in raster order; V channels a thread (4 when C allows:
+// 16-byte loads of the partials)
+template <typename T, int V>
 __global__ void attention_bwd_gather_kernel(const float* __restrict__ dk_part,
                                             const float* __restrict__ dv_part,
                                             T* __restrict__ dk, T* __restrict__ dv, int B,
                                             int H, int W, int C, int bs, int halo) {
-  const int64_t total = (int64_t)B * H * W * C;
+  const int cv = C / V;
+  const int64_t total = (int64_t)B * H * W * cv;
   const int window = bs + 2 * halo;
   const int nk = window * window;
   const int wb = W / bs, hb = H / bs;
   for (int64_t idx = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; idx < total;
        idx += (int64_t)gridDim.x * blockDim.x) {
-    const int c = (int)(idx % C);
-    int64_t pix = idx / C;
+    const int c = (int)(idx % cv) * V;
+    int64_t pix = idx / cv;
     const int x = (int)(pix % W);
     pix /= W;
     const int y = (int)(pix % H);
@@ -309,7 +579,9 @@ __global__ void attention_bwd_gather_kernel(const float* __restrict__ dk_part,
     // windows by with by*bs - halo <= y < by*bs + bs + halo
     const int by_lo = max(0, (y - bs - halo + bs) / bs), by_hi = min(hb - 1, (y + halo) / bs);
     const int bx_lo = max(0, (x - bs - halo + bs) / bs), bx_hi = min(wb - 1, (x + halo) / bs);
-    float sk = 0.f, sv = 0.f;
+    float sk[V], sv[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) sk[e] = sv[e] = 0.f;
     for (int by = by_lo; by <= by_hi; ++by) {
       const int wy = y - by * bs + halo;
       if (wy < 0 || wy >= window) continue;
@@ -317,12 +589,22 @@ __global__ void attention_bwd_gather_kernel(const float* __restrict__ dk_part,
         const int wx = x - bx * bs + halo;
         if (wx < 0 || wx >= window) continue;
         const size_t off = (((size_t)(b * hb + by) * wb + bx) * nk + wy * window + wx) * C + c;
-        sk += dk_part[off];
-        sv += dv_part[off];
+        if constexpr (V == 4) {
+          const float4 k4 = __ldg(reinterpret_cast<const float4*>(dk_part + off));
+          const float4 v4 = __ldg(reinterpret_cast<const float4*>(dv_part + off));
+          sk[0] += k4.x; sk[1] += k4.y; sk[2] += k4.z; sk[3] += k4.w;
+          sv[0] += v4.x; sv[1] += v4.y; sv[2] += v4.z; sv[3] += v4.w;
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            sk[e] += dk_part[off + e];
+            sv[e] += dv_part[off + e];
+          }
+        }
       }
     }
-    dk[idx] = from_f32<T>(sk);
-    dv[idx] = from_f32<T>(sv);
+    store_rounded<T, V>(dk + idx * V, sk);
+    store_rounded<T, V>(dv + idx * V, sv);
   }
 }
 
@@ -343,6 +625,31 @@ __global__ void attention_bias_reduce_kernel(const float* __restrict__ dk_part,
     for (int h = 0; h < heads; ++h) s += src[h * hd];
   }
   part[(size_t)g * nk * hd + t] = s;
+}
+
+// the gather of dk/dv and the first level of the bias reduction (both bodies)
+template <typename T>
+int reduce_partials(const float* dk_part, const float* dv_part, float* bias_part,
+                    int bias_group, void* dk, void* dv, int B, int H, int W, int C, int bs,
+                    int halo, int heads, cudaStream_t stream) {
+  const int nk = (bs + 2 * halo) * (bs + 2 * halo), hd = C / heads;
+  const int nwin = B * (H / bs) * (W / bs);
+  const int vec = C % 4 == 0 ? 4 : 1;
+  const int64_t total = (int64_t)B * H * W * C / vec;
+  const int gblocks = (int)std::min<int64_t>((total + 255) / 256, 132 * 64);
+  if (vec == 4)
+    attention_bwd_gather_kernel<T, 4><<<gblocks, 256, 0, stream>>>(
+        dk_part, dv_part, static_cast<T*>(dk), static_cast<T*>(dv), B, H, W, C, bs, halo);
+  else
+    attention_bwd_gather_kernel<T, 1><<<gblocks, 256, 0, stream>>>(
+        dk_part, dv_part, static_cast<T*>(dk), static_cast<T*>(dv), B, H, W, C, bs, halo);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int ngroups = (nwin + bias_group - 1) / bias_group;
+  attention_bias_reduce_kernel<<<dim3((unsigned)((nk * hd + 255) / 256), (unsigned)ngroups),
+                                 256, 0, stream>>>(dk_part, bias_part, nwin, nk, C, heads,
+                                                   bias_group);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -367,18 +674,8 @@ int launch(const void* q, const void* k, const void* v, const float* rel_h,
       rel_w, static_cast<const T*>(dout), static_cast<T*>(dq), dk_part, dv_part, H, W, C,
       bs, halo, heads, scale, kc);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const int64_t total = (int64_t)B * H * W * C;
-  const int gblocks = (int)std::min<int64_t>((total + 255) / 256, 132 * 64);
-  attention_bwd_gather_kernel<T><<<gblocks, 256, 0, stream>>>(
-      dk_part, dv_part, static_cast<T*>(dk), static_cast<T*>(dv), B, H, W, C, bs, halo);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const int ngroups = (nwin + bias_group - 1) / bias_group;
-  attention_bias_reduce_kernel<<<dim3((unsigned)((nk * hd + 255) / 256), (unsigned)ngroups),
-                                 256, 0, stream>>>(dk_part, bias_part, nwin, nk, C, heads,
-                                                   bias_group);
-  return (int)cudaGetLastError();
+  return reduce_partials<T>(dk_part, dv_part, bias_part, bias_group, dk, dv, B, H, W, C, bs,
+                            halo, heads, stream);
 }
 
 }  // namespace
@@ -403,6 +700,51 @@ int pht_attention_bwd(const void* q, const void* k, const void* v, const void* r
                         bs, halo, heads, scale, s);
   return launch<float>(q, k, v, rh, rw, dout, dq, dk, dv, kp, vp, bp, bias_group, B, H, W, C,
                        bs, halo, heads, scale, s);
+}
+
+// The tensor-core body (bf16 only): the same arguments as pht_attention_bwd.
+// Refuses (cudaErrorInvalidValue, before any launch) a dtype, shape,
+// alignment or shared memory the body does not take.
+int pht_attention_bwd_tc(const void* q, const void* k, const void* v, const void* rel_h,
+                         const void* rel_w, const void* dout, void* dq, void* dk, void* dv,
+                         void* dk_part, void* dv_part, void* bias_part, int bias_group, int B,
+                         int H, int W, int C, int bs, int halo, int heads, int is_bf16,
+                         float scale, void* stream) {
+  const int hd = C / heads;
+  if (!is_bf16 || !attn::admits(bs, hd, C)) return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k, v, rel_h, rel_w, dout, static_cast<const void*>(dq)})
+    if (!aligned16(p)) return (int)cudaErrorInvalidValue;
+  const size_t smem = attn::bwd_smem(bs, halo, hd);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const float* rh = static_cast<const float*>(rel_h);
+  const float* rw = static_cast<const float*>(rel_w);
+  const bf16* dot = static_cast<const bf16*>(dout);
+  bf16* dqt = static_cast<bf16*>(dq);
+  float* kp = static_cast<float*>(dk_part);
+  float* vp = static_cast<float*>(dv_part);
+  const int nwin = B * (H / bs) * (W / bs);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
+#define PHT_BWD_TC(NT)                                                                     \
+  launch_tc_main<NT>(qt, kt, vt, rh, rw, dot, dqt, kp, vp, nwin, H, W, C, bs, halo, heads, \
+                     scale, smem, s)
+  const int nt = attn::key_tiles(bs, halo);
+  switch (attn::resident_tiles(nt) ? nt : 0) {
+    case 3: err = PHT_BWD_TC(3); break;
+    case 4: err = PHT_BWD_TC(4); break;
+    case 7: err = PHT_BWD_TC(7); break;
+    case 9: err = PHT_BWD_TC(9); break;
+    case 13: err = PHT_BWD_TC(13); break;
+    case 16: err = PHT_BWD_TC(16); break;
+    default: err = PHT_BWD_TC(0); break;
+  }
+#undef PHT_BWD_TC
+  if (err != 0) return err;
+  return reduce_partials<bf16>(kp, vp, static_cast<float*>(bias_part), bias_group, dk, dv, B,
+                               H, W, C, bs, halo, heads, s);
 }
 
 }  // extern "C"

@@ -2,9 +2,9 @@
 //
 // Replaces the TPU kernel `_fwd_kernel` in
 // pixel_heal_thyself_tpu/ops/attention_pallas.py:217 (launched by
-// `_attention_fwd`, :325) and the attention stage `_attention_block_row`
-// that the whole-block kernel pixel_heal_thyself_tpu/ops/block_mega.py:285
-// embeds verbatim.
+// `_attention_fwd`, :325, pallas_call :347) and the attention stage
+// `_attention_block_row` that the whole-block kernel
+// pixel_heal_thyself_tpu/ops/block_mega.py:285 embeds verbatim.
 //
 // What it computes, per (batch, block-row, block-col, head): the bs x bs
 // query block attends to the (bs + 2 halo)^2 key/value window centred on it.
@@ -17,32 +17,51 @@
 //   out = round_T(residual + out)            when a residual is given
 // A key or value outside the frame is a ZERO vector that still gets the
 // rel bias and takes part in the softmax; nothing is masked. T is bf16 or
-// f32; every product is a true f32 FMA (no TF32).
+// f32; every product is exact in f32 and summed in f32 (no TF32).
 //
 // Layout: q, k, v, residual, out are unpadded NHWC [B, H, W, C], head h
 // owning channels [h*hd, (h+1)*hd). The TPU kernel's W-halo-padded layout
 // existed only for sublane alignment and is not needed here.
 //
-// What bounds it on the H100: shared-memory bandwidth. Each CTA stages its
-// q block, its key window (transposed, bias folded in) and its value
-// window in shared memory (bf16 at prod: 8 + 25 + 25 KB) plus the f32
-// logits (64 x 196 = 50 KB), 106 KB in all, so two CTAs fit an SM. Global
-// traffic is small: a window is re-read by its neighbours from L2. The two
-// products run as scalar FMAs from shared memory, register-blocked over 8
-// query rows so each key/value element read from shared memory feeds 8
-// FMAs. Tensor cores (mma.sync / wgmma) are left for a later optimisation.
+// Two bodies. The tensor-core body (`attention_fwd_tc_kernel`, bf16, head_ch
+// a multiple of 16 up to 64, block 4 or 8; the prod shape) is what the
+// H100 runs. At the prod shape a (window, head) does 2 x 64 x 196 x 64
+// multiply-adds against 58 KB of bf16 operands, most of them re-read from
+// L2 by the neighbouring windows: 0.03 ms of the card's bf16 tensor-core
+// rate over 8,192 items, under the 0.08 ms that the call's bytes take. What
+// bounds it is latency: each CTA stages its window, then runs a chain of
+// dependent mma.sync, shuffles, exps and divisions, with only the other
+// CTAs on its SM to hide either. The design keeps that chain short and the
+// SM full: one CTA per (window, head), 4 warps of 16 query rows; q, k and v
+// arrive by cp.async into row-skewed shared memory (69 KB at halo 3) and
+// one pass adds the bias to k in place (faster than loading k through
+// registers, PERF.md); q.k_eff^T runs on mma.sync m16n8k16 into
+// registers (16 x 208 f32, 104 a thread at halo 3), the softmax on those
+// registers with quad shuffles, and the rounded probabilities are packed in
+// place into the A fragments of P.v; the output leaves through the warp's
+// own shared rows in 16-byte stores, the residual added there. Registers
+// are budgeted for three CTAs an SM (168; 255 for two ran 35% slower, no
+// spills either way). Key-tile counts other than 3, 4, 7, 9, 13 and 16
+// (halo >= 5 at block 8) take the same body in two passes over the key
+// tiles: the exact row max and sum (online over tiles), then the logits
+// again, the probabilities rounded from the final statistics, and P.v. (An
+// online rescale of rounded probabilities would not be the same function.)
+// fp32 takes the general body: a 3xTF32 tensor-core body ran no faster at
+// 1 CTA an SM (130 KB of f32 rows) and its deviations, though within the
+// fp32 kernel bounds, moved the fp32 training step past its bound.
 //
-// Windows whose one-stage plan exceeds 227 KB (bf16 halo >= 7 or fp32
-// halo >= 5 at head_ch 64) take the key-chunked two-pass kernel: pass 1
-// walks the key chunks for the row max and sum (online), pass 2 recomputes
-// each chunk's logits, normalises and rounds the probabilities as above
-// and accumulates p . v in f32 in shared memory. Only f32 summation order
-// differs from the one-stage kernel. The two stay separate kernels: one
-// templated kernel serving both plans (as K4 does) computed the same bits
-// but, in five variants, ran the one-stage plan (the serving path) 6-24%
-// slower in bf16 on an H100 at 700 W: nvcc scheduled the shared body
-// differently (48-64 registers, some variants spilling).
+// The general body (the two scalar-FMA kernels below: fp32, and shapes the
+// tensor-core body does not take) stages the key window transposed and the
+// f32 logits (64 x 196 = 50 KB) in shared memory and runs both products as
+// scalar FMAs register-blocked over 8 query rows. Windows whose one-stage
+// plan exceeds 227 KB (bf16 halo >= 7 or fp32 halo >= 5 at head_ch 64)
+// take its key-chunked two-pass kernel: pass 1 walks the key chunks for the
+// row max and sum (online), pass 2 recomputes each chunk's logits,
+// normalises and rounds the probabilities as above and accumulates p . v
+// in f32 in shared memory. Only f32 summation order differs between the
+// plans and the bodies.
 
+#include "attention_tc.cuh"
 #include "common.cuh"
 
 namespace {
@@ -307,6 +326,121 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_chunked_kernel(
   }
 }
 
+
+// ---- the tensor-core body -------------------------------------------------
+
+// NT > 0: the window's NT key tiles, their logits held in registers;
+// NT == 0: any count, two passes over the key tiles
+template <int NT>
+__global__ void __launch_bounds__(128, PHT_ATTN_FWD_CTAS) attention_fwd_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ rel_h, const float* __restrict__ rel_w,
+    const bf16* __restrict__ res, bf16* __restrict__ out, int H, int W, int C, int bs,
+    int halo, int heads, float scale) {
+  const attn::Win g = attn::win_geom(H, W, C, bs, halo, heads);
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* s_q = reinterpret_cast<bf16*>(smem);        // [nq][ld]
+  bf16* s_k = s_q + (size_t)g.nq * g.ld;             // [16 nt][ld] k, then k_eff
+  bf16* s_v = s_k + (size_t)16 * g.nt * g.ld;        // [16 nt][ld]
+  attn::stage_queries(g, q, s_q);
+#if PHT_ATTN_DIAG != 3  // k by cp.async and a pass in place: the faster for K1
+  attn::stage_keys_async(g, k, v, s_k, s_v);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+  attn::add_bias(g, rel_h, rel_w, s_k);
+#else
+  attn::stage_keys(g, k, v, rel_h, rel_w, s_k, s_v);
+  sm90::cp_async_commit();
+  sm90::cp_async_wait<0>();
+#endif
+  __syncthreads();
+
+  uint32_t qa[attn::kMaxHead / 16][4];
+  const int hk = g.hd / 16;
+  attn::load_rows(qa, s_q, g.ld, (threadIdx.x >> 5) * 16, hk);
+  float acc[attn::kMaxHead / 8][4];
+#pragma unroll
+  for (int n = 0; n < attn::kMaxHead / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  // row statistics of rows g (index 0) and g + 8 (index 1), quad-reduced
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  if constexpr (NT > 0) {
+    float s[NT][8];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      attn::logits(qa, s_k, g, t, scale, s[t]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) m[(i >> 1) & 1] = fmaxf(m[(i >> 1) & 1], s[t][i]);
+    }
+    m[0] = attn::quad_max(m[0]);
+    m[1] = attn::quad_max(m[1]);
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        s[t][i] = expf(s[t][i] - m[(i >> 1) & 1]);
+        l[(i >> 1) & 1] += s[t][i];
+      }
+    l[0] = attn::quad_sum(l[0]);
+    l[1] = attn::quad_sum(l[1]);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s[t][i] /= l[(i >> 1) & 1];
+      uint32_t pa[4];
+      attn::pack_tile(s[t], pa);
+      attn::times_rows(pa, s_v, g.ld, t, hk, acc);
+    }
+  } else {
+#pragma unroll 1
+    for (int t = 0; t < g.nt; ++t) {
+      float s[8];
+      attn::logits(qa, s_k, g, t, scale, s);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float mt = fmaxf(fmaxf(s[2 * r], s[2 * r + 1]), fmaxf(s[4 + 2 * r], s[5 + 2 * r]));
+        const float mn = fmaxf(m[r], mt);
+        l[r] = l[r] * expf(m[r] - mn) + expf(s[2 * r] - mn) + expf(s[2 * r + 1] - mn) +
+               expf(s[4 + 2 * r] - mn) + expf(s[5 + 2 * r] - mn);
+        m[r] = mn;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mq = attn::quad_max(m[r]);
+      l[r] = attn::quad_sum(l[r] * expf(m[r] - mq));
+      m[r] = mq;
+    }
+#pragma unroll 1
+    for (int t = 0; t < g.nt; ++t) {
+      float s[8];
+      attn::logits(qa, s_k, g, t, scale, s);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s[i] = expf(s[i] - m[(i >> 1) & 1]) / l[(i >> 1) & 1];
+      uint32_t pa[4];
+      attn::pack_tile(s, pa);
+      attn::times_rows(pa, s_v, g.ld, t, hk, acc);
+    }
+  }
+  attn::store_rows(g, acc, 1.f, s_q, res, out);
+}
+
+template <int NT>
+int launch_tc(const bf16* q, const bf16* k, const bf16* v, const float* rel_h,
+              const float* rel_w, const bf16* res, bf16* out, int B, int H, int W, int C,
+              int bs, int halo, int heads, float scale, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_tc_kernel<NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(B * (H / bs) * (W / bs)), (unsigned)heads);
+  attention_fwd_tc_kernel<NT><<<grid, 2 * bs * bs, smem, stream>>>(
+      q, k, v, rel_h, rel_w, res, out, H, W, C, bs, halo, heads, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* rel_h,
            const float* rel_w, const void* res, void* out, int B, int H, int W,
@@ -356,6 +490,48 @@ int pht_attention_fwd(const void* q, const void* k, const void* v, const void* r
   if (is_bf16)
     return launch<bf16>(q, k, v, rh, rw, res, out, B, H, W, C, bs, halo, heads, scale, s);
   return launch<float>(q, k, v, rh, rw, res, out, B, H, W, C, bs, halo, heads, scale, s);
+}
+
+// The tensor-core body (bf16 only): the same arguments as pht_attention_fwd.
+// Refuses (cudaErrorInvalidValue, before any launch) a dtype, shape,
+// alignment or shared memory the body does not take.
+int pht_attention_fwd_tc(const void* q, const void* k, const void* v, const void* rel_h,
+                         const void* rel_w, const void* res, void* out, int B, int H, int W,
+                         int C, int bs, int halo, int heads, int is_bf16, float scale,
+                         void* stream) {
+  const int hd = C / heads;
+  if (!is_bf16 || !attn::admits(bs, hd, C)) return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k, v, rel_h, rel_w, res, static_cast<const void*>(out)})
+    if (p != nullptr && !aligned16(p)) return (int)cudaErrorInvalidValue;
+  const size_t smem = attn::fwd_smem(bs, halo, hd);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const float* rh = static_cast<const float*>(rel_h);
+  const float* rw = static_cast<const float*>(rel_w);
+  const bf16* rt = static_cast<const bf16*>(res);
+  bf16* ot = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PHT_FWD_TC(NT) \
+  launch_tc<NT>(qt, kt, vt, rh, rw, rt, ot, B, H, W, C, bs, halo, heads, scale, smem, s)
+  const int nt = attn::key_tiles(bs, halo);
+  switch (attn::resident_tiles(nt) ? nt : 0) {
+    case 3: return PHT_FWD_TC(3);
+    case 4: return PHT_FWD_TC(4);
+    case 7: return PHT_FWD_TC(7);
+    case 9: return PHT_FWD_TC(9);
+    case 13: return PHT_FWD_TC(13);
+    case 16: return PHT_FWD_TC(16);
+    default: return PHT_FWD_TC(0);
+  }
+#undef PHT_FWD_TC
+}
+
+// dynamic shared memory of one CTA of the tensor-core body: K1 (which 0) or
+// K4's main kernel (which 1)
+int pht_attention_tc_smem(int which, int bs, int halo, int hd) {
+  return (int)(which ? attn::bwd_smem(bs, halo, hd) : attn::fwd_smem(bs, halo, hd));
 }
 
 const char* pht_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -6,16 +6,26 @@ K1 replaces the TPU kernel `pixel_heal_thyself_tpu/ops/attention_pallas.py:217`
 attention stage of `ops/block_mega.py:662`. Semantics and rounding order
 are those of the plain `ops.attention.block_halo_attention_torch` and
 `block_halo_attention_bwd_torch`, which the CPU tests hold against the JAX
-package and `chip_smoke.py` holds these kernels against on the card. Both
-run every 1 ≤ halo ≤ block in bf16 and fp32: where a window's one-stage
-shared-memory plan does not fit, the kernels walk the keys in chunks.
+package and `chip_smoke.py` holds these kernels against on the card.
+
+Each has two bodies, picked by `attention_body`: the tensor-core body
+("tc": every window product on mma.sync bf16, `csrc/attention_tc.cuh`)
+for bf16 at head_ch a multiple of 16 up to 64, block 4 or 8 and 16-byte
+aligned tensors (the prod shape), and the general scalar-FMA body for
+every other shape, fp32 included (a 3×TF32 tensor-core fp32 body ran no
+faster and moved the fp32 training step past its bound: PERF.md).
+Both run every 1 ≤ halo ≤ block: where the window's keys are too many for
+registers (tc) or for one shared-memory stage (general), they walk the
+keys in more passes. A wrapper launches the body the gate picks or
+raises; nothing falls back.
 `block_halo_attention_cuda.launches` / `block_halo_attention_bwd_cuda.
-launches` count the launches.
+launches` count the launches, `.body_launches` each body's.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -24,6 +34,58 @@ from pixel_heal_thyself_tpu_torch import _build
 
 # windows per first-level group of K4's bias-gradient reduction
 _BIAS_GROUP = 16
+MAX_SMEM = 232_448  # the opt-in shared memory of one CTA on the H100
+TC_MAX_HEAD = 64  # the largest head_ch of the tensor-core body
+TC_BLOCKS = (4, 8)  # its block sizes: 16 or 64 queries, one warp per 16
+TC_SKEW = 8  # bf16 elements appended to each of its shared rows
+TC_SUB = 4  # key tiles of dl / round(P) that K4 stages at once
+# key-tile counts whose logits (K1) or probabilities (K4) stay in registers
+RESIDENT_TILES = (3, 4, 7, 9, 13, 16)
+
+
+@dataclass(frozen=True)
+class AttentionPlan:
+    """The tensor-core body at one shape: key tiles of 16 (padded keys
+    never enter the softmax), whether a warp keeps its rows' logits /
+    probabilities in registers (else K1 takes two passes over the key
+    tiles and K4 three), threads, and each kernel's shared memory."""
+
+    key_tiles: int
+    resident: bool
+    threads: int
+    smem_fwd: int
+    smem_bwd: int
+
+
+def attention_tc_plan(block_size: int, halo_size: int, head_ch: int) -> AttentionPlan:
+    """The plan of `csrc/attention_tc.cuh` (`key_tiles`, `resident_tiles`,
+    `fwd_smem`, `bwd_smem`): bf16 rows of head_ch + TC_SKEW values for q,
+    k_eff and v (K4: and do), K4's dl and round(P) sub-chunks of TC_SUB key
+    tiles."""
+    window = block_size + 2 * halo_size
+    nq, nt = block_size * block_size, -(-window * window // 16)
+    row = 2 * (head_ch + TC_SKEW)
+    return AttentionPlan(
+        key_tiles=nt, resident=nt in RESIDENT_TILES, threads=2 * nq,
+        smem_fwd=row * (nq + 2 * 16 * nt),
+        smem_bwd=row * (2 * nq + 2 * 16 * nt) + 2 * 2 * nq * (TC_SUB * 16 + TC_SKEW),
+    )
+
+
+def attention_body(dtype: torch.dtype, c: int, num_heads: int, block_size: int,
+                   halo_size: int, *tensors) -> str:
+    """The body K1 and K4 take: "tc" for bf16 with head_ch a multiple of 16
+    up to 64 (C then a multiple of 8), block 4 or 8 and every tensor
+    16-byte aligned (`_body`'s rule in `ops.block_cuda`), where both
+    kernels' shared memory fits one CTA; "general" otherwise."""
+    hd = c // num_heads
+    aligned = all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+    tc = (dtype == torch.bfloat16 and hd % 16 == 0 and hd <= TC_MAX_HEAD and c % 8 == 0
+          and block_size in TC_BLOCKS and aligned)
+    if tc:
+        plan = attention_tc_plan(block_size, halo_size, hd)
+        tc = max(plan.smem_fwd, plan.smem_bwd) <= MAX_SMEM
+    return "tc" if tc else "general"
 
 
 def _check_inputs(q, tensors, rel_h, rel_w, block_size, halo_size, num_heads, what):
@@ -58,6 +120,23 @@ def _scale(head_ch: int) -> ctypes.c_float:
     return ctypes.c_float(float(np.float32(head_ch) ** np.float32(-0.5)))
 
 
+def _fwd(body: str, q, k, v, rel_h, rel_w, residual, block_size, halo_size, num_heads):
+    """Launch K1's `body` on `torch.cuda.current_stream()`: (out, error)."""
+    b, h, w, c = q.shape
+    rh, rw = _f32(rel_h, q.device), _f32(rel_w, q.device)
+    out = torch.empty_like(q)
+    lib = _build.lib()
+    entry = lib.pht_attention_fwd_tc if body == "tc" else lib.pht_attention_fwd
+    err = entry(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(), rw.data_ptr(),
+        residual.data_ptr() if residual is not None else None, out.data_ptr(),
+        b, h, w, c, block_size, halo_size, num_heads,
+        int(q.dtype == torch.bfloat16), _scale(c // num_heads),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    return out, err
+
+
 def block_halo_attention_cuda(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -75,22 +154,51 @@ def block_halo_attention_cuda(
     _build.refuse_autograd("block_halo_attention_cuda", q, k, v, rel_h, rel_w, residual)
     _check_inputs(q, [k, v] + ([residual] if residual is not None else []), rel_h, rel_w,
                   block_size, halo_size, num_heads, "block_halo_attention_cuda")
-    b, h, w, c = q.shape
-    rh, rw = _f32(rel_h, q.device), _f32(rel_w, q.device)
-    out = torch.empty_like(q)
-    err = _build.lib().pht_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(), rw.data_ptr(),
-        residual.data_ptr() if residual is not None else None, out.data_ptr(),
-        b, h, w, c, block_size, halo_size, num_heads,
-        int(q.dtype == torch.bfloat16), _scale(c // num_heads),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    body = attention_body(q.dtype, q.shape[-1], num_heads, block_size, halo_size,
+                          q, k, v, residual, _f32(rel_h, q.device), _f32(rel_w, q.device))
+    out, err = _fwd(body, q, k, v, rel_h, rel_w, residual, block_size, halo_size, num_heads)
     block_halo_attention_cuda.launches += 1
-    _build.check(err, "block_halo_attention_cuda")
+    block_halo_attention_cuda.body_launches[body] += 1
+    _build.check(err, f"block_halo_attention_cuda ({body} body)")
     return out
 
 
+# all launches, and by body: "tc" (attention_fwd_tc_kernel) or "general"
 block_halo_attention_cuda.launches = 0
+block_halo_attention_cuda.body_launches = {"tc": 0, "general": 0}
+
+
+def _bwd(body: str, q, k, v, rel_h, rel_w, do, block_size, halo_size, num_heads):
+    """Launch K4's `body`: ((dq, dk, dv, drel_h, drel_w), error)."""
+    b, h, w, c = q.shape
+    hd = c // num_heads
+    window = block_size + 2 * halo_size
+    nk = window * window
+    nwin = b * (h // block_size) * (w // block_size)
+    ngroups = -(-nwin // _BIAS_GROUP)
+    dev = q.device
+    rh, rw = _f32(rel_h, dev), _f32(rel_w, dev)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    dk_part = torch.empty(nwin, nk, c, dtype=torch.float32, device=dev)
+    dv_part = torch.empty_like(dk_part)
+    bias_part = torch.empty(ngroups, nk, hd, dtype=torch.float32, device=dev)
+    dbias = torch.empty(window, window, hd, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.lib()
+    entry = lib.pht_attention_bwd_tc if body == "tc" else lib.pht_attention_bwd
+    err = entry(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(), rw.data_ptr(),
+        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dk_part.data_ptr(), dv_part.data_ptr(), bias_part.data_ptr(), _BIAS_GROUP,
+        b, h, w, c, block_size, halo_size, num_heads,
+        int(q.dtype == torch.bfloat16), _scale(hd), stream,
+    )
+    if err == 0:
+        err = lib.pht_sum_splits(bias_part.data_ptr(), dbias.data_ptr(), nk * hd, ngroups, stream)
+    # rel-pos bias gradients: the same unpack as the TPU wrapper
+    # (attention_pallas.py:633-637)
+    half = hd // 2
+    return (dq, dk, dv, dbias[..., :half].sum(1), dbias[..., half:].sum(0)), err
 
 
 def block_halo_attention_bwd_cuda(
@@ -112,36 +220,34 @@ def block_halo_attention_bwd_cuda(
     _build.refuse_autograd("block_halo_attention_bwd_cuda", q, k, v, rel_h, rel_w, do)
     _check_inputs(q, [k, v, do], rel_h, rel_w, block_size, halo_size, num_heads,
                   "block_halo_attention_bwd_cuda")
-    b, h, w, c = q.shape
-    hd = c // num_heads
-    window = block_size + 2 * halo_size
-    nk = window * window
-    nwin = b * (h // block_size) * (w // block_size)
-    ngroups = -(-nwin // _BIAS_GROUP)
-    dev = q.device
-    rh, rw = _f32(rel_h, dev), _f32(rel_w, dev)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    dk_part = torch.empty(nwin, nk, c, dtype=torch.float32, device=dev)
-    dv_part = torch.empty_like(dk_part)
-    bias_part = torch.empty(ngroups, nk, hd, dtype=torch.float32, device=dev)
-    dbias = torch.empty(window, window, hd, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = _build.lib()
-    err = lib.pht_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(), rw.data_ptr(),
-        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        dk_part.data_ptr(), dv_part.data_ptr(), bias_part.data_ptr(), _BIAS_GROUP,
-        b, h, w, c, block_size, halo_size, num_heads,
-        int(q.dtype == torch.bfloat16), _scale(hd), stream,
-    )
+    body = attention_body(q.dtype, q.shape[-1], num_heads, block_size, halo_size,
+                          q, k, v, do, _f32(rel_h, q.device), _f32(rel_w, q.device))
+    grads, err = _bwd(body, q, k, v, rel_h, rel_w, do, block_size, halo_size, num_heads)
     block_halo_attention_bwd_cuda.launches += 1
-    _build.check(err, "block_halo_attention_bwd_cuda")
-    _build.check(lib.pht_sum_splits(bias_part.data_ptr(), dbias.data_ptr(), nk * hd,
-                                    ngroups, stream), "block_halo_attention_bwd_cuda")
-    # rel-pos bias gradients: the same unpack as the TPU wrapper
-    # (attention_pallas.py:633-637)
-    half = hd // 2
-    return dq, dk, dv, dbias[..., :half].sum(1), dbias[..., half:].sum(0)
+    block_halo_attention_bwd_cuda.body_launches[body] += 1
+    _build.check(err, f"block_halo_attention_bwd_cuda ({body} body)")
+    return grads
 
 
 block_halo_attention_bwd_cuda.launches = 0
+block_halo_attention_bwd_cuda.body_launches = {"tc": 0, "general": 0}
+
+
+def attention_body_launch(body: str, q, k, v, rel_h, rel_w, do=None, *, block_size: int,
+                          halo_size: int, num_heads: int, residual=None):
+    """K1 (`do` None) or K4 through the named body, whatever the gate says,
+    uncounted: chip_smoke's and the card tests' comparison of the two
+    bodies on one shape. Raises where the body refuses the shape."""
+    _build.refuse_autograd("attention_body_launch", q, k, v, rel_h, rel_w, do, residual)
+    others = [k, v] + [t for t in (do, residual) if t is not None]
+    _check_inputs(q, others, rel_h, rel_w, block_size, halo_size, num_heads,
+                  "attention_body_launch")
+    if body not in ("tc", "general"):
+        raise ValueError(f"unknown body {body!r}")
+    cfg = (block_size, halo_size, num_heads)
+    if do is None:
+        result, err = _fwd(body, q, k, v, rel_h, rel_w, residual, *cfg)
+    else:
+        result, err = _bwd(body, q, k, v, rel_h, rel_w, do, *cfg)
+    _build.check(err, f"attention_body_launch ({body} body)")
+    return result

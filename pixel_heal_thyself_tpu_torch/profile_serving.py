@@ -38,8 +38,11 @@ GROUPS = [
     ("ssd_sum_parts", "K8 parameter sums"),
     ("ssd_chunk_output", "K7 chunk output"), ("ssd_chunk_state", "K7 chunk state"),
     ("ssd_state_pass", "K7 state pass"), ("ssd_prologue", "K7 prologue"),
-    ("gated_rmsnorm", "K7 gated RMSNorm"), ("attention_fwd", "K1 attention"),
-    ("attention_bwd", "K4 attention backward"), ("attention_bias_reduce", "K4 attention backward"),
+    ("gated_rmsnorm", "K7 gated RMSNorm"),
+    # K1 and K4: the tensor-core bodies (attention_fwd_tc_kernel,
+    # attention_bwd_tc_kernel), the general ones, K4's gather and bias reduce
+    ("attention_fwd", "K1 attention"), ("attention_bwd", "K4 attention backward"),
+    ("attention_bias_reduce", "K4 attention backward"),
     # K5: its Hopper body (conv3x3_dgrad_sm90_kernel) and general body, its
     # fold pre-pass; the ReLU gate pass that K5 and K6 run
     ("conv3x3_dgrad", "K5 conv3x3 dgrad"), ("dgrad_fold", "K5 fold pre-pass"),
@@ -56,16 +59,16 @@ GROUPS = [
 ]
 
 
-def group(name: str) -> str:
-    for frag, label in GROUPS:
+def group(name: str, groups=GROUPS) -> str:
+    for frag, label in groups:
         if frag.lower() in name.lower():
             return label
     return "other"
 
 
-def per_launch(run, calls: int = 5) -> dict:
-    """Device time per call of `run` by `GROUPS` label (torch.profiler over
-    `calls` calls after 2 warm-up calls), largest first."""
+def per_launch(run, calls: int = 5, groups=GROUPS) -> dict:
+    """Device time per call of `run` by label of `groups` (torch.profiler
+    over `calls` calls after 2 warm-up calls), largest first."""
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -76,7 +79,7 @@ def per_launch(run, calls: int = 5) -> dict:
     rows = defaultdict(float)
     for evt in prof.key_averages():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
-            rows[group(evt.key)] += evt.device_time_total / 1e3 / calls
+            rows[group(evt.key, groups)] += evt.device_time_total / 1e3 / calls
     return dict(sorted(rows.items(), key=lambda r: -r[1]))
 
 

@@ -387,6 +387,86 @@ def test_attention_bwd_kernel(dev, dtype, halo, heads, c):
         assert torch.equal(g, a)  # deterministic: no float atomics
 
 
+# (block, halo, heads, C): every halo 1..8 at block 8 (halo ≤ 4 keeps the
+# logits / probabilities in registers, halo ≥ 5 walks the key tiles in
+# passes), head_ch 16/32/48/64, block 4; fp32 takes the general body
+TC_CASES = [(8, 1, 2, 64), (8, 2, 4, 128), (8, 3, 4, 256), (8, 4, 2, 96), (8, 5, 4, 256),
+            (8, 6, 2, 64), (8, 7, 4, 256), (8, 8, 4, 128), (4, 2, 2, 64), (4, 4, 2, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bs,halo,heads,c", TC_CASES)
+def test_attention_tc_bodies(dev, dtype, bs, halo, heads, c):
+    """K1's and K4's bodies (the gate's: the tensor-core body in bf16, the
+    general one in fp32) against the plain versions, and the general body
+    on the same inputs, at the dtype's bounds; K4 equal to the bit across
+    two calls; the body counters: each wrapper call counts one launch of
+    the body the gate picked."""
+    rng = np.random.default_rng(bs * 10 + halo)
+    b, h, w = 2, 4 * bs, 6 * bs
+    q, k, v, do, res = (_rand(rng, (b, h, w, c), dev, dtype) for _ in range(5))
+    window = bs + 2 * halo
+    rel_h = _rand(rng, (window, c // heads // 2), dev, torch.float32)
+    rel_w = _rand(rng, (window, c // heads // 2), dev, torch.float32)
+    kw = dict(block_size=bs, halo_size=halo, num_heads=heads)
+    body = attention_cuda.attention_body(dtype, c, heads, bs, halo)
+    assert body == ("tc" if dtype == torch.bfloat16 else "general")
+    fwd, bwd = block_halo_attention_cuda, block_halo_attention_bwd_cuda
+    before = (fwd.launches, dict(fwd.body_launches), bwd.launches, dict(bwd.body_launches))
+    got = fwd(q, k, v, rel_h, rel_w, **kw, residual=res)
+    grads = bwd(q, k, v, rel_h, rel_w, do, **kw)
+    again = bwd(q, k, v, rel_h, rel_w, do, **kw)
+    other = "general" if body == "tc" else "tc"
+    assert fwd.launches == before[0] + 1 and fwd.body_launches[body] == before[1][body] + 1
+    assert fwd.body_launches[other] == before[1][other]
+    assert bwd.launches == before[2] + 2 and bwd.body_launches[body] == before[3][body] + 2
+    assert bwd.body_launches[other] == before[3][other]
+    general = attention_cuda.attention_body_launch("general", q, k, v, rel_h, rel_w, **kw,
+                                                   residual=res)
+    general_grads = attention_cuda.attention_body_launch("general", q, k, v, rel_h, rel_w, do,
+                                                         **kw)
+    ref = block_halo_attention_torch(q, k, v, rel_h, rel_w, **kw, residual=res)
+    ref_grads = block_halo_attention_bwd_torch(q, k, v, rel_h, rel_w, do, **kw)
+    torch.cuda.synchronize()
+    tol = (1e-5, 1e-6) if dtype == torch.float32 else (2**-7, 2e-3)
+    _assert_close(got, ref, *tol)
+    _assert_close(general, ref, *tol)
+    for g, a, gg, r in zip(grads, again, general_grads, ref_grads, strict=True):
+        _assert_close(g, r, *tol)
+        _assert_close(gg, r, *tol)
+        assert torch.equal(g, a)  # deterministic: no float atomics
+
+
+def test_attention_tc_gate_and_smem(dev):
+    """Shapes the tensor-core body does not take (fp32, head_ch 8) run the
+    general body, counted so; the tensor-core entries refuse them; their
+    shared memory is `attention_tc_plan`'s at every block, halo and head_ch
+    they take."""
+    from pixel_heal_thyself_tpu_torch import _build
+
+    lib = _build.lib()
+    for bs in (4, 8):
+        for halo in range(1, bs + 1):
+            for hd in (16, 32, 48, 64):
+                plan = attention_cuda.attention_tc_plan(bs, halo, hd)
+                assert lib.pht_attention_tc_smem(0, bs, halo, hd) == plan.smem_fwd
+                assert lib.pht_attention_tc_smem(1, bs, halo, hd) == plan.smem_bwd
+    rng = np.random.default_rng(9)
+    for dtype, c, heads in ((torch.float32, 128, 2), (torch.bfloat16, 32, 4)):
+        q, do = (_rand(rng, (1, 16, 16, c), dev, dtype) for _ in range(2))
+        rel = _rand(rng, (14, c // heads // 2), dev, torch.float32)
+        kw = dict(block_size=8, halo_size=3, num_heads=heads)
+        gen = block_halo_attention_cuda.body_launches["general"]
+        block_halo_attention_cuda(q, q, q, rel, rel, **kw)
+        assert block_halo_attention_cuda.body_launches["general"] == gen + 1
+        gen = block_halo_attention_bwd_cuda.body_launches["general"]
+        block_halo_attention_bwd_cuda(q, q, q, rel, rel, do, **kw)
+        assert block_halo_attention_bwd_cuda.body_launches["general"] == gen + 1
+        for grad in (None, do):
+            with pytest.raises(RuntimeError, match="tc body"):
+                attention_cuda.attention_body_launch("tc", q, q, q, rel, rel, grad, **kw)
+
+
 @pytest.mark.parametrize("mode", ["zeros", "reflect", "replicate"])
 @pytest.mark.parametrize("shape", [*CONV_SHAPES, (1, 2, 2, 8, 8)])
 def test_conv3x3_dgrad_kernel(dev, mode, shape):
