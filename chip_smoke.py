@@ -77,13 +77,18 @@ exits non-zero. Phases:
    witnesses that set MAMBA_STEP_GRAD_TOL.
 9. The literal Mamba route: the fused causal conv1d + SiLU forward K9 and
    backward K10 against their plain versions at zxbcdt [8, 16,384, 2192]
-   (window 1024 + 1152) and the chunked SSD scan K11 at x [8, 16,384, 16,
-   64], each in bf16 and fp32 (CONV_TOL, SSD_SCAN_TOL), beside a control
-   that K11's bf16 bound must fail (the plain scan carrying the state in
-   f32); then the sections of `bench_mamba` at batch 8 with the fused conv
-   (`--pallas`) on a seeded prod-width MambaDenoiserNet (literal route):
-   s/iter and peak memory of each, that every layer of every G forward ran
-   K9 and of every backward K10, and the `ssd_pallas` section K11 (launch
+   (window 1024 + 1152; K10 on its vec body in both dtypes, beside
+   cuDNN's grouped conv1d backward as its yardstick) and the chunked SSD
+   scan K11 at x [8, 16,384, 16, 64] (bf16 on its tensor-core body, fp32
+   on its general body, two bf16 calls equal to the bit), each in bf16
+   and fp32 (CONV_TOL, SSD_SCAN_TOL), with K10's and K11's device time per
+   launch, beside a control that K11's bf16 bound must fail (the plain
+   scan carrying the state in f32); then the sections of `bench_mamba` at
+   batch 8 with the fused conv (`--pallas`) on a seeded prod-width
+   MambaDenoiserNet (literal route): s/iter and peak memory of each, that
+   every layer of every G forward ran K9 and of every backward K10, and
+   the `ssd_pallas` section K11 (launch counters), every K10 launch on its
+   vec body and every K11 launch on its tensor-core body (per-body
    counters); the G forward and the L1 forward + backward through the
    kernel route against the plain route (FRAME_TOL, MAMBA_STEP_GRAD_TOL).
 10. `fold_qkv`: one L1 forward + backward of the prod-width AFGSANet on
@@ -231,8 +236,9 @@ CONV_BWD_TOL = {label: {"dx": tol, "dw": (1e-4, 1e-4), "db": (1e-4, 1e-4)}
 # order may put a value next to a rounding boundary on its other side:
 # fp32 1e-4 max; bf16 two ulps (8e-3) max, and rms 1e-5, which the plain
 # scan that carries the state in f32 must fail (phase 9 checks that
-# control). The H100 reads K11 equal to its plain version to the bit at
-# the prod shape, and the control at rms 4.6e-5 (PERF.md)
+# control). The H100 read the scalar-FMA body equal to its plain version to
+# the bit at the prod shape, and the control at rms 4.6e-5; the bf16
+# tensor-core body sums in another order (PERF.md)
 SSD_SCAN_TOL = {"bf16": (8e-3, 1e-5), "fp32": (1e-4, 1e-5)}
 # phase 9: the bench_mamba sections' timed calls (after 2 warm-up calls)
 BENCH_ITERS = 5
@@ -354,9 +360,10 @@ def read_counts() -> dict:
 # the kernels with two bodies → the body every prod-shape launch must take:
 # K2, K3, K5 and K6 the Hopper wgmma body (widths 256), K7, K7e and K8 the
 # tensor-core body (d_state 64, headdim 64, chunk 128), K1 and K4 the
-# tensor-core body (bf16, head_ch 64, block 8)
+# tensor-core body (bf16, head_ch 64, block 8), K10 the vec body (a
+# 16-byte aligned window), K11 the tensor-core body (bf16, chunk 128)
 PROD_BODIES = {"K1": "tc", "K2": "sm90", "K3": "sm90", "K4": "tc", "K5": "sm90", "K6": "sm90",
-               "K7": "tc", "K7e": "tc", "K8": "tc"}
+               "K7": "tc", "K7e": "tc", "K8": "tc", "K10": "vec", "K11": "tc"}
 
 
 def check_bodies(tag: str, launches: dict) -> None:
@@ -1266,13 +1273,16 @@ def f32_carry_scan(x, dt, A, B, C, D, chunk: int):
 
 def phase_literal_kernels(device) -> dict:
     """Phase 9, kernels: K9 and K10 at the prod zxbcdt, K11 at the prod SSD
-    shape, in bf16 and fp32, and K11's f32-carry control. Returns the bf16
-    rows by name."""
+    shape, in bf16 and fp32 (K10 on its vec body, K11 bf16 on its
+    tensor-core body and fp32 on its general body), K10's and K11's device
+    time per launch, and K11's f32-carry control. Returns the bf16 rows by
+    name."""
     from pixel_heal_thyself_tpu_torch.measure import mamba_chain_flops
     from pixel_heal_thyself_tpu_torch.ops.conv_cuda import (
         fused_causal_conv1d_silu_bwd_cuda,
         fused_causal_conv1d_silu_cuda,
     )
+    from pixel_heal_thyself_tpu_torch.ops.conv_fused import _pre as conv_fused_pre
     from pixel_heal_thyself_tpu_torch.ops.conv_fused import (
         fused_causal_conv1d_silu_bwd_torch,
         fused_causal_conv1d_silu_torch,
@@ -1306,35 +1316,55 @@ def phase_literal_kernels(device) -> dict:
             work=(2 * win_bytes + nbytes(conv_w, conv_b), 2 * b * l * width * k, dtype),
             library=lambda: F.conv1d(xw, wc, bc, padding=k - 1, groups=width),
         )
-        del xw, wc, bc
         bwd = (z, conv_w, conv_b, dy.to(dtype), di, width)
-        k10 = compare(
-            f"K10 fused conv1d + SiLU backward {tag}",
+        # K10's yardstick: cuDNN's grouped conv1d backward (input, weight and
+        # bias gradients) for the same dpre, which it is handed: the SiLU
+        # gate that forms dpre (and the window's slicing) is left untimed
+        x32 = z[..., di:di + width].float()
+        pre = conv_fused_pre(x32, conv_w, conv_b)
+        sig = torch.sigmoid(pre)
+        dpre = (dy.to(dtype).float() * (sig * (1 + pre * (1 - sig)))).to(dtype)
+        gout = F.pad(dpre.transpose(1, 2), (0, k - 1)).contiguous()
+        del x32, pre, sig, dpre
+        k10 = expect_body("K10", "vec", lambda: compare(
+            f"K10 fused conv1d + SiLU backward {tag} (library: cuDNN's grouped conv1d "
+            f"backward for the same dpre; the SiLU gate that forms dpre left untimed)",
             lambda a=bwd: fused_causal_conv1d_silu_bwd_cuda(*a),
             lambda a=bwd: fused_causal_conv1d_silu_bwd_torch(*a),
             None, iters=20, plain_iters=3,
             check_fn=partial(check_named, bounds=CONV_BWD_TOL[label]),
             # reads the window and dy, writes dx; the taps and their gradients
             work=(3 * win_bytes + 2 * nbytes(conv_w, conv_b), 4 * b * l * width * k, dtype),
-        )
+            library=lambda: torch.ops.aten.convolution_backward(
+                gout, xw, wc, [width], [1], [k - 1], [1], False, [0], width,
+                [True, True, True]),
+        ))
+        dx_err = (fused_causal_conv1d_silu_bwd_cuda(*bwd)[0].float()
+                  - fused_causal_conv1d_silu_bwd_torch(*bwd)[0].float()).abs().max().item()
+        log(f"[kernels] K10 {label}: dx max_abs_err {dx_err:.6g} against the plain version")
         if label == "bf16":
             rows["K9"], rows["K10"] = k9, k10
-        del bwd, fwd, z
+            log_per_launch(f"K10 bf16 (zxbcdt {tuple(z.shape)})",
+                           lambda a=bwd: fused_causal_conv1d_silu_bwd_cuda(*a))
+        del bwd, fwd, z, xw, wc, bc, gout
     del zx, dy
 
     scan = ssd_scan_inputs(device, b, l, h, p, n)
     flops = mamba_chain_flops(b, l, di, n, h, q)[0]
     for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
         args = tuple(t.to(dtype) if t.dim() > 1 else t for t in scan)
-        row = compare(
-            f"K11 ssd_pallas {label} (x {tuple(args[0].shape)}, d_state {n}, chunk {q})",
-            lambda a=args: ssd_pallas_cuda(*a, chunk=q),
-            lambda a=args: ssd_pallas_torch(*a, chunk=q),
+        row = expect_body("K11", "tc" if label == "bf16" else "general", lambda a=args: compare(
+            f"K11 ssd_pallas {label} (x {tuple(a[0].shape)}, d_state {n}, chunk {q})",
+            lambda: ssd_pallas_cuda(*a, chunk=q),
+            lambda: ssd_pallas_torch(*a, chunk=q),
             SSD_SCAN_TOL[label], iters=10, plain_iters=2,
-            work=(nbytes(*args, args[0]), flops, dtype),
-        )
+            work=(nbytes(*a, a[0]), flops, dtype),
+        ))
         if label == "bf16":
             rows["K11"] = row
+            assert_deterministic("K11 bf16", lambda a=args: (ssd_pallas_cuda(*a, chunk=q),))
+            log_per_launch(f"K11 bf16 (x {tuple(args[0].shape)})",
+                           lambda a=args: ssd_pallas_cuda(*a, chunk=q))
     ctl = deviation(f32_carry_scan(*scan, chunk=q), ssd_pallas_torch(*scan, chunk=q))
     log(f"[kernels] control: plain scan with the state carried in f32 vs plain: "
         f"max_rel {ctl['max_rel']:.6g} rms_rel {ctl['rms_rel']:.6g} "
@@ -1358,6 +1388,7 @@ def phase_literal_path(device) -> dict:
                     device=device)
     torch.cuda.synchronize()
     launches = read_counts()
+    check_bodies("literal-mamba", launches)
     data = bench_mamba.make_inputs(batch, patch, device)
     models = [bench_mamba.make_model(True, False, kernels, device) for kernels in (True, False)]
     assert all(blk.mamba.fused_conv_route(patch * patch) and not blk.mamba.fused_route(

@@ -105,11 +105,21 @@ _SIGNATURES = {
     # zxbcdt, wb, y, B, L, W, offset, width, k, rows, is_bf16, stream
     "pht_conv_silu_fwd": [_P] * 3 + [_I] * 8 + [_P],
     # zxbcdt, wb, dy, dx, part, dwb, B, L, W, offset, width, k, rows, is_bf16,
-    # stream
-    "pht_conv_silu_bwd": [_P] * 6 + [_I] * 8 + [_P],
+    # vec, stream
+    "pht_conv_silu_bwd": [_P] * 6 + [_I] * 9 + [_P],
+    # W, offset, width, is_bf16: the body K10 takes (1 vec)
+    "pht_conv_silu_bwd_body": [_I] * 4,
     # x, dt, A, B, C, D, cum, states, y, B, L, heads, headdim, d_state, chunk,
-    # round_dA, is_bf16, stream
-    "pht_ssd_scan_fwd": [_P] * 9 + [_I] * 8 + [_P],
+    # round_dA, is_bf16, tc, stream
+    "pht_ssd_scan_fwd": [_P] * 9 + [_I] * 9 + [_P],
+    # chunk, d_state, headdim, is_bf16: the body K11 takes (1 tensor cores)
+    "pht_ssd_scan_body": [_I] * 4,
+    # which (0 chunk state, 1 chunk output), chunk, d_state, headdim: a
+    # tensor-core CTA's shared memory
+    "pht_ssd_scan_tc_smem": [_I] * 4,
+    # which, chunk, d_state, headdim: CTAs an SM holds of a tensor-core
+    # kernel of K11 (bench-only)
+    "pht_ssd_scan_tc_occupancy": [_I] * 4,
 }
 
 _lock = threading.Lock()

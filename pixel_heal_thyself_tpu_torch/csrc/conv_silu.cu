@@ -34,11 +34,25 @@
 // What bounds them on the H100: memory. At the prod shape (B 8, L 16,384,
 // C 1152 of W 2192, k 4, bf16) K9 reads the window and writes y (604 MB:
 // 0.18 ms at 3.35 TB/s) and K10 reads the window and dy and writes dx
-// (906 MB: 0.27 ms), against 0.15 and 0.3 GFLOP. A warp reads 32
-// consecutive channels of a row (64 bytes in bf16); wider loads per thread
-// and staging through shared memory are later work.
+// (906 MB: 0.27 ms), against 0.15 and 0.3 GFLOP. In K9 and K10's general
+// body a warp reads 32 consecutive channels of a row (64 bytes in bf16).
+//
+// K10 has a second body, "vec", for windows whose offset, row stride and
+// width are multiples of 16 bytes (`vec_body`; the prod window: 2,048,
+// 4,384 and 2,304 bytes): a thread takes 4 channels (8 bytes of bf16, 16
+// of f32), reads the window row and dy and writes dx that many bytes at a
+// time, and keeps kVecRing rows of its window and dy in flight through its
+// own slots of a cp.async ring in shared memory (a thread reads back only
+// what it copied, so no barrier is needed). Its arithmetic is the general
+// body's, channel by channel, in the same order. 8 bf16 channels a thread
+// (16-byte rows) took 181 registers and ran twice as slow (PERF.md): the
+// body is held back by its instructions (about 45 a channel and row, with
+// the sigmoid's exp and division), not by its 906 MB.
 
 #include "common.cuh"
+#include "sm90_gemm.cuh"  // cp.async
+
+#include <type_traits>
 
 namespace {
 
@@ -165,6 +179,168 @@ __global__ void __launch_bounds__(kThreads) conv_silu_bwd_kernel(
   p[(long)K * d.C] = db;
 }
 
+// ---- K10, the vec body -----------------------------------------------------------
+constexpr int kVecRing = 8;  // rows of the window and dy in flight per thread
+// channels a thread: 4 (8 bytes of bf16, 16 of f32), or 2 (bench_scan.py's
+// variant)
+#ifndef PHT_CONV_VEC_CH
+#define PHT_CONV_VEC_CH 4
+#endif
+constexpr int kVecCh = PHT_CONV_VEC_CH;
+
+// Windows the vec body takes: offset, row stride and width multiples of 16
+// bytes (with 16-byte aligned tensors, which the C entry checks)
+__host__ __device__ inline bool vec_body(int W, int off, int C, int esize) {
+  return esize > 0 && off % (16 / esize) == 0 && W % (16 / esize) == 0 && C % (16 / esize) == 0;
+}
+
+// kVecCh values of T as they sit in memory, as floats, and back (rounded
+// to nearest even)
+template <typename T>
+struct VecOf {
+  static constexpr int kBytes = kVecCh * sizeof(T);
+  using Raw = std::conditional_t<kBytes == 16, uint4,
+                                 std::conditional_t<kBytes == 8, uint2, uint32_t>>;
+  __device__ static void get(const Raw& w, float (&f)[kVecCh]) {
+    const T* v = reinterpret_cast<const T*>(&w);
+#pragma unroll
+    for (int i = 0; i < kVecCh; ++i) f[i] = to_f32(v[i]);
+  }
+  __device__ static Raw put(const float (&f)[kVecCh]) {
+    Raw w;
+    T* v = reinterpret_cast<T*>(&w);
+#pragma unroll
+    for (int i = 0; i < kVecCh; ++i) v[i] = from_f32<T>(f[i]);
+    return w;
+  }
+  __device__ static void copy(Raw* dst, const void* src, bool valid) {
+    if constexpr (kBytes == 16) {
+      sm90::cp_async16(sm90::smem_u32(dst), src, valid);
+    } else {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(sm90::smem_u32(dst)),
+                   "l"(src), "n"(kBytes), "r"(valid ? kBytes : 0)
+                   : "memory");
+    }
+  }
+};
+
+// One thread: kVecCh channels of one (batch, row tile); the CTA's threads
+// take consecutive channel groups. The ring holds, per stage, the window
+// row and the dy row of every thread: [kVecRing][2][blockDim] words of
+// dynamic shared memory. The row loop runs in rounds of K rows, so that
+// the last K raw rows and dpre values sit in circular registers whose
+// slots are known at compile time: slot (t - t0) % K holds row t.
+template <typename T, int K>
+__global__ void __launch_bounds__(256) conv_silu_bwd_vec_kernel(
+    const T* __restrict__ zx, const float* __restrict__ wb, const T* __restrict__ dy,
+    T* __restrict__ dx, float* __restrict__ part, ConvDims d) {
+  using V = VecOf<T>;
+  using Raw = typename V::Raw;
+  constexpr int N = kVecCh;
+  extern __shared__ __align__(16) unsigned char ring_raw[];
+  Raw* ring = reinterpret_cast<Raw*>(ring_raw);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int grp = blockIdx.x * nt + tid;
+  if (grp >= d.C / N) return;
+  const int ch = grp * N, tile = blockIdx.y, b = blockIdx.z;
+  const int t0 = tile * d.rows, t1 = min(d.L, t0 + d.rows), tend = min(d.L, t1 + K - 1);
+  const int tstop = t1 + K - 1;  // dx of rows [t0, t1) reads dpre up to row t1 + K - 2
+  const T* src = zx + (long)b * d.L * d.W + d.off + ch;
+  const T* g = dy + (long)b * d.L * d.C + ch;
+  T* out = dx + (long)b * d.L * d.C + ch;
+  // row t's window and dy into its ring slot (zeros past the rows the tile reads)
+  auto issue = [&](int t) {
+    const int s = (t - t0) % kVecRing;
+    const bool in = t < tend;
+    const long r = in ? t : t0;
+    V::copy(ring + (2 * s) * nt + tid, src + r * d.W, in);
+    V::copy(ring + (2 * s + 1) * nt + tid, g + r * d.C, in);
+  };
+  for (int i = 0; i < kVecRing - 1; ++i) {
+    issue(t0 + i);
+    sm90::cp_async_commit();
+  }
+  float w[K][N], bias[N];
+#pragma unroll
+  for (int j = 0; j <= K; ++j)
+#pragma unroll
+    for (int c = 0; c < N; c += 2) {
+      const float2 v = __ldg(reinterpret_cast<const float2*>(wb + (long)j * d.C + ch + c));
+      float* dst = j < K ? w[j] : bias;
+      dst[c] = v.x;
+      dst[c + 1] = v.y;
+    }
+  // raw[s]: the raw row in slot s; rows t0 - K + 1 .. t0 - 1 sit in slots 1 .. K - 1
+  float raw[K][N], dpre[K][N], dw[K][N], db[N];
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    const int t = t0 - K + s;
+    float f[N] = {};
+    if (s > 0 && t >= 0) V::get(*reinterpret_cast<const Raw*>(src + (long)t * d.W), f);
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      raw[s][c] = f[c];
+      dpre[s][c] = dw[s][c] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < N; ++c) db[c] = 0.f;
+  for (int tr = t0; tr < tstop; tr += K) {
+#pragma unroll
+    for (int ph = 0; ph < K; ++ph) {  // row t, slot ph
+      const int t = tr + ph;
+      if (t >= tstop) break;
+      issue(t + kVecRing - 1);
+      sm90::cp_async_commit();
+      sm90::cp_async_wait<kVecRing - 1>();
+      const int s = (t - t0) % kVecRing;
+      float xr[N], gv[N], o[N];
+      V::get(ring[(2 * s) * nt + tid], xr);
+      V::get(ring[(2 * s + 1) * nt + tid], gv);
+      const bool in = t < d.L;
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        // the window: raw rows t - K + 1 + j in slots (ph + 1 + j) % K
+        float dp = 0.f;
+        if (in) {
+          float acc = __fmul_rn(xr[c], w[K - 1][c]);
+#pragma unroll
+          for (int j = 0; j < K - 1; ++j)
+            acc = __fadd_rn(acc, __fmul_rn(raw[(ph + 1 + j) % K][c], w[j][c]));
+          const float pre = __fadd_rn(acc, bias[c]);
+          const float sg = sigmoid_rn(pre);
+          const float ds = __fmul_rn(sg, __fadd_rn(1.f, __fmul_rn(pre, __fsub_rn(1.f, sg))));
+          dp = __fmul_rn(gv[c], ds);
+        }
+        if (t < t1) {
+#pragma unroll
+          for (int j = 0; j < K - 1; ++j) dw[j][c] = fmaf(dp, raw[(ph + 1 + j) % K][c], dw[j][c]);
+          dw[K - 1][c] = fmaf(dp, xr[c], dw[K - 1][c]);
+          db[c] += dp;
+        }
+        raw[ph][c] = xr[c];
+        dpre[ph][c] = dp;
+        // dx of row t - (K - 1): w[K-1] dpre there, then tap j on the
+        // dpre of row t - j (slot (ph - j) % K)
+        float acc = __fmul_rn(dpre[(ph + 1) % K][c], w[K - 1][c]);
+#pragma unroll
+        for (int j = 0; j < K - 1; ++j)
+          acc = __fadd_rn(acc, __fmul_rn(dpre[(ph - j + K) % K][c], w[j][c]));
+        o[c] = acc;
+      }
+      if (t >= t0 + K - 1) *reinterpret_cast<Raw*>(out + (long)(t - (K - 1)) * d.C) = V::put(o);
+    }
+  }
+  sm90::cp_async_wait<0>();
+  float* pp = part + ((long)b * d.tiles + tile) * (K + 1) * d.C + ch;
+#pragma unroll
+  for (int j = 0; j <= K; ++j)
+#pragma unroll
+    for (int c = 0; c < N; c += 2)
+      *reinterpret_cast<float2*>(pp + (long)j * d.C + c) =
+          make_float2(j < K ? dw[j][c] : db[c], j < K ? dw[j][c + 1] : db[c + 1]);
+}
+
 // out[i] = sum_s part[s * len + i] in a fixed order: warp v of 8 adds the
 // splits s = v, v + 8, ... in turn, then the 8 sums are added in warp order.
 __global__ void __launch_bounds__(256) sum_tiles_kernel(const float* __restrict__ part,
@@ -206,13 +382,40 @@ int launch_fwd(const void* zx, const void* wb, void* y, ConvDims d, cudaStream_t
   return (int)cudaGetLastError();
 }
 
+// The vec body's CTA: whole warps, at most 8, that leave the fewest of the
+// channel groups' threads idle (the most warps among equals).
+inline int vec_threads(int groups) {
+  int best = 256, idle = -1;
+  for (int nt = 256; nt >= 64; nt -= 32) {
+    const int waste = (groups + nt - 1) / nt * nt - groups;
+    if (idle < 0 || waste < idle) {
+      best = nt;
+      idle = waste;
+    }
+  }
+  return best;
+}
+
 template <typename T, int K>
 int launch_bwd(const void* zx, const void* wb, const void* dy, void* dx, void* part, void* dwb,
-               ConvDims d, cudaStream_t s) {
-  const dim3 grid((d.C + kThreads - 1) / kThreads, d.tiles, d.B);
-  conv_silu_bwd_kernel<T, K><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(zx), static_cast<const float*>(wb), static_cast<const T*>(dy),
-      static_cast<T*>(dx), static_cast<float*>(part), d);
+               ConvDims d, int vec, cudaStream_t s) {
+  if (vec) {
+    const int groups = d.C / kVecCh, nt = vec_threads(groups);
+    const size_t smem = (size_t)kVecRing * 2 * nt * sizeof(typename VecOf<T>::Raw);
+    const dim3 grid((groups + nt - 1) / nt, d.tiles, d.B);
+    cudaError_t err = cudaFuncSetAttribute(conv_silu_bwd_vec_kernel<T, K>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    conv_silu_bwd_vec_kernel<T, K><<<grid, nt, smem, s>>>(
+        static_cast<const T*>(zx), static_cast<const float*>(wb), static_cast<const T*>(dy),
+        static_cast<T*>(dx), static_cast<float*>(part), d);
+  } else {
+    const dim3 grid((d.C + kThreads - 1) / kThreads, d.tiles, d.B);
+    conv_silu_bwd_kernel<T, K><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(zx), static_cast<const float*>(wb), static_cast<const T*>(dy),
+        static_cast<T*>(dx), static_cast<float*>(part), d);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int len = (K + 1) * d.C;
@@ -244,8 +447,8 @@ int fwd(const void* zx, const void* wb, void* y, ConvDims d, cudaStream_t s) {
 
 template <typename T>
 int bwd(const void* zx, const void* wb, const void* dy, void* dx, void* part, void* dwb,
-        ConvDims d, cudaStream_t s) {
-  PHT_CONV_DISPATCH(launch_bwd, T, zx, wb, dy, dx, part, dwb, d, s)
+        ConvDims d, int vec, cudaStream_t s) {
+  PHT_CONV_DISPATCH(launch_bwd, T, zx, wb, dy, dx, part, dwb, d, vec, s)
 }
 
 }  // namespace
@@ -262,16 +465,27 @@ int pht_conv_silu_fwd(const void* zx, const void* wb, void* y, int B, int L, int
   return is_bf16 ? fwd<bf16>(zx, wb, y, d, s) : fwd<float>(zx, wb, y, d, s);
 }
 
+// 1: K10's vec body takes this window (row stride W, offset, width) in
+// this dtype; 0: the general body
+int pht_conv_silu_bwd_body(int W, int off, int C, int is_bf16) {
+  return vec_body(W, off, C, is_bf16 ? 2 : 4) ? 1 : 0;
+}
+
 // As the forward, with dy and dx [B, L, C] in zxbcdt's dtype, f32 scratch
 // part [B * ceil(L / rows), k + 1, C] and the f32 output dwb [k + 1, C].
+// vec: the body (pht_conv_silu_bwd_body); a window or tensor the vec body
+// does not take is refused before anything launches.
 int pht_conv_silu_bwd(const void* zx, const void* wb, const void* dy, void* dx, void* part,
                       void* dwb, int B, int L, int W, int off, int C, int k, int rows,
-                      int is_bf16, void* stream) {
+                      int is_bf16, int vec, void* stream) {
   const ConvDims d = dims(B, L, W, off, C, k, rows);
-  if (!valid(d)) return (int)cudaErrorInvalidValue;
+  if (!valid(d) || (vec && (!pht_conv_silu_bwd_body(W, off, C, is_bf16) || !aligned16(zx) ||
+                            !aligned16(wb) || !aligned16(dy) || !aligned16(dx) ||
+                            !aligned16(part))))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? bwd<bf16>(zx, wb, dy, dx, part, dwb, d, s)
-                 : bwd<float>(zx, wb, dy, dx, part, dwb, d, s);
+  return is_bf16 ? bwd<bf16>(zx, wb, dy, dx, part, dwb, d, vec, s)
+                 : bwd<float>(zx, wb, dy, dx, part, dwb, d, vec, s);
 }
 
 }  // extern "C"

@@ -4,14 +4,22 @@ the backward K10 (`csrc/conv_silu.cu`).
 K9 replaces the TPU kernel `pixel_heal_thyself_tpu/ops/conv_pallas.py:147`
 (`_fwd_kernel`) and K10 its backward `:158` (`_bwd_kernel`). Both read the
 column window `[offset, offset + width)` straight out of zxbcdt; a CTA
-takes `ROWS` rows of one batch element and 128 channels. K10's tap and
-bias gradients go through f32 partials per (batch, row tile), 11.8 MB at
-the prod shape (8 × 16,384 tokens, width 1152), added in a fixed order.
-The plain versions are `ops.conv_fused.fused_causal_conv1d_silu_torch`
-and `fused_causal_conv1d_silu_bwd_torch`.
+takes `ROWS` (K9) or `BWD_ROWS` (K10) rows of one batch element. K9, and
+K10's general body, give a thread one channel; K10's "vec" body
+(`conv_bwd_body`: windows whose offset, row stride and width are
+multiples of 16 bytes, the prod window among them) gives it 4 channels
+and a copy ring of rows. K10's tap and bias gradients go through f32
+partials per (batch, row tile), 23.6 MB at the prod shape (8 × 16,384
+tokens, width 1152), added in a fixed order. The plain versions are
+`ops.conv_fused.fused_causal_conv1d_silu_torch` and
+`fused_causal_conv1d_silu_bwd_torch`.
 `fused_causal_conv1d_silu_cuda.launches` and
 `fused_causal_conv1d_silu_bwd_cuda.launches` count the calls that
-launched.
+launched, and `fused_causal_conv1d_silu_bwd_cuda.body_launches` each of
+K10's bodies'. The wrapper picks K10's body and names it to the C entry,
+which refuses a window the named body does not take (the library's
+`pht_conv_silu_bwd_body` states the same rule; a card test holds the two
+equal).
 """
 
 from __future__ import annotations
@@ -20,7 +28,8 @@ import torch
 
 from pixel_heal_thyself_tpu_torch import _build
 
-ROWS = 256  # rows of one batch element per CTA
+ROWS = 256  # rows of one batch element per CTA (K9)
+BWD_ROWS = 128  # rows of one batch element per CTA (K10)
 
 
 def _checked(what: str, zxbcdt, w, b, offset: int, width: int, *tensors) -> tuple:
@@ -41,6 +50,16 @@ def _checked(what: str, zxbcdt, w, b, offset: int, width: int, *tensors) -> tupl
                          f"w {tuple(w.shape)}, b {tuple(b.shape)}, l {l}")
     wb = torch.cat([w.float(), b.float()[None]], dim=0).contiguous()
     return wb, bsz, l, ctot, k
+
+
+def conv_bwd_body(dtype: torch.dtype, columns: int, offset: int, width: int,
+                  aligned: bool = True) -> str:
+    """The body K10 takes: "vec" where the window's offset, zxbcdt's row of
+    `columns` and the width are multiples of 16 bytes and the tensors are
+    16-byte aligned (csrc/conv_silu.cu `vec_body`); "general" otherwise."""
+    per = 16 // torch.empty(0, dtype=dtype).element_size()
+    vec = aligned and offset % per == 0 and columns % per == 0 and width % per == 0
+    return "vec" if vec else "general"
 
 
 def fused_causal_conv1d_silu_cuda(zxbcdt, w, b, offset: int, width: int) -> torch.Tensor:
@@ -71,18 +90,23 @@ def fused_causal_conv1d_silu_bwd_cuda(zxbcdt, w, b, dy, offset: int, width: int)
         raise ValueError(f"{what}: dy {tuple(dy.shape)}, want {(bsz, l, width)}")
     dev = zxbcdt.device
     dy = dy.to(zxbcdt.dtype).contiguous()
-    tiles = -(-l // ROWS)
+    tiles = -(-l // BWD_ROWS)
     dx = torch.empty(bsz, l, width, dtype=zxbcdt.dtype, device=dev)
     part = torch.empty(bsz * tiles, k + 1, width, dtype=torch.float32, device=dev)
     dwb = torch.empty(k + 1, width, dtype=torch.float32, device=dev)
+    body = conv_bwd_body(zxbcdt.dtype, ctot, offset, width,
+                         all(t.data_ptr() % 16 == 0 for t in (zxbcdt, wb, dy, dx, part)))
     err = _build.lib().pht_conv_silu_bwd(
         zxbcdt.data_ptr(), wb.data_ptr(), dy.data_ptr(), dx.data_ptr(), part.data_ptr(),
-        dwb.data_ptr(), bsz, l, ctot, offset, width, k, ROWS,
-        int(zxbcdt.dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream,
+        dwb.data_ptr(), bsz, l, ctot, offset, width, k, BWD_ROWS,
+        int(zxbcdt.dtype == torch.bfloat16), int(body == "vec"),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, what)
     fused_causal_conv1d_silu_bwd_cuda.launches += 1
+    fused_causal_conv1d_silu_bwd_cuda.body_launches[body] += 1
     return dx, dwb[:k].to(w.dtype), dwb[k].to(b.dtype)
 
 
 fused_causal_conv1d_silu_bwd_cuda.launches = 0
+fused_causal_conv1d_silu_bwd_cuda.body_launches = {"vec": 0, "general": 0}

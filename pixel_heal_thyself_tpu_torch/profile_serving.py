@@ -26,6 +26,13 @@ import torch
 
 # kernel-name fragment → group, first match wins
 GROUPS = [
+    # K9/K10 (conv_silu.cu) and K11 (ssd_scan.cu): their names hold "conv"
+    # and "chunk" too
+    ("conv_silu_fwd", "K9 conv1d + SiLU"), ("conv_silu_bwd", "K10 main"),
+    ("sum_tiles", "K10 tap/bias sums"), ("scan_cum", "K11 cum"),
+    ("scan_chunk_state", "K11 chunk state"), ("scan_state_pass", "K11 state pass"),
+    ("scan_state_tc", "K11 chunk state + carry"), ("scan_chunk_output", "K11 chunk output"),
+    ("scan_output_tc", "K11 chunk output"),
     # K8's launches first: their names hold "conv" and "norm" too (the
     # chunk output and prologue K8 recomputes carry K7's names). Both bodies
     # share a label where they do the same work; the tensor-core body's

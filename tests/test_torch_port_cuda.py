@@ -91,6 +91,7 @@ from pixel_heal_thyself_tpu_torch.ops.attention import (
     qkv_block_halo_attention_torch,
 )
 from pixel_heal_thyself_tpu_torch.ops.conv_cuda import (
+    conv_bwd_body,
     fused_causal_conv1d_silu_bwd_cuda,
     fused_causal_conv1d_silu_cuda,
 )
@@ -102,7 +103,11 @@ from pixel_heal_thyself_tpu_torch.ops.conv_fused import (
     fused_causal_conv1d_silu_torch,
 )
 from pixel_heal_thyself_tpu_torch.ops.ssd import ssd_pallas, ssd_pallas_torch
-from pixel_heal_thyself_tpu_torch.ops.ssd_cuda import ssd_pallas_cuda
+from pixel_heal_thyself_tpu_torch.ops.ssd_cuda import (
+    ssd_pallas_cuda,
+    ssd_scan_body,
+    ssd_scan_tc_smem,
+)
 from pixel_heal_thyself_tpu_torch.ops.ssd_mega import (
     MambaChainConfig,
     MambaChainFn,
@@ -1026,6 +1031,108 @@ def test_ssd_pallas_kernel_refuses(dev):
     args[0].requires_grad_(True)
     with pytest.raises(RuntimeError, match="not differentiable"):
         ssd_pallas_cuda(*args, chunk=64)
+
+
+def test_ssd_scan_body_matches_library(dev):
+    """K11's body gate in Python (`ssd_scan_body`) and in C
+    (`pht_ssd_scan_body`) agree, and so do the tensor-core kernels' shared
+    memory sizes (`pht_ssd_scan_tc_smem`)."""
+    from pixel_heal_thyself_tpu_torch import _build
+
+    lib = _build.lib()
+    for dtype in (torch.bfloat16, torch.float32):
+        for q in (8, 16, 32, 48, 64, 128, 144, 256):
+            for n in (8, 16, 32, 48, 64, 80, 128):
+                for p in (8, 16, 32, 64, 96, 128):
+                    c = "tc" if lib.pht_ssd_scan_body(q, n, p, int(dtype == torch.bfloat16)) \
+                        else "general"
+                    assert ssd_scan_body(dtype, n, p, q) == c, (dtype, q, n, p)
+                    if c == "tc":
+                        sizes = ssd_scan_tc_smem(n, p, q)
+                        assert (sizes["state"], sizes["output"]) == (
+                            lib.pht_ssd_scan_tc_smem(0, q, n, p),
+                            lib.pht_ssd_scan_tc_smem(1, q, n, p))
+
+
+# (b, l, heads, headdim, d_state, chunk): the prod shape; several chunks at
+# narrow heads; chunk 16 and 48; d_state above the chunk
+SCAN_TC_CASES = [(8, 16384, 16, 64, 64, 128), (2, 512, 4, 32, 16, 64), (1, 256, 3, 16, 48, 16),
+                 (2, 480, 5, 48, 32, 48), (1, 256, 2, 64, 64, 32)]
+
+
+@pytest.mark.parametrize("case", SCAN_TC_CASES)
+def test_ssd_pallas_tc_body(dev, case):
+    """K11's tensor-core body (bf16) against the plain version at SCAN_BOUNDS
+    (chip_smoke holds the prod shape to SSD_SCAN_TOL); two calls equal to
+    the bit; the same shape in fp32 takes the general body."""
+    b, l, h, p, n, chunk = case
+    rng = np.random.default_rng(11)
+    args = _scan_inputs(rng, dev, torch.bfloat16, b, l, h, p, n)
+    bodies = dict(ssd_pallas_cuda.body_launches)
+    got = ssd_pallas(*args, chunk=chunk)
+    again = ssd_pallas(*args, chunk=chunk)
+    assert ssd_pallas_cuda.body_launches["tc"] == bodies["tc"] + 2
+    ref = ssd_pallas_torch(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _assert_close(got, ref, *SCAN_BOUNDS[torch.bfloat16])
+    if l <= 4096:
+        a32 = tuple(t.float() if t.dim() > 1 else t for t in args)
+        bodies = dict(ssd_pallas_cuda.body_launches)
+        got = ssd_pallas(*a32, chunk=chunk)
+        assert ssd_pallas_cuda.body_launches["general"] == bodies["general"] + 1
+        _assert_close(got, ssd_pallas_torch(*a32, chunk=chunk), *SCAN_BOUNDS[torch.float32])
+
+
+def test_conv_bwd_body_matches_library(dev):
+    """K10's body gate in Python (`conv_bwd_body`) and in C
+    (`pht_conv_silu_bwd_body`) agree."""
+    from pixel_heal_thyself_tpu_torch import _build
+
+    lib = _build.lib()
+    for dtype in (torch.bfloat16, torch.float32):
+        for cols in (40, 100, 512, 2192, 2196):
+            for off in (0, 4, 8, 10, 17, 1024):
+                for width in (4, 8, 50, 200, 256, 1152):
+                    c = lib.pht_conv_silu_bwd_body(cols, off, width,
+                                                   int(dtype == torch.bfloat16))
+                    assert conv_bwd_body(dtype, cols, off, width) == ("vec" if c else "general")
+
+
+# (b, l, columns, offset, width, k, body in bf16, body in fp32): the prod
+# window; l not a multiple of the CTA's rows; an offset or a width that is
+# a multiple of 4 elements only; fewer rows than the ring
+CONV_BODY_CASES = [(8, 16384, 2192, 1024, 1152, 4, "vec", "vec"),
+                   (2, 300, 512, 128, 256, 4, "vec", "vec"),
+                   (2, 260, 516, 4, 256, 4, "general", "vec"),
+                   (1, 100, 512, 128, 252, 3, "general", "vec"),
+                   (1, 5, 40, 0, 40, 2, "vec", "vec")]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", CONV_BODY_CASES)
+def test_conv_bwd_bodies(dev, dtype, case):
+    """K10 takes its vec body where the window is 16-byte aligned and its
+    general body elsewhere (`body_launches`); either body's dx equals the
+    plain version's to the bit (both round each product and sum in the same
+    order); dw and db are f32 sums in another order (1e-4)."""
+    b, l, cols, off, width, k, body16, body32 = case
+    body = body16 if dtype == torch.bfloat16 else body32
+    rng = np.random.default_rng(12)
+    z = _rand(rng, (b, l, cols), dev, dtype, 0.5)
+    w = _rand(rng, (k, width), dev, torch.float32, 0.2)
+    bias = _rand(rng, (width,), dev, torch.float32, 0.1)
+    dy = _rand(rng, (b, l, width), dev, dtype)
+    before = dict(fused_causal_conv1d_silu_bwd_cuda.body_launches)
+    got = fused_causal_conv1d_silu_bwd_cuda(z, w, bias, dy, off, width)
+    again = fused_causal_conv1d_silu_bwd_cuda(z, w, bias, dy, off, width)
+    assert fused_causal_conv1d_silu_bwd_cuda.body_launches[body] == before[body] + 2
+    ref = fused_causal_conv1d_silu_bwd_torch(z, w, bias, dy, off, width)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert torch.equal(got[0], ref[0])
+    for g, r in zip(got[1:], ref[1:]):
+        _assert_close(g, r, 1e-4, 1e-4)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
