@@ -57,14 +57,18 @@ exits non-zero. Phases:
    1024, d_state 64, 16 heads, chunk 128) in bf16 and fp32, beside a
    control that the bf16 bound must fail (the plain chain with xBC and y
    rounded to bf16, which the TPU kernel never does), and K7's device time
-   per launch (torch.profiler); then three synthetic 512² frames denoised
+   per launch (torch.profiler); K7's prologue alone on its vec body against
+   its general body (xbc, dt and cum equal to the bit, both times and the
+   prologue's bound) in bf16 and fp32; then three synthetic 512² frames denoised
    by the prod-width MambaDenoiserNet (seeded random weights, bf16,
    replicate padding) through the device tiler. Checks the outputs, that
    every layer of every batch went through K7 (launch counter) on its
-   tensor-core body (per-body counters), and frame 0 against the model's
-   plain path.
+   tensor-core body with its prologue on the vec body (per-body counters),
+   and frame 0 against the model's plain path.
 8. Mamba training: K7's emit variant on the prod generator's own layer
-   inputs (its first training forward) within K7's bf16 bounds; K7's emit
+   inputs (its first training forward) within K7's bf16 bounds, and K7's
+   prologue on those inputs on its vec body equal to its general body to
+   the bit; K7's emit
    variant and the fused Mamba2 backward K8 against their plain versions
    at the prod shape in bf16 and fp32 (every gradient at its bound,
    MAMBA_BWD_TOL), K8's device time per launch, two K8 calls equal to the
@@ -72,13 +76,14 @@ exits non-zero. Phases:
    with the reverse carry of the state gradient cut); then the prod GAN
    step of phase 5 with the prod-width MambaDenoiserNet as the generator:
    2 warm-up and 5 timed steps, every layer of every step through K7-emit
-   and K8 (launch counters) on their tensor-core bodies (per-body
-   counters), and one step through the kernel and plain routes beside the
+   and K8 (launch counters) on their tensor-core bodies with their
+   prologues on the vec body (per-body counters), and one step through the
+   kernel and plain routes beside the
    witnesses that set MAMBA_STEP_GRAD_TOL.
 9. The literal Mamba route: the fused causal conv1d + SiLU forward K9 and
    backward K10 against their plain versions at zxbcdt [8, 16,384, 2192]
-   (window 1024 + 1152; K10 on its vec body in both dtypes, beside
-   cuDNN's grouped conv1d backward as its yardstick) and the chunked SSD
+   (window 1024 + 1152; both on their vec bodies in both dtypes, beside
+   cuDNN's grouped conv1d and its backward as yardsticks) and the chunked SSD
    scan K11 at x [8, 16,384, 16, 64] (bf16 on its tensor-core body, fp32
    on its general body, two bf16 calls equal to the bit), each in bf16
    and fp32 (CONV_TOL, SSD_SCAN_TOL), with K10's and K11's device time per
@@ -87,8 +92,8 @@ exits non-zero. Phases:
    batch 8 with the fused conv (`--pallas`) on a seeded prod-width
    MambaDenoiserNet (literal route): s/iter and peak memory of each, that
    every layer of every G forward ran K9 and of every backward K10, and
-   the `ssd_pallas` section K11 (launch counters), every K10 launch on its
-   vec body and every K11 launch on its tensor-core body (per-body
+   the `ssd_pallas` section K11 (launch counters), every K9 and K10 launch
+   on its vec body and every K11 launch on its tensor-core body (per-body
    counters); the G forward and the L1 forward + backward through the
    kernel route against the plain route (FRAME_TOL, MAMBA_STEP_GRAD_TOL).
 10. `fold_qkv`: one L1 forward + backward of the prod-width AFGSANet on
@@ -349,8 +354,9 @@ def counters() -> dict:
 def reset_counts() -> None:
     for fn in counters().values():
         fn.launches = 0
-        for body in getattr(fn, "body_launches", {}):
-            fn.body_launches[body] = 0
+        for attr in ("body_launches", "prologue_body_launches"):
+            for body in getattr(fn, attr, {}):
+                getattr(fn, attr)[body] = 0
 
 
 def read_counts() -> dict:
@@ -360,22 +366,28 @@ def read_counts() -> dict:
 # the kernels with two bodies → the body every prod-shape launch must take:
 # K2, K3, K5 and K6 the Hopper wgmma body (widths 256), K7, K7e and K8 the
 # tensor-core body (d_state 64, headdim 64, chunk 128), K1 and K4 the
-# tensor-core body (bf16, head_ch 64, block 8), K10 the vec body (a
+# tensor-core body (bf16, head_ch 64, block 8), K9 and K10 the vec body (a
 # 16-byte aligned window), K11 the tensor-core body (bf16, chunk 128)
 PROD_BODIES = {"K1": "tc", "K2": "sm90", "K3": "sm90", "K4": "tc", "K5": "sm90", "K6": "sm90",
-               "K7": "tc", "K7e": "tc", "K8": "tc", "K10": "vec", "K11": "tc"}
+               "K7": "tc", "K7e": "tc", "K8": "tc", "K9": "vec", "K10": "vec", "K11": "tc"}
+# the kernels whose first launch is K7's prologue, and the body every prod
+# prologue must take (the 16-byte aligned xBC window)
+PROLOGUE_BODIES = {"K7": "vec", "K7e": "vec", "K8": "vec"}
 
 
 def check_bodies(tag: str, launches: dict) -> None:
-    """The launches of each kernel of PROD_BODIES by body: every one must
-    have taken its prod body, none the general one."""
+    """The launches of each kernel of PROD_BODIES by body, and of each
+    prologue of PROLOGUE_BODIES: every one must have taken its prod body,
+    none the general one."""
     fns = counters()
-    for name, body in PROD_BODIES.items():
-        bodies = dict(fns[name].body_launches)
-        log(f"[{tag}] {name} launches by body: {bodies} (total {launches[name]})")
-        if bodies["general"] or bodies[body] != launches[name]:
-            raise AssertionError(f"[{tag}] {name}: {bodies['general']} prod-shape launches "
-                                 f"took the general body ({bodies})")
+    for attr, want in (("body_launches", PROD_BODIES),
+                       ("prologue_body_launches", PROLOGUE_BODIES)):
+        for name, body in want.items():
+            bodies = dict(getattr(fns[name], attr))
+            log(f"[{tag}] {name} {attr.replace('_', ' ')}: {bodies} (total {launches[name]})")
+            if bodies["general"] or bodies[body] != launches[name]:
+                raise AssertionError(f"[{tag}] {name}: {bodies['general']} prod-shape launches "
+                                     f"took the general body ({attr} {bodies})")
 
 
 def expect_body(name: str, body: str, run):
@@ -815,6 +827,39 @@ def log_per_launch(name: str, run, groups=None) -> None:
         + ", ".join(f"{label} {ms:.4f}" for label, ms in rows.items()))
 
 
+def prologue_bodies(tag: str, zx, params, dims: dict, timed: bool = True) -> None:
+    """K7's prologue alone (`ssd_prologue_cuda`) on its vec body against its
+    general body on the same inputs: xbc, dt and cum must be equal to the
+    bit. With `timed`, both bodies' CUDA-event times and the prologue's
+    bound: it reads the xBC window and the dt column of zxbcdt and the
+    parameters, and writes the f32 xbc, dt and cum."""
+    from pixel_heal_thyself_tpu_torch.measure import bound, cuda_ms
+    from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import ssd_prologue_cuda
+
+    run = {body: partial(ssd_prologue_cuda, zx, *params[:4], **dims, body=body)
+           for body in ("vec", "general")}
+    got = {body: fn() for body, fn in run.items()}
+    torch.cuda.synchronize()
+    for name, v, g in zip(("xbc", "dt", "cum"), got["vec"], got["general"], strict=True):
+        if not torch.equal(v, g):
+            raise AssertionError(f"K7 prologue {tag}: the vec body's {name} differs from the "
+                                 "general body's")
+    if not timed:
+        log(f"[kernels] K7 prologue {tag}: vec body equal to the general body to the bit "
+            "(xbc, dt, cum)")
+        return
+    b, l, _ = zx.shape
+    k, dc = params[0].shape
+    h = params[2].shape[0]
+    moved = b * l * (dc + h) * zx.element_size() + nbytes(*params[:4]) + nbytes(*got["vec"])
+    res = bound(moved, 2 * b * l * dc * k, torch.float32)
+    del got
+    ms = {body: cuda_ms(fn, 20) for body, fn in run.items()}
+    log(f"[kernels] K7 prologue {tag}: vec body equal to the general body to the bit (xbc, dt, "
+        f"cum); vec {ms['vec']:.4f} ms, general {ms['general']:.4f} ms, bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}: {moved} B)")
+
+
 def phase_mamba(device, frames) -> tuple[dict, dict]:
     """Phase 7. Returns (K7's row at the prod serving shape, the launch
     counts of the Mamba serving run)."""
@@ -841,6 +886,9 @@ def phase_mamba(device, frames) -> tuple[dict, dict]:
         )
     log_per_launch(f"K7 bf16 ({b} × {l} tokens)",
                    lambda: fused_mamba_chain_cuda(zx, *params, **dims))
+    for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        prologue_bodies(f"{label} ({b} × {l} tokens, xBC width {di + 2 * n})", zx.to(dtype),
+                        params, dims)
     ctl = deviation(bf16_intermediates_chain(zx, *params, **dims),
                     fused_mamba_chain_torch(zx, *params, **dims))
     log(f"[kernels] control: plain chain with xBC and y rounded to bf16 vs plain: "
@@ -963,6 +1011,8 @@ def phase_mamba_kernels(device) -> dict:
             for name, dv in devs.items()) + f" (bounds {MAMBA_TOL['bf16']})")
         for name, dv in devs.items():
             check(f"K7 emit, generator layer {i} {name}", dv, MAMBA_TOL["bf16"])
+        prologue_bodies(f"on the prod generator's layer {i} inputs", args[0], args[1:], dims,
+                        timed=False)
         del got, ref, args
     zx, params, dims = mamba_inputs(device)
     b, l, _ = zx.shape
@@ -1273,7 +1323,7 @@ def f32_carry_scan(x, dt, A, B, C, D, chunk: int):
 
 def phase_literal_kernels(device) -> dict:
     """Phase 9, kernels: K9 and K10 at the prod zxbcdt, K11 at the prod SSD
-    shape, in bf16 and fp32 (K10 on its vec body, K11 bf16 on its
+    shape, in bf16 and fp32 (K9 and K10 on their vec bodies, K11 bf16 on its
     tensor-core body and fp32 on its general body), K10's and K11's device
     time per launch, and K11's f32-carry control. Returns the bf16 rows by
     name."""
@@ -1308,14 +1358,17 @@ def phase_literal_kernels(device) -> dict:
         # conv1d on the contiguous window, zero-padded both sides, no SiLU
         xw = z[..., di:di + width].transpose(1, 2).contiguous()
         wc, bc = conv_w.t().unsqueeze(1).to(dtype).contiguous(), conv_b.to(dtype)
-        k9 = compare(
+        k9 = expect_body("K9", "vec", lambda: compare(
             f"K9 fused conv1d + SiLU {tag}",
             lambda a=fwd: fused_causal_conv1d_silu_cuda(*a),
             lambda a=fwd: fused_causal_conv1d_silu_torch(*a),
             CONV_TOL[label], iters=20, plain_iters=3,
             work=(2 * win_bytes + nbytes(conv_w, conv_b), 2 * b * l * width * k, dtype),
             library=lambda: F.conv1d(xw, wc, bc, padding=k - 1, groups=width),
-        )
+        ))
+        y_err = (fused_causal_conv1d_silu_cuda(*fwd).float()
+                 - fused_causal_conv1d_silu_torch(*fwd).float()).abs().max().item()
+        log(f"[kernels] K9 {label}: y max_abs_err {y_err:.6g} against the plain version")
         bwd = (z, conv_w, conv_b, dy.to(dtype), di, width)
         # K10's yardstick: cuDNN's grouped conv1d backward (input, weight and
         # bias gradients) for the same dpre, which it is handed: the SiLU

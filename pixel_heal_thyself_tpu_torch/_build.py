@@ -89,8 +89,14 @@ _SIGNATURES = {
     "pht_sum_splits": [_P, _P, ctypes.c_longlong, _I, _P],
     # zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w, xbc, dt, cum, states,
     # y, out, states_emit, B, L, d_inner, d_state, heads, d_conv, chunk,
-    # is_bf16, stream
-    "pht_ssd_chain_fwd": [_P] * 14 + [_I] * 8 + [_P],
+    # is_bf16, prologue_vec, stream
+    "pht_ssd_chain_fwd": [_P] * 14 + [_I] * 9 + [_P],
+    # W, d_inner, dc, is_bf16: the body K7's prologue takes (1 vec)
+    "pht_ssd_prologue_body": [_I] * 4,
+    # zxbcdt, conv_w, conv_b, dt_bias, A, xbc, dt, cum, B, L, d_inner,
+    # d_state, heads, d_conv, chunk, is_bf16, vec, stream: the prologue alone
+    # (comparisons)
+    "pht_ssd_prologue": [_P] * 8 + [_I] * 9 + [_P],
     # chunk, d_state, headdim: the body K7 and K8 take (1 tensor cores)
     "pht_ssd_chain_body": [_I] * 3,
     # chunk, d_state, headdim, kernel: a tensor-core kernel's shared memory
@@ -100,10 +106,12 @@ _SIGNATURES = {
     # zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w, states, dy; scratch xbc,
     # dt, cum, y, dstate, W, dS, dcum, dxbc, wb_part, nw_part, pv_part;
     # dzx, dwb, dpv, dnw, B, L, d_inner, d_state, heads, d_conv, chunk,
-    # is_bf16, stream
-    "pht_ssd_chain_bwd": [_P] * 25 + [_I] * 8 + [_P],
-    # zxbcdt, wb, y, B, L, W, offset, width, k, rows, is_bf16, stream
-    "pht_conv_silu_fwd": [_P] * 3 + [_I] * 8 + [_P],
+    # is_bf16, prologue_vec, stream
+    "pht_ssd_chain_bwd": [_P] * 25 + [_I] * 9 + [_P],
+    # zxbcdt, wb, y, B, L, W, offset, width, k, rows, is_bf16, vec, stream
+    "pht_conv_silu_fwd": [_P] * 3 + [_I] * 9 + [_P],
+    # W, offset, width, is_bf16: the body K9 takes (1 vec)
+    "pht_conv_silu_fwd_body": [_I] * 4,
     # zxbcdt, wb, dy, dx, part, dwb, B, L, W, offset, width, k, rows, is_bf16,
     # vec, stream
     "pht_conv_silu_bwd": [_P] * 6 + [_I] * 9 + [_P],

@@ -1,23 +1,27 @@
-"""The chunked SSD scan K11 and the fused conv1d + SiLU backward K10, timed
-launch by launch on the card at the prod shapes:
+"""The chunked SSD scan K11, the fused conv1d + SiLU forward K9 and
+backward K10, and K7's prologue, timed launch by launch on the card at the
+prod shapes:
 
     python -m pixel_heal_thyself_tpu_torch.bench_scan
 
 K11 at x [8, 16,384, 16, 64], d_state 64, chunk 128 (the `ssd_pallas`
-section of `bench_mamba`); K10 at zxbcdt [8, 16,384, 2192] with the window
-[1024, 2176) and d_conv 4 (one prod Mamba2 layer's backward on the literal
-route). Both in bf16 and fp32, through the port's wrappers: the device time
-per call of each launch (`profile_serving.per_launch`) and the CUDA-event
-time per call, with the body each launch took. Prints the card's name and
-power limit first and last.
+section of `bench_mamba`); K9 and K10 at zxbcdt [8, 16,384, 2192] with the
+window [1024, 2176) and d_conv 4 (one prod Mamba2 layer on the literal
+route; K9 also at 64, 128 and 256 rows a CTA); K7's prologue on both its
+bodies at the prod Mamba2 layer (the same zxbcdt, chunk 128). In bf16 and
+fp32, through the port's wrappers: the device time per call of each launch
+(`profile_serving.per_launch`) and the CUDA-event time per call, with the
+body each launch took. Prints the card's name and power limit first and
+last.
 
     python -m pixel_heal_thyself_tpu_torch.bench_scan --variants
 
-builds `csrc/ssd_scan.cu` and `conv_silu.cu` (with `attention_fwd.cu` for
-the error strings) once per variant (or those named after the flag, with
-`default`) into `build/scan_bench/`, prints the CTAs an SM holds of K11's
-tensor-core kernels, and times the bf16 tensor-core body of K11 and the
-vec body of K10 (bf16 and fp32) through each, in turns (the variants in
+builds `csrc/ssd_scan.cu`, `conv_silu.cu` and `ssd_fwd.cu` (with
+`attention_fwd.cu` for the error strings) once per variant (or those
+named after the flag, with `default`) into `build/scan_bench/`, prints the
+CTAs an SM holds of K11's tensor-core kernels, and times the bf16
+tensor-core body of K11, the vec bodies of K9 and K10 (bf16 and fp32) and
+the prologue's vec body (bf16) through each, in turns (the variants in
 order, then in reverse), with K11's deviation from its plain version:
 
 - `default`: the shipped kernels;
@@ -27,7 +31,12 @@ order, then in reverse), with K11's deviation from its plain version:
 - `scan_no_exp`, `scan_no_mma` (wrong results): K11's chunk output with its
   decays formed without their exps, K11's tensor-core kernels without
   their mma.sync (`PHT_SCAN_DIAG` 1, 2);
-- `conv_ch2`: K10's vec body at 2 channels a thread, not 4 (`PHT_CONV_VEC_CH`).
+- `conv_ch2`: K10's vec body at 2 channels a thread, not 4 (`PHT_CONV_VEC_CH`);
+- `ring4`, `ring16`, `ring32`: the copy rings of K9's and the prologue's
+  vec bodies 4, 16 or 32 rows deep, not 8 (`PHT_CONV_FWD_RING`,
+  `PHT_PROLOGUE_RING`);
+- `pro_dt_serial`: the prologue's dt/cum CTA walking each head's rows with
+  one thread, as the general body does (`PHT_PROLOGUE_DT_SERIAL`).
 """
 
 from __future__ import annotations
@@ -43,8 +52,13 @@ import torch
 
 from pixel_heal_thyself_tpu_torch import _build
 from pixel_heal_thyself_tpu_torch.measure import cuda_ms
-from pixel_heal_thyself_tpu_torch.ops.conv_cuda import fused_causal_conv1d_silu_bwd_cuda
+from pixel_heal_thyself_tpu_torch.ops import conv_cuda
+from pixel_heal_thyself_tpu_torch.ops.conv_cuda import (
+    fused_causal_conv1d_silu_bwd_cuda,
+    fused_causal_conv1d_silu_cuda,
+)
 from pixel_heal_thyself_tpu_torch.ops.ssd_cuda import ssd_pallas_cuda
+from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import ssd_prologue_cuda
 from pixel_heal_thyself_tpu_torch.profile_serving import GROUPS, per_launch
 
 # (b, l, heads, headdim, d_state, chunk) of K11; (b, l, columns, offset,
@@ -53,9 +67,16 @@ SCAN = (8, 16384, 16, 64, 64, 128)
 CONV = (8, 16384, 2192, 1024, 1152, 4)
 # name → nvcc flags
 VARIANTS = {"default": [], "scan_rn": ["-DPHT_SCAN_RN=1"], "scan_no_exp": ["-DPHT_SCAN_DIAG=1"],
-            "scan_no_mma": ["-DPHT_SCAN_DIAG=2"], "conv_ch2": ["-DPHT_CONV_VEC_CH=2"]}
-SOURCES = ("ssd_scan.cu", "conv_silu.cu", "attention_fwd.cu")
-ENTRIES = ("pht_ssd_scan_fwd", "pht_conv_silu_bwd", "pht_ssd_scan_tc_occupancy")
+            "scan_no_mma": ["-DPHT_SCAN_DIAG=2"], "conv_ch2": ["-DPHT_CONV_VEC_CH=2"],
+            "ring4": ["-DPHT_CONV_FWD_RING=4", "-DPHT_PROLOGUE_RING=4"],
+            "ring16": ["-DPHT_CONV_FWD_RING=16", "-DPHT_PROLOGUE_RING=16"],
+            "ring32": ["-DPHT_CONV_FWD_RING=32", "-DPHT_PROLOGUE_RING=32"],
+            "pro_dt_serial": ["-DPHT_PROLOGUE_DT_SERIAL=1"]}
+SOURCES = ("ssd_scan.cu", "conv_silu.cu", "ssd_fwd.cu", "attention_fwd.cu")
+ENTRIES = ("pht_ssd_scan_fwd", "pht_conv_silu_fwd", "pht_conv_silu_bwd", "pht_ssd_prologue",
+           "pht_ssd_scan_tc_occupancy")
+# the prod Mamba2 layer of K7's prologue: d_inner, d_state, headdim, chunk
+PROLOGUE = dict(d_inner=1024, d_state=64, headdim=64, chunk=128)
 OUT = _build.BUILD_DIR.parent / "scan_bench"
 
 
@@ -82,6 +103,19 @@ def conv_inputs(device, b: int, l: int, ctot: int, width: int, k: int, seed: int
             torch.randn(k, width, generator=g, device=device) * 0.2,
             torch.randn(width, generator=g, device=device) * 0.1,
             torch.randn(b, l, width, generator=g, device=device))
+
+
+def prologue_inputs(device, b: int, l: int, seed: int = 4321) -> tuple:
+    """Seeded bf16 zxbcdt [b, l, 2192] and f32 conv_w, conv_b, dt_bias, A of
+    the prod Mamba2 layer (as `chip_smoke.mamba_inputs`)."""
+    di, n = PROLOGUE["d_inner"], PROLOGUE["d_state"]
+    h, dc = di // PROLOGUE["headdim"], di + 2 * n
+    g = torch.Generator(device=device).manual_seed(seed)
+    return ((torch.randn(b, l, di + dc + h, generator=g, device=device) * 0.5).bfloat16(),
+            torch.randn(4, dc, generator=g, device=device) * 0.2,
+            torch.randn(dc, generator=g, device=device) * 0.1,
+            torch.rand(h, generator=g, device=device) * 3 - 4,
+            -torch.exp(torch.rand(h, generator=g, device=device) * 1.5))
 
 
 def build(name: str, flags: list) -> ctypes.CDLL:
@@ -129,6 +163,7 @@ def variants(dev, only=None) -> None:
     convs = {label: (zx.to(dtype), w, bias, dy.to(dtype), off, width)
              for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32))}
     del zx, dy
+    pro = prologue_inputs(dev, cb, cl)
     names = only or list(VARIANTS)
     for order in (names, list(reversed(names))):
         for name in order:
@@ -139,9 +174,14 @@ def variants(dev, only=None) -> None:
             del err
             timed(f"{name:10s} K11 bf16", lambda: ssd_pallas_cuda(*scan, chunk=q), ssd_pallas_cuda)
             for label, conv in convs.items():
+                timed(f"{name:10s} K9 {label}",
+                      lambda a=conv: fused_causal_conv1d_silu_cuda(*a[:3], *a[4:]),
+                      fused_causal_conv1d_silu_cuda)
                 timed(f"{name:10s} K10 {label}",
                       lambda a=conv: fused_causal_conv1d_silu_bwd_cuda(*a),
                       fused_causal_conv1d_silu_bwd_cuda)
+            timed(f"{name:10s} K7 prologue bf16 vec",
+                  lambda: ssd_prologue_cuda(*pro, **PROLOGUE, body="vec"), ssd_prologue_cuda)
     _build._lib = None
 
 
@@ -174,15 +214,28 @@ def main() -> None:
     scan = scan_inputs(dev, b, l, h, p, n)
     cb, cl, ctot, off, width, k = CONV
     zx, w, bias, dy = conv_inputs(dev, cb, cl, ctot, width, k)
+    rows_default = conv_cuda.ROWS
     for label, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
         args = tuple(t.to(dtype) if t.dim() > 1 else t for t in scan)
         timed(f"K11 {label} x {tuple(args[0].shape)}, d_state {n}, chunk {q}",
               lambda a=args: ssd_pallas_cuda(*a, chunk=q), ssd_pallas_cuda)
         conv = (zx.to(dtype), w, bias, dy.to(dtype), off, width)
-        timed(f"K10 {label} zxbcdt {tuple(zx.shape)}, window [{off}, {off + width}), k {k}",
-              lambda a=conv: fused_causal_conv1d_silu_bwd_cuda(*a),
+        window = f"zxbcdt {tuple(zx.shape)}, window [{off}, {off + width}), k {k}"
+        for rows in (64, 128, 256):
+            conv_cuda.ROWS = rows
+            timed(f"K9 {label} {window}, {rows} rows a CTA",
+                  lambda a=conv: fused_causal_conv1d_silu_cuda(*a[:3], *a[4:]),
+                  fused_causal_conv1d_silu_cuda)
+        conv_cuda.ROWS = rows_default
+        timed(f"K10 {label} {window}", lambda a=conv: fused_causal_conv1d_silu_bwd_cuda(*a),
               fused_causal_conv1d_silu_bwd_cuda)
-        del args, conv
+        pro = prologue_inputs(dev, cb, cl)
+        pro = (pro[0].to(dtype), *pro[1:])
+        for body in ("vec", "general"):
+            timed(f"K7 prologue {label} {body} body, {window}",
+                  lambda p=pro, bd=body: ssd_prologue_cuda(*p, **PROLOGUE, body=bd),
+                  ssd_prologue_cuda)
+        del args, conv, pro
     print(smi)
 
 

@@ -17,9 +17,9 @@
 // (ops/conv_fused.py), with no FMA contraction, and silu(p) = p * (1 / (1 +
 // exp(-p))) as PyTorch's sigmoid computes it, so y and dx are the plain
 // versions' values on the card; only the order of the dw/db sums differs.
-// K7's prologue (ssd_chain.cuh) computes the same conv with FMAs into f32;
-// these kernels keep its design: one thread walks one channel down the rows
-// with the k - 1 previous raw rows in registers (k a template argument).
+// K7's prologue (ssd_chain.cuh) computes the same conv with FMAs into f32.
+// The general bodies walk one channel a thread down the rows with the k - 1
+// previous raw rows in registers (k a template argument).
 //
 // Design. The TPU kernels walk the row tiles of a sequence in a sequential
 // grid, DMA an 8-row context beside each tile and accumulate dw/db per batch
@@ -35,24 +35,27 @@
 // C 1152 of W 2192, k 4, bf16) K9 reads the window and writes y (604 MB:
 // 0.18 ms at 3.35 TB/s) and K10 reads the window and dy and writes dx
 // (906 MB: 0.27 ms), against 0.15 and 0.3 GFLOP. In K9 and K10's general
-// body a warp reads 32 consecutive channels of a row (64 bytes in bf16).
+// body a warp reads 32 consecutive channels of a row (64 bytes in bf16),
+// one 2-byte load a thread and row, from rows 4,384 bytes apart.
 //
-// K10 has a second body, "vec", for windows whose offset, row stride and
+// Both have a second body, "vec", for windows whose offset, row stride and
 // width are multiples of 16 bytes (`vec_body`; the prod window: 2,048,
 // 4,384 and 2,304 bytes): a thread takes 4 channels (8 bytes of bf16, 16
-// of f32), reads the window row and dy and writes dx that many bytes at a
-// time, and keeps kVecRing rows of its window and dy in flight through its
-// own slots of a cp.async ring in shared memory (a thread reads back only
-// what it copied, so no barrier is needed). Its arithmetic is the general
-// body's, channel by channel, in the same order. 8 bf16 channels a thread
-// (16-byte rows) took 181 registers and ran twice as slow (PERF.md): the
-// body is held back by its instructions (about 45 a channel and row, with
-// the sigmoid's exp and division), not by its 906 MB.
+// of f32), reads the window row (and K10 dy) and writes y (dx) that many
+// bytes at a time, and keeps rows of its window (and dy) in flight through
+// its own slots of a cp.async ring in shared memory (a thread reads back
+// only what it copied, so no barrier is needed; K9's walk is
+// conv_rows.cuh's). The CTAs are the whole warps that leave the fewest
+// lanes idle (96 threads at width 1152). Their arithmetic is the general
+// bodies', channel by channel, in the same order, so y and dx are the same
+// bits. 8 bf16 channels a thread (16-byte rows) took K10 181 registers and
+// ran twice as slow (PERF.md): the vec bodies are held back by their
+// instructions (K10 about 45 a channel and row, K9 about 25, with the
+// sigmoid's exp and division) more than by their bytes.
 
 #include "common.cuh"
+#include "conv_rows.cuh"
 #include "sm90_gemm.cuh"  // cp.async
-
-#include <type_traits>
 
 namespace {
 
@@ -194,35 +197,9 @@ __host__ __device__ inline bool vec_body(int W, int off, int C, int esize) {
   return esize > 0 && off % (16 / esize) == 0 && W % (16 / esize) == 0 && C % (16 / esize) == 0;
 }
 
-// kVecCh values of T as they sit in memory, as floats, and back (rounded
-// to nearest even)
+// kVecCh values of T as they sit in memory, as floats, and back
 template <typename T>
-struct VecOf {
-  static constexpr int kBytes = kVecCh * sizeof(T);
-  using Raw = std::conditional_t<kBytes == 16, uint4,
-                                 std::conditional_t<kBytes == 8, uint2, uint32_t>>;
-  __device__ static void get(const Raw& w, float (&f)[kVecCh]) {
-    const T* v = reinterpret_cast<const T*>(&w);
-#pragma unroll
-    for (int i = 0; i < kVecCh; ++i) f[i] = to_f32(v[i]);
-  }
-  __device__ static Raw put(const float (&f)[kVecCh]) {
-    Raw w;
-    T* v = reinterpret_cast<T*>(&w);
-#pragma unroll
-    for (int i = 0; i < kVecCh; ++i) v[i] = from_f32<T>(f[i]);
-    return w;
-  }
-  __device__ static void copy(Raw* dst, const void* src, bool valid) {
-    if constexpr (kBytes == 16) {
-      sm90::cp_async16(sm90::smem_u32(dst), src, valid);
-    } else {
-      asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(sm90::smem_u32(dst)),
-                   "l"(src), "n"(kBytes), "r"(valid ? kBytes : 0)
-                   : "memory");
-    }
-  }
-};
+using VecOf = rows::Vec<T, kVecCh>;
 
 // One thread: kVecCh channels of one (batch, row tile); the CTA's threads
 // take consecutive channel groups. The ring holds, per stage, the window
@@ -261,15 +238,7 @@ __global__ void __launch_bounds__(256) conv_silu_bwd_vec_kernel(
     sm90::cp_async_commit();
   }
   float w[K][N], bias[N];
-#pragma unroll
-  for (int j = 0; j <= K; ++j)
-#pragma unroll
-    for (int c = 0; c < N; c += 2) {
-      const float2 v = __ldg(reinterpret_cast<const float2*>(wb + (long)j * d.C + ch + c));
-      float* dst = j < K ? w[j] : bias;
-      dst[c] = v.x;
-      dst[c + 1] = v.y;
-    }
+  rows::load_taps<N, K>(wb, wb + (long)K * d.C, d.C, ch, w, bias);
   // raw[s]: the raw row in slot s; rows t0 - K + 1 .. t0 - 1 sit in slots 1 .. K - 1
   float raw[K][N], dpre[K][N], dw[K][N], db[N];
 #pragma unroll
@@ -341,6 +310,52 @@ __global__ void __launch_bounds__(256) conv_silu_bwd_vec_kernel(
           make_float2(j < K ? dw[j][c] : db[c], j < K ? dw[j][c + 1] : db[c + 1]);
 }
 
+// ---- K9, the vec body -------------------------------------------------------------
+// rows of the window in flight per thread (bench_scan.py's variants change it)
+#ifndef PHT_CONV_FWD_RING
+#define PHT_CONV_FWD_RING 8
+#endif
+constexpr int kFwdRing = PHT_CONV_FWD_RING;
+
+// One thread: 4 channels of one (batch, row tile), walked as rows::walk
+// walks them; the CTA's threads take consecutive channel groups; the ring
+// is [kFwdRing][blockDim] words of dynamic shared memory. The arithmetic is
+// the general body's (conv_pre, then y = pre * sigmoid(pre)), channel by
+// channel, and y leaves 8 (bf16) or 16 (f32) bytes at a time.
+template <typename T, int K>
+__global__ void __launch_bounds__(256) conv_silu_fwd_vec_kernel(
+    const T* __restrict__ zx, const float* __restrict__ wb, T* __restrict__ y, ConvDims d) {
+  constexpr int N = 4;
+  using V = rows::Vec<T, N>;
+  using Raw = typename V::Raw;
+  extern __shared__ __align__(16) unsigned char ring_raw[];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int grp = blockIdx.x * nt + tid;
+  if (grp >= d.C / N) return;
+  const int ch = grp * N, b = blockIdx.z;
+  const int t0 = blockIdx.y * d.rows, t1 = min(d.L, t0 + d.rows);
+  T* out = y + (long)b * d.L * d.C + ch;
+  float w[K][N], bias[N];
+  rows::load_taps<N, K>(wb, wb + (long)K * d.C, d.C, ch, w, bias);
+  rows::walk<T, N, K, kFwdRing>(
+      zx + (long)b * d.L * d.W + d.off + ch, d.W, t0, t1, reinterpret_cast<Raw*>(ring_raw) + tid,
+      nt, [&](int t, const float (&xr)[N], const float (&win)[K][N]) {
+        float o[N];
+#pragma unroll
+        for (int c = 0; c < N; ++c) {
+          float wc[K], winc[K];
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            wc[j] = w[j][c];
+            winc[j] = win[j][c];
+          }
+          const float pre = conv_pre<K>(wc, winc, xr[c], bias[c]);
+          o[c] = __fmul_rn(pre, sigmoid_rn(pre));
+        }
+        *reinterpret_cast<Raw*>(out + (long)t * d.C) = V::put(o);
+      });
+}
+
 // out[i] = sum_s part[s * len + i] in a fixed order: warp v of 8 adds the
 // splits s = v, v + 8, ... in turn, then the 8 sums are added in warp order.
 __global__ void __launch_bounds__(256) sum_tiles_kernel(const float* __restrict__ part,
@@ -374,33 +389,32 @@ ConvDims dims(int B, int L, int W, int off, int C, int k, int rows) {
   return d;
 }
 
-template <typename T, int K>
-int launch_fwd(const void* zx, const void* wb, void* y, ConvDims d, cudaStream_t s) {
-  const dim3 grid((d.C + kThreads - 1) / kThreads, d.tiles, d.B);
-  conv_silu_fwd_kernel<T, K><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(zx), static_cast<const float*>(wb), static_cast<T*>(y), d);
-  return (int)cudaGetLastError();
-}
 
-// The vec body's CTA: whole warps, at most 8, that leave the fewest of the
-// channel groups' threads idle (the most warps among equals).
-inline int vec_threads(int groups) {
-  int best = 256, idle = -1;
-  for (int nt = 256; nt >= 64; nt -= 32) {
-    const int waste = (groups + nt - 1) / nt * nt - groups;
-    if (idle < 0 || waste < idle) {
-      best = nt;
-      idle = waste;
-    }
+template <typename T, int K>
+int launch_fwd(const void* zx, const void* wb, void* y, ConvDims d, int vec, cudaStream_t s) {
+  if (vec) {
+    const int groups = d.C / 4, nt = rows::cta_threads(groups);
+    const size_t smem = (size_t)kFwdRing * nt * sizeof(typename rows::Vec<T, 4>::Raw);
+    const dim3 grid((groups + nt - 1) / nt, d.tiles, d.B);
+    cudaError_t err = cudaFuncSetAttribute(conv_silu_fwd_vec_kernel<T, K>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    conv_silu_fwd_vec_kernel<T, K><<<grid, nt, smem, s>>>(
+        static_cast<const T*>(zx), static_cast<const float*>(wb), static_cast<T*>(y), d);
+  } else {
+    const dim3 grid((d.C + kThreads - 1) / kThreads, d.tiles, d.B);
+    conv_silu_fwd_kernel<T, K><<<grid, kThreads, 0, s>>>(
+        static_cast<const T*>(zx), static_cast<const float*>(wb), static_cast<T*>(y), d);
   }
-  return best;
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int K>
 int launch_bwd(const void* zx, const void* wb, const void* dy, void* dx, void* part, void* dwb,
                ConvDims d, int vec, cudaStream_t s) {
   if (vec) {
-    const int groups = d.C / kVecCh, nt = vec_threads(groups);
+    const int groups = d.C / kVecCh, nt = rows::cta_threads(groups);
     const size_t smem = (size_t)kVecRing * 2 * nt * sizeof(typename VecOf<T>::Raw);
     const dim3 grid((groups + nt - 1) / nt, d.tiles, d.B);
     cudaError_t err = cudaFuncSetAttribute(conv_silu_bwd_vec_kernel<T, K>,
@@ -441,8 +455,8 @@ int launch_bwd(const void* zx, const void* wb, const void* dy, void* dx, void* p
   }
 
 template <typename T>
-int fwd(const void* zx, const void* wb, void* y, ConvDims d, cudaStream_t s) {
-  PHT_CONV_DISPATCH(launch_fwd, T, zx, wb, y, d, s)
+int fwd(const void* zx, const void* wb, void* y, ConvDims d, int vec, cudaStream_t s) {
+  PHT_CONV_DISPATCH(launch_fwd, T, zx, wb, y, d, vec, s)
 }
 
 template <typename T>
@@ -455,14 +469,24 @@ int bwd(const void* zx, const void* wb, const void* dy, void* dx, void* part, vo
 
 extern "C" {
 
+// 1: K9's vec body takes this window (row stride W, offset, width) in this
+// dtype; 0: the general body. The same rule as K10's.
+int pht_conv_silu_fwd_body(int W, int off, int C, int is_bf16) {
+  return vec_body(W, off, C, is_bf16 ? 2 : 4) ? 1 : 0;
+}
+
 // zxbcdt [B, L, W] (bf16 or f32); wb [k + 1, C] f32 (taps, then the bias);
-// y [B, L, C] in zxbcdt's dtype. A CTA takes `rows` rows.
+// y [B, L, C] in zxbcdt's dtype. A CTA takes `rows` rows. vec: the body
+// (pht_conv_silu_fwd_body); a window or tensor the vec body does not take
+// is refused before anything launches.
 int pht_conv_silu_fwd(const void* zx, const void* wb, void* y, int B, int L, int W, int off,
-                      int C, int k, int rows, int is_bf16, void* stream) {
+                      int C, int k, int rows, int is_bf16, int vec, void* stream) {
   const ConvDims d = dims(B, L, W, off, C, k, rows);
-  if (!valid(d)) return (int)cudaErrorInvalidValue;
+  if (!valid(d) || (vec && (!pht_conv_silu_fwd_body(W, off, C, is_bf16) || !aligned16(zx) ||
+                            !aligned16(wb) || !aligned16(y))))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? fwd<bf16>(zx, wb, y, d, s) : fwd<float>(zx, wb, y, d, s);
+  return is_bf16 ? fwd<bf16>(zx, wb, y, d, vec, s) : fwd<float>(zx, wb, y, d, vec, s);
 }
 
 // 1: K10's vec body takes this window (row stride W, offset, width) in

@@ -1142,7 +1142,7 @@ template <typename T>
 int launch_bwd(const T* zx, const float* conv_w, const float* conv_b, const float* dt_bias,
                const float* A, const float* D, const float* norm_w, const T* states,
                const T* dy, const Bufs& w, T* dzx, float* dwb, float* dpv, float* dnw, Dims d,
-               cudaStream_t s) {
+               int pro_vec, cudaStream_t s) {
   const bool tc = tc_body(d.q, d.n, d.p);
   const size_t f = sizeof(float);
   const size_t out_smem = (tc ? output_tc_floats(d.q, d.n, d.p) : output_smem_floats(d.q, d.n, d.p)) * f;
@@ -1157,7 +1157,8 @@ int launch_bwd(const T* zx, const float* conv_w, const float* conv_b, const floa
   if (out_smem > kMaxSmem || norm_smem > 48 * 1024 || local_smem > kMaxSmem ||
       intra_smem > kMaxSmem || rest_smem > kMaxSmem || bc_smem > kMaxSmem ||
       d.k > kMaxConv || d.k < 1 || d.q % 8 || d.n % 4 || d.p % 4 || pc4 > 32 ||
-      (pc4 & (pc4 - 1)) || 2 * (d.q / 4) * (d.n / 4) > kMaxBcTiles * kThreads)
+      (pc4 & (pc4 - 1)) || 2 * (d.q / 4) * (d.n / 4) > kMaxBcTiles * kThreads ||
+      (pro_vec && prologue_vec_refused(zx, conv_w, conv_b, w.xbc, d, sizeof(T))))
     return (int)cudaErrorInvalidValue;
   cudaError_t err;
   const dim3 heads(d.h, d.nc, d.B), chunks(d.nc, d.B);
@@ -1165,9 +1166,9 @@ int launch_bwd(const T* zx, const float* conv_w, const float* conv_b, const floa
   const dim3 slabbed(d.nc, d.B, slabs);
 
   // 1, 2: the forward's xbc, dt, cum and y_ssd at the saved states
-  ssd_prologue_kernel<T><<<dim3(d.nc, d.B, slabs + 1), kThreads, 0, s>>>(
-      zx, conv_w, conv_b, dt_bias, A, w.xbc, w.dt, w.cum, d);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int pro = launch_prologue<T>(zx, conv_w, conv_b, dt_bias, A, w.xbc, w.dt, w.cum, d,
+                                     pro_vec, s);
+  if (pro != 0) return pro;
   OutputKernel<T> out_kern = tc ? ssd_chunk_output_tc_kernel<T> : ssd_chunk_output_kernel<T>;
   if ((err = set_smem(out_kern, out_smem)) != cudaSuccess) return (int)err;
   out_kern<<<tc ? chunks : heads, tc ? kTcThreads : kThreads, out_smem, s>>>(
@@ -1264,10 +1265,8 @@ int pht_ssd_chain_bwd(const void* zx, const void* conv_w, const void* conv_b,
                       void* dstate, void* W, void* dS, void* dcum, void* dxbc, void* wb_part,
                       void* nw_part, void* pv_part, void* dzx, void* dwb, void* dpv, void* dnw,
                       int B, int L, int di, int n, int h, int k, int q, int is_bf16,
-                      void* stream) {
-  Dims d;
-  d.B = B; d.L = L; d.di = di; d.n = n; d.h = h; d.p = di / h; d.k = k; d.q = q;
-  d.nc = L / q; d.dc = di + 2 * n; d.W = 2 * di + 2 * n + h;
+                      int pro_vec, void* stream) {
+  const Dims d = chain_dims(B, L, di, n, h, k, q);
   Bufs w;
   w.xbc = static_cast<float*>(xbc); w.dt = static_cast<float*>(dt);
   w.cum = static_cast<float*>(cum); w.y = static_cast<float*>(y);
@@ -1288,10 +1287,10 @@ int pht_ssd_chain_bwd(const void* zx, const void* conv_w, const void* conv_b,
   if (is_bf16)
     return launch_bwd<bf16>(static_cast<const bf16*>(zx), cw, cb, tb, a, dd, nw,
                             static_cast<const bf16*>(states), static_cast<const bf16*>(dy), w,
-                            static_cast<bf16*>(dzx), o1, o2, o3, d, s);
+                            static_cast<bf16*>(dzx), o1, o2, o3, d, pro_vec, s);
   return launch_bwd<float>(static_cast<const float*>(zx), cw, cb, tb, a, dd, nw,
                            static_cast<const float*>(states), static_cast<const float*>(dy), w,
-                           static_cast<float*>(dzx), o1, o2, o3, d, s);
+                           static_cast<float*>(dzx), o1, o2, o3, d, pro_vec, s);
 }
 
 }  // extern "C"

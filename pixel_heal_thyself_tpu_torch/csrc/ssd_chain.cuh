@@ -1,8 +1,9 @@
 // Device code shared by the fused Mamba2-chain forward K7 (ssd_fwd.cu) and
 // backward K8 (ssd_bwd.cu): K7's prologue (launch 1) and chunk output
-// (launch 4), which K8 runs again to recompute the forward, each chunk
-// output in two bodies (the tensor-core body and the general scalar-FMA
-// body); and the tensor-core product of every head's [n, p] block that is
+// (launch 4), which K8 runs again to recompute the forward, the prologue in
+// two bodies (the vec body and the general one), each chunk output in two
+// (the tensor-core body and the general scalar-FMA body); and the
+// tensor-core product of every head's [n, p] block that is
 // K7's chunk state and K8's dstate local. Their design is in ssd_fwd.cu's
 // header.
 #pragma once
@@ -10,6 +11,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "conv_rows.cuh"
 #include "sm90_gemm.cuh"
 #include "tf32x3.cuh"
 
@@ -47,6 +49,14 @@ __device__ __forceinline__ void st4(float* p, float a, float b, float c, float d
 struct Dims {
   int B, L, di, n, h, p, k, q, nc, dc, W;
 };
+
+// The dims of zxbcdt [B, L, 2 di + 2 n + h] in chunks of q tokens
+inline Dims chain_dims(int B, int L, int di, int n, int h, int k, int q) {
+  Dims d;
+  d.B = B; d.L = L; d.di = di; d.n = n; d.h = h; d.p = di / h; d.k = k; d.q = q;
+  d.nc = L / q; d.dc = di + 2 * n; d.W = 2 * di + 2 * n + h;
+  return d;
+}
 
 // ---- the tensor-core ("tc") body: its shapes, staging and warp tiling -------
 constexpr int kWarps = kThreads / 32;
@@ -150,6 +160,183 @@ __global__ void __launch_bounds__(kThreads) ssd_prologue_kernel(
       dt[(row0 + t) * d.h + hh] = v;
       cum[(row0 + t) * d.h + hh] = run;
     }
+  }
+}
+
+// ---- 1. prologue, vec body (K7 launch 1) ----------------------------------------
+// The general body above walks one channel a thread in 256-thread slabs (the
+// fifth slab of the 1,152 channels half idle), stores xbc 4 bytes at a time,
+// keeps its run-time k's taps behind a predicate on every one of kMaxConv
+// steps, and leaves the chunk's dt and cum to 16 of a slab's threads, each
+// walking the chunk's rows alone. The vec body takes windows whose offset
+// (d_inner), row stride and width (dc) are multiples of 16 bytes and
+// 16-byte aligned tensors (`prologue_vec_body`; the prod window: 2,048,
+// 4,384 and 2,304 bytes in bf16), k a template argument:
+//   - the conv + SiLU CTAs walk a chunk's rows as conv_rows.cuh walks them,
+//     4 channels a thread: 8 (bf16) or 16 (f32) bytes of the window a row
+//     through a cp.async ring, the f32 xbc stored 16 bytes at a time, in
+//     CTAs that leave no lane idle at dc 1,152 (96 threads, 3 a chunk);
+//   - one more CTA a chunk forms dt for every (row, head) with all its
+//     threads, then carries each head's running sum of dt * A down the rows.
+// The arithmetic is the general body's, operation by operation: acc =
+// x_t w[k-1], then fmaf(x_{t-(k-1)+j}, w[j], acc) for j = 0 .. k-2, then
+// silu(acc + b); cum one running sum in row order. So xbc, dt and cum are
+// the same bits, and K8's conv backward, which recomputes the
+// pre-activation in this order, still matches it.
+#ifndef PHT_PROLOGUE_RING
+#define PHT_PROLOGUE_RING 8  // rows of the window in flight per thread
+#endif
+#ifndef PHT_PROLOGUE_DT_SERIAL  // 1: bench_scan.py's variant, the general body's dt walk
+#define PHT_PROLOGUE_DT_SERIAL 0
+#endif
+constexpr int kProRing = PHT_PROLOGUE_RING;
+constexpr int kProCh = 4;  // channels a thread
+
+__host__ __device__ inline bool prologue_vec_body(int W, int di, int dc, int esize) {
+  return esize > 0 && di % (16 / esize) == 0 && W % (16 / esize) == 0 && dc % (16 / esize) == 0;
+}
+
+// dt = softplus(dt_raw + dt_bias) [q, h] of the chunk at row0 and cum, the
+// running sum of dt * A down its rows, through two buffers of `buf` floats
+// of shared memory: all threads form dt for a tile of rows and heads
+// (coalesced stores), then thread i carries head i's sum down the tile.
+template <typename T>
+__device__ __forceinline__ void prologue_dt_cum(const T* __restrict__ zx,
+                                                const float* __restrict__ dt_bias,
+                                                const float* __restrict__ A,
+                                                float* __restrict__ dt, float* __restrict__ cum,
+                                                long row0, float* s_v, float* s_run, int buf,
+                                                const Dims& d) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const T* src = zx + d.di + d.dc;
+#if PHT_PROLOGUE_DT_SERIAL
+  for (int hh = tid; hh < d.h; hh += nt) {
+    const float bias = dt_bias[hh], a = A[hh];
+    float run = 0.f;
+    for (int t = 0; t < d.q; ++t) {
+      const float v = softplus(to_f32(src[(row0 + t) * d.W + hh]) + bias);
+      run += v * a;
+      dt[(row0 + t) * d.h + hh] = v;
+      cum[(row0 + t) * d.h + hh] = run;
+    }
+  }
+  return;
+#endif
+  for (int h0 = 0; h0 < d.h; h0 += buf) {
+    const int hn = min(buf, d.h - h0), rt = min(d.q, max(1, buf / hn));
+    for (int i = tid; i < hn; i += nt) s_run[i] = 0.f;
+    for (int r0 = 0; r0 < d.q; r0 += rt) {
+      const int rn = min(rt, d.q - r0);
+      __syncthreads();  // the previous tile's sums have read s_v
+      for (int idx = tid; idx < rn * hn; idx += nt) {
+        const int r = idx / hn, hh = h0 + idx - r * hn;
+        const long row = row0 + r0 + r;
+        const float v = softplus(to_f32(src[row * d.W + hh]) + dt_bias[hh]);
+        dt[row * d.h + hh] = v;
+        s_v[idx] = v;
+      }
+      __syncthreads();
+      for (int i = tid; i < hn; i += nt) {  // s_run[i]: only this thread's
+        const int hh = h0 + i;
+        const float a = A[hh];
+        float run = s_run[i];
+        for (int r = 0; r < rn; ++r) {
+          run += s_v[r * hn + i] * a;
+          cum[(row0 + r0 + r) * d.h + hh] = run;
+        }
+        s_run[i] = run;
+      }
+    }
+  }
+}
+
+// CTA x of (slabs + 1) * nc * B: chunk-major, the slabs of a chunk and then
+// its dt/cum CTA. Dynamic shared memory: the ring, [kProRing][blockDim]
+// words (the dt/cum CTA reuses it as its two buffers).
+template <typename T, int K>
+__global__ void __launch_bounds__(256) ssd_prologue_vec_kernel(
+    const T* __restrict__ zx, const float* __restrict__ conv_w,
+    const float* __restrict__ conv_b, const float* __restrict__ dt_bias,
+    const float* __restrict__ A, float* __restrict__ xbc, float* __restrict__ dt,
+    float* __restrict__ cum, int slabs, Dims d) {
+  constexpr int N = kProCh;
+  using Raw = typename rows::Vec<T, N>::Raw;
+  extern __shared__ __align__(16) unsigned char pro_smem[];
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int slab = blockIdx.x % (slabs + 1), cb = blockIdx.x / (slabs + 1);
+  const int c = cb % d.nc, b = cb / d.nc;
+  if (slab == slabs) {
+    const int buf = kProRing * nt * (int)sizeof(Raw) / 8;
+    float* s_v = reinterpret_cast<float*>(pro_smem);
+    prologue_dt_cum<T>(zx, dt_bias, A, dt, cum, (long)b * d.L + (long)c * d.q, s_v, s_v + buf,
+                       buf, d);
+    return;
+  }
+  const int grp = slab * nt + tid;
+  if (grp >= d.dc / N) return;
+  const int ch = grp * N;
+  float w[K][N], bias[N];
+  rows::load_taps<N, K>(conv_w, conv_b, d.dc, ch, w, bias);
+  float* out = xbc + (long)b * d.L * d.dc + ch;
+  rows::walk<T, N, K, kProRing>(
+      zx + (long)b * d.L * d.W + d.di + ch, d.W, c * d.q, (c + 1) * d.q,
+      reinterpret_cast<Raw*>(pro_smem) + tid, nt,
+      [&](int t, const float (&xr)[N], const float (&win)[K][N]) {
+        float o[N];
+#pragma unroll
+        for (int cc = 0; cc < N; ++cc) {
+          float acc = __fmul_rn(xr[cc], w[K - 1][cc]);
+#pragma unroll
+          for (int j = 0; j < K - 1; ++j) acc = fmaf(win[j][cc], w[j][cc], acc);
+          o[cc] = silu(acc + bias[cc]);
+        }
+        st4(out + (long)t * d.dc, o[0], o[1], o[2], o[3]);
+      });
+}
+
+template <typename T, int K>
+int launch_prologue_vec(const T* zx, const float* conv_w, const float* conv_b,
+                        const float* dt_bias, const float* A, float* xbc, float* dt, float* cum,
+                        const Dims& d, cudaStream_t s) {
+  const int groups = d.dc / kProCh, nt = rows::cta_threads(groups);
+  const int slabs = (groups + nt - 1) / nt;
+  const size_t smem = (size_t)kProRing * nt * sizeof(typename rows::Vec<T, kProCh>::Raw);
+  cudaError_t err = cudaFuncSetAttribute(ssd_prologue_vec_kernel<T, K>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long ctas = (long)(slabs + 1) * d.nc * d.B;
+  ssd_prologue_vec_kernel<T, K><<<(unsigned)ctas, nt, smem, s>>>(zx, conv_w, conv_b, dt_bias, A,
+                                                                  xbc, dt, cum, slabs, d);
+  return (int)cudaGetLastError();
+}
+
+// The vec body refuses what it does not take: a window off the 16-byte rule
+// or a tensor it reads or writes 16 bytes at a time that is not aligned
+inline bool prologue_vec_refused(const void* zx, const void* conv_w, const void* conv_b,
+                                 const void* xbc, const Dims& d, int esize) {
+  return !prologue_vec_body(d.W, d.di, d.dc, esize) || !aligned16(zx) || !aligned16(conv_w) ||
+         !aligned16(conv_b) || !aligned16(xbc);
+}
+
+// K7's launch 1 on the named body: vec (the caller has checked
+// prologue_vec_refused) or the general ssd_prologue_kernel
+template <typename T>
+int launch_prologue(const T* zx, const float* conv_w, const float* conv_b, const float* dt_bias,
+                    const float* A, float* xbc, float* dt, float* cum, const Dims& d, int vec,
+                    cudaStream_t s) {
+  if (!vec) {
+    const int slabs = (d.dc + kThreads - 1) / kThreads;
+    ssd_prologue_kernel<T><<<dim3(d.nc, d.B, slabs + 1), kThreads, 0, s>>>(
+        zx, conv_w, conv_b, dt_bias, A, xbc, dt, cum, d);
+    return (int)cudaGetLastError();
+  }
+  switch (d.k) {
+#define PHT_PROLOGUE_K(K) \
+    case K: return launch_prologue_vec<T, K>(zx, conv_w, conv_b, dt_bias, A, xbc, dt, cum, d, s);
+    PHT_PROLOGUE_K(1) PHT_PROLOGUE_K(2) PHT_PROLOGUE_K(3) PHT_PROLOGUE_K(4) PHT_PROLOGUE_K(5)
+    PHT_PROLOGUE_K(6) PHT_PROLOGUE_K(7) PHT_PROLOGUE_K(8) PHT_PROLOGUE_K(9)
+#undef PHT_PROLOGUE_K
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -33,9 +33,12 @@
 // pass sequential. The gated RMSNorm reduces over all di channels of a
 // token, across heads, so it is a launch of its own. Five launches:
 //   1. prologue  (chunk, batch, channel slab): conv + SiLU of xBC -> f32
-//      xbc [B, L, di + 2n]; one extra slab per chunk computes dt and cum
+//      xbc [B, L, di + 2n]; one extra CTA per chunk computes dt and cum
 //      [B, L, h]. A chunk reads its k - 1 previous raw rows straight from
-//      device memory, so no conv tail is carried.
+//      device memory, so no conv tail is carried. Two bodies, named by the
+//      wrappers (`pht_ssd_prologue_body`): the vec body for 16-byte aligned
+//      windows (the prod shape: 4 channels a thread, a cp.async ring of
+//      rows, k a template argument; ssd_chain.cuh) and the general one.
 //   2. chunk state: S = B^T (dt decay x) [n, p] per head from a zero state
 //      -> f32 states [B, nc, h, n, p].
 //   3. state pass (element, head, batch): walks the chunks in order and
@@ -178,23 +181,23 @@ __global__ void __launch_bounds__(kThreads) gated_rmsnorm_kernel(
 template <typename T>
 int launch(const void* zx, const float* conv_w, const float* conv_b, const float* dt_bias,
            const float* A, const float* D, const float* norm_w, float* xbc, float* dt,
-           float* cum, float* states, float* y, void* out, void* emit, Dims d, cudaStream_t s) {
+           float* cum, float* states, float* y, void* out, void* emit, Dims d, int pro_vec,
+           cudaStream_t s) {
   const bool tc = tc_body(d.q, d.n, d.p);
   const size_t state_smem =
       (tc ? head_state_tc_floats(d.q, d.n, d.p) : state_smem_floats(d.q, d.n, d.p)) * sizeof(float);
   const size_t out_smem =
       (tc ? output_tc_floats(d.q, d.n, d.p) : output_smem_floats(d.q, d.n, d.p)) * sizeof(float);
   if (state_smem > kMaxSmem || out_smem > kMaxSmem || d.k > kMaxConv || d.k < 1 ||
-      d.q % 8 || d.n % 4 || d.p % 4)
+      d.q % 8 || d.n % 4 || d.p % 4 ||
+      (pro_vec && prologue_vec_refused(zx, conv_w, conv_b, xbc, d, sizeof(T))))
     return (int)cudaErrorInvalidValue;
   const T* zt = static_cast<const T*>(zx);
   const dim3 chunks(d.nc, d.B), heads(d.h, d.nc, d.B);
   cudaError_t err;
 
-  const int slabs = (d.dc + kThreads - 1) / kThreads;
-  ssd_prologue_kernel<T><<<dim3(d.nc, d.B, slabs + 1), kThreads, 0, s>>>(
-      zt, conv_w, conv_b, dt_bias, A, xbc, dt, cum, d);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int pro = launch_prologue<T>(zt, conv_w, conv_b, dt_bias, A, xbc, dt, cum, d, pro_vec, s);
+  if (pro != 0) return pro;
 
   if (tc) {
     err = cudaFuncSetAttribute(ssd_chunk_state_tc_kernel,
@@ -235,19 +238,50 @@ extern "C" {
 // to size K8's scratch.
 int pht_ssd_chain_body(int q, int n, int p) { return tc_body(q, n, p) ? 1 : 0; }
 
+// 1: the prologue's vec body takes the xBC window of zxbcdt [B, L, 2 di +
+// 2 n + h] (offset di, width di + 2n, row stride W) in this dtype; 0: its
+// general body (ssd_chain.cuh's prologue_vec_body; the C entries also
+// refuse tensors that are not 16-byte aligned)
+int pht_ssd_prologue_body(int W, int di, int dc, int is_bf16) {
+  return prologue_vec_body(W, di, dc, is_bf16 ? 2 : 4) ? 1 : 0;
+}
+
+// K7's prologue alone on the named body (vec 1, general 0): from zxbcdt
+// and f32 conv_w [k, di + 2n], conv_b [di + 2n], dt_bias, A [h], the f32
+// xbc [B, L, di + 2n], dt and cum [B, L, h]. For comparisons of the bodies;
+// K7 and K8 launch it themselves.
+int pht_ssd_prologue(const void* zx, const void* conv_w, const void* conv_b,
+                     const void* dt_bias, const void* A, void* xbc, void* dt, void* cum, int B,
+                     int L, int di, int n, int h, int k, int q, int is_bf16, int vec,
+                     void* stream) {
+  if (q <= 0 || h <= 0 || L % q || k > kMaxConv || k < 1) return (int)cudaErrorInvalidValue;
+  const Dims d = chain_dims(B, L, di, n, h, k, q);
+  if (vec && prologue_vec_refused(zx, conv_w, conv_b, xbc, d, is_bf16 ? 2 : 4))
+    return (int)cudaErrorInvalidValue;
+  const float* f[4] = {static_cast<const float*>(conv_w), static_cast<const float*>(conv_b),
+                       static_cast<const float*>(dt_bias), static_cast<const float*>(A)};
+  float* o[3] = {static_cast<float*>(xbc), static_cast<float*>(dt), static_cast<float*>(cum)};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_prologue<bf16>(static_cast<const bf16*>(zx), f[0], f[1], f[2], f[3], o[0],
+                                 o[1], o[2], d, vec, s);
+  return launch_prologue<float>(static_cast<const float*>(zx), f[0], f[1], f[2], f[3], o[0],
+                                o[1], o[2], d, vec, s);
+}
+
 // zxbcdt [B, L, 2 di + 2 n + h] (bf16 or f32); f32 conv_w [k, di + 2n],
 // conv_b [di + 2n], dt_bias, A, D [h], norm_w [di]; f32 scratch xbc
 // [B, L, di + 2n], dt and cum [B, L, h], states [B, L/q, h, n, di/h],
 // y [B, L, di]; out [B, L, di] in zxbcdt's dtype; states_emit (nullable)
-// [B, L/q, h, n, di/h] in zxbcdt's dtype.
+// [B, L/q, h, n, di/h] in zxbcdt's dtype. pro_vec: the prologue's body
+// (pht_ssd_prologue_body); a window or tensor its vec body does not take
+// is refused before anything launches.
 int pht_ssd_chain_fwd(const void* zx, const void* conv_w, const void* conv_b,
                       const void* dt_bias, const void* A, const void* D, const void* norm_w,
                       void* xbc, void* dt, void* cum, void* states, void* y, void* out,
                       void* states_emit, int B, int L, int di, int n, int h, int k, int q,
-                      int is_bf16, void* stream) {
-  Dims d;
-  d.B = B; d.L = L; d.di = di; d.n = n; d.h = h; d.p = di / h; d.k = k; d.q = q;
-  d.nc = L / q; d.dc = di + 2 * n; d.W = 2 * di + 2 * n + h;
+                      int is_bf16, int pro_vec, void* stream) {
+  const Dims d = chain_dims(B, L, di, n, h, k, q);
   const float* f[7] = {static_cast<const float*>(conv_w), static_cast<const float*>(conv_b),
                        static_cast<const float*>(dt_bias), static_cast<const float*>(A),
                        static_cast<const float*>(D), static_cast<const float*>(norm_w), nullptr};
@@ -259,9 +293,9 @@ int pht_ssd_chain_fwd(const void* zx, const void* conv_w, const void* conv_b,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch<bf16>(zx, f[0], f[1], f[2], f[3], f[4], f[5], xb, dtp, cp, sp, yp, out,
-                        states_emit, d, s);
+                        states_emit, d, pro_vec, s);
   return launch<float>(zx, f[0], f[1], f[2], f[3], f[4], f[5], xb, dtp, cp, sp, yp, out,
-                       states_emit, d, s);
+                       states_emit, d, pro_vec, s);
 }
 
 }  // extern "C"

@@ -120,6 +120,11 @@ def mamba_work() -> dict:
         "#5 ssd_mega.py:252 _fwd_kernel_train (emit)": (zx + y + states, fwd),
         # reads zxbcdt, the states and dy, writes dzx
         "#6 ssd_mega.py:260 _bwd_kernel": (2 * zx + y + states, bwd),
+        # the port's launch 1 of #5, #5e and #6 (the `_chunk_core` prologue,
+        # :114): reads the xBC window and the dt column, writes f32 xbc, dt
+        # and cum
+        "#5/#6 ssd_mega.py:114 prologue (K7 launch 1)": (
+            b * l * (dc + h) * BF16 + b * l * (dc + 2 * h) * 4, 2 * b * l * dc * k),
         "#7 conv_pallas.py:147 _fwd_kernel": (2 * xbc, 2 * b * l * dc * k),
         "#7 conv_pallas.py:158 _bwd_kernel": (3 * xbc, 4 * b * l * dc * k),
         "#8 ssd.py:324 _ssd_fwd_kernel": (ssd_in + y, fwd),

@@ -16,8 +16,9 @@ dS per head; design in `csrc/ssd_bwd.cu`). The plain
 versions are `ops.ssd_mega.fused_mamba_chain_torch` and
 `fused_mamba_chain_bwd_torch`. `fused_mamba_chain_cuda.launches`,
 `fused_mamba_chain_emit_cuda.launches` and
-`fused_mamba_chain_bwd_cuda.launches` count the calls that launched, and
-`.body_launches` each body's.
+`fused_mamba_chain_bwd_cuda.launches` count the calls that launched,
+`.body_launches` each body's and `.prologue_body_launches` each body of
+their first launch's.
 
 Each has two bodies, chosen by the C entries (`pht_ssd_chain_body`): the
 tensor-core body ("tc": every chunk product on mma.sync at 3×TF32, the
@@ -31,6 +32,13 @@ the library, and a card test holds the two equal. Beyond
 128 at headdim 64 and chunk 128, which no config uses) with
 cudaErrorInvalidValue before they launch anything, and `_build.check`
 raises.
+
+Their first launch, the prologue (conv + SiLU of xBC, dt and cum), has
+two bodies of its own, which the wrappers pick by `ssd_prologue_body` and
+name to the C entries: the vec body (4 channels a thread, a copy ring of
+rows, k a template argument; 16-byte aligned windows, the prod shape among
+them) and the general one. Both give the same bits. `ssd_prologue_cuda`
+runs the prologue alone on a named body, for the comparisons of the two.
 """
 
 from __future__ import annotations
@@ -69,6 +77,25 @@ def ssd_tc_smem(d_state: int, headdim: int, chunk: int) -> dict:
         "bc": max(tri + 2 * q * (n + 8), head) + head,
     }
     return {name: 4 * f for name, f in floats.items()}
+
+
+def ssd_prologue_body(dtype: torch.dtype, columns: int, d_inner: int, dc: int,
+                      aligned: bool = True) -> str:
+    """The body K7's prologue takes (in K7, its emit variant and K8): "vec"
+    where the xBC window's offset `d_inner`, zxbcdt's row of `columns` and
+    the window's width `dc` are multiples of 16 bytes and the tensors it
+    moves 16 bytes at a time (zxbcdt, the f32 taps and bias, xbc) are
+    16-byte aligned (csrc/ssd_chain.cuh `prologue_vec_body`); "general"
+    otherwise."""
+    per = 16 // torch.empty(0, dtype=dtype).element_size()
+    vec = aligned and d_inner % per == 0 and columns % per == 0 and dc % per == 0
+    return "vec" if vec else "general"
+
+
+def _prologue_body(zxbcdt, d_inner: int, conv_w, conv_b, xbc) -> str:
+    """The prologue's body for these tensors (`ssd_prologue_body`)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (zxbcdt, conv_w, conv_b, xbc))
+    return ssd_prologue_body(zxbcdt.dtype, zxbcdt.shape[-1], d_inner, conv_w.shape[1], aligned)
 
 
 def _body(chunk: int, d_state: int, headdim: int) -> str:
@@ -111,16 +138,16 @@ def _launch_fwd(what: str, zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w,
     bf = zxbcdt.dtype == torch.bfloat16
     # bf16: the state pass writes a rounded copy; fp32: the states are it
     emitted = torch.empty(states.shape, dtype=zxbcdt.dtype, device=dev) if emit and bf else None
+    pro = _prologue_body(zxbcdt, d_inner, params[0], params[1], xbc)
     err = _build.lib().pht_ssd_chain_fwd(
         zxbcdt.data_ptr(), *(t.data_ptr() for t in params),
         xbc.data_ptr(), dt.data_ptr(), cum.data_ptr(), states.data_ptr(), y.data_ptr(),
         out.data_ptr(), None if emitted is None else emitted.data_ptr(),
-        b, l, d_inner, d_state, h, k, chunk, int(bf), torch.cuda.current_stream(dev).cuda_stream,
+        b, l, d_inner, d_state, h, k, chunk, int(bf), int(pro == "vec"),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, what)
-    if not emit:
-        return out, None
-    return out, (states if emitted is None else emitted)
+    return out, (states if emitted is None else emitted) if emit else None, pro
 
 
 def fused_mamba_chain_cuda(
@@ -129,15 +156,17 @@ def fused_mamba_chain_cuda(
 ) -> torch.Tensor:
     """Launch K7: zxbcdt [b, l, 2·d_inner + 2·d_state + h] (bf16 or fp32,
     contiguous, on a CUDA device) → [b, l, d_inner] in its dtype."""
-    out, _ = _launch_fwd("fused_mamba_chain_cuda", zxbcdt, conv_w, conv_b, dt_bias, A, D,
-                         norm_w, d_inner, d_state, headdim, chunk, emit=False)
+    out, _, pro = _launch_fwd("fused_mamba_chain_cuda", zxbcdt, conv_w, conv_b, dt_bias, A, D,
+                              norm_w, d_inner, d_state, headdim, chunk, emit=False)
     fused_mamba_chain_cuda.launches += 1
     fused_mamba_chain_cuda.body_launches[_body(chunk, d_state, headdim)] += 1
+    fused_mamba_chain_cuda.prologue_body_launches[pro] += 1
     return out
 
 
 fused_mamba_chain_cuda.launches = 0
 fused_mamba_chain_cuda.body_launches = {"tc": 0, "general": 0}
+fused_mamba_chain_cuda.prologue_body_launches = {"vec": 0, "general": 0}
 
 
 def fused_mamba_chain_emit_cuda(
@@ -147,15 +176,18 @@ def fused_mamba_chain_emit_cuda(
     """Launch K7's emit variant: (the output, as `fused_mamba_chain_cuda`;
     the state entering each chunk [b, l/chunk, h, d_state, headdim] in
     zxbcdt's dtype)."""
-    res = _launch_fwd("fused_mamba_chain_emit_cuda", zxbcdt, conv_w, conv_b, dt_bias, A, D,
-                      norm_w, d_inner, d_state, headdim, chunk, emit=True)
+    out, states, pro = _launch_fwd("fused_mamba_chain_emit_cuda", zxbcdt, conv_w, conv_b,
+                                   dt_bias, A, D, norm_w, d_inner, d_state, headdim, chunk,
+                                   emit=True)
     fused_mamba_chain_emit_cuda.launches += 1
     fused_mamba_chain_emit_cuda.body_launches[_body(chunk, d_state, headdim)] += 1
-    return res
+    fused_mamba_chain_emit_cuda.prologue_body_launches[pro] += 1
+    return out, states
 
 
 fused_mamba_chain_emit_cuda.launches = 0
 fused_mamba_chain_emit_cuda.body_launches = {"tc": 0, "general": 0}
+fused_mamba_chain_emit_cuda.prologue_body_launches = {"vec": 0, "general": 0}
 
 
 def fused_mamba_chain_bwd_cuda(
@@ -202,19 +234,48 @@ def fused_mamba_chain_bwd_cuda(
     dwb = torch.empty(k + 1, dc, **f32)
     dpv = torch.empty(3, h, **f32)
     dnw = torch.empty(d_inner, **f32)
+    pro = _prologue_body(zxbcdt, d_inner, params[0], params[1], scratch[0])
     err = _build.lib().pht_ssd_chain_bwd(
         zxbcdt.data_ptr(), *(t.data_ptr() for t in params), states.data_ptr(), dy.data_ptr(),
         *(None if t is None else t.data_ptr() for t in scratch),
         dzx.data_ptr(), dwb.data_ptr(), dpv.data_ptr(), dnw.data_ptr(),
-        b, l, d_inner, d_state, h, k, chunk, int(dtype == torch.bfloat16),
+        b, l, d_inner, d_state, h, k, chunk, int(dtype == torch.bfloat16), int(pro == "vec"),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "fused_mamba_chain_bwd_cuda")
     fused_mamba_chain_bwd_cuda.launches += 1
     fused_mamba_chain_bwd_cuda.body_launches[body] += 1
+    fused_mamba_chain_bwd_cuda.prologue_body_launches[pro] += 1
     return (dzx, dwb[:k].to(conv_w.dtype), dwb[k].to(conv_b.dtype), dpv[0].to(dt_bias.dtype),
             dpv[1].to(A.dtype), dpv[2].to(D.dtype), dnw.to(norm_w.dtype))
 
 
 fused_mamba_chain_bwd_cuda.launches = 0
 fused_mamba_chain_bwd_cuda.body_launches = {"tc": 0, "general": 0}
+fused_mamba_chain_bwd_cuda.prologue_body_launches = {"vec": 0, "general": 0}
+
+
+def ssd_prologue_cuda(zxbcdt, conv_w, conv_b, dt_bias, A, d_inner: int, d_state: int,
+                      headdim: int, chunk: int = 128, body: str | None = None) -> tuple:
+    """K7's prologue alone on `body` ("vec" or "general"; by default the one
+    K7 takes for these tensors): (xbc [b, l, d_inner + 2·d_state], dt, cum
+    [b, l, h]), f32, as K7 leaves them in its scratch. Not on any model's
+    path, and uncounted: chip_smoke and the card tests compare the two
+    bodies through it. The C entry refuses a window the named body does
+    not take."""
+    b, l, k, dc, h = _checked("ssd_prologue_cuda", zxbcdt, conv_w, dt_bias, d_inner, d_state,
+                              headdim, chunk, conv_b, A)
+    dev = zxbcdt.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    params = [t.to(**f32).contiguous() for t in (conv_w, conv_b, dt_bias, A)]
+    xbc = torch.empty(b, l, dc, **f32)
+    dt = torch.empty(b, l, h, **f32)
+    cum = torch.empty(b, l, h, **f32)
+    body = body or _prologue_body(zxbcdt, d_inner, params[0], params[1], xbc)
+    err = _build.lib().pht_ssd_prologue(
+        zxbcdt.data_ptr(), *(t.data_ptr() for t in params), xbc.data_ptr(), dt.data_ptr(),
+        cum.data_ptr(), b, l, d_inner, d_state, h, k, chunk, int(zxbcdt.dtype == torch.bfloat16),
+        int(body == "vec"), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "ssd_prologue_cuda")
+    return xbc, dt, cum

@@ -91,7 +91,9 @@ from pixel_heal_thyself_tpu_torch.ops.attention import (
     qkv_block_halo_attention_torch,
 )
 from pixel_heal_thyself_tpu_torch.ops.conv_cuda import (
+    ROWS,
     conv_bwd_body,
+    conv_fwd_body,
     fused_causal_conv1d_silu_bwd_cuda,
     fused_causal_conv1d_silu_cuda,
 )
@@ -122,6 +124,8 @@ from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import (
     fused_mamba_chain_cuda,
     fused_mamba_chain_emit_cuda,
     ssd_chain_body,
+    ssd_prologue_body,
+    ssd_prologue_cuda,
     ssd_tc_smem,
 )
 
@@ -924,7 +928,7 @@ def test_mamba_denoiser_kernel_route_grads(dev, dtype):
 
 
 # (b, l, columns, offset, width, k): the prod window at a short l; l not a
-# multiple of the CTA's 256 rows; k from 1 to 9; an unaligned window
+# multiple of the CTA's ROWS; k from 1 to 9; an unaligned window
 CONV_CASES = [(1, 1024, 2192, 1024, 1152, 4), (2, 300, 512, 128, 256, 4),
               (2, 77, 100, 10, 50, 3), (1, 5, 40, 0, 40, 1), (1, 600, 300, 17, 200, 9)]
 CONV_BOUNDS = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2**-7, 1e-4)}
@@ -1133,6 +1137,124 @@ def test_conv_bwd_bodies(dev, dtype, case):
     assert torch.equal(got[0], ref[0])
     for g, r in zip(got[1:], ref[1:]):
         _assert_close(g, r, 1e-4, 1e-4)
+
+
+def test_conv_fwd_body_matches_library(dev):
+    """K9's body gate in Python (`conv_fwd_body`) and in C
+    (`pht_conv_silu_fwd_body`) agree."""
+    from pixel_heal_thyself_tpu_torch import _build
+
+    lib = _build.lib()
+    for dtype in (torch.bfloat16, torch.float32):
+        for cols in (40, 100, 512, 2192, 2196):
+            for off in (0, 4, 8, 10, 17, 1024):
+                for width in (4, 8, 50, 200, 256, 1152):
+                    c = lib.pht_conv_silu_fwd_body(cols, off, width,
+                                                   int(dtype == torch.bfloat16))
+                    assert conv_fwd_body(dtype, cols, off, width) == ("vec" if c else "general")
+
+
+# (b, l, columns, offset, width, k, body in bf16, body in fp32): the prod
+# window; l not a multiple of the CTA's ROWS; fewer rows than taps; k 9 and
+# k 1; an offset or a width that is a multiple of 4 elements only
+CONV_FWD_BODY_CASES = [(8, 16384, 2192, 1024, 1152, 4, "vec", "vec"),
+                       (2, ROWS + 44, 512, 128, 256, 4, "vec", "vec"),
+                       (1, 3, 512, 128, 256, 4, "vec", "vec"),
+                       (1, 600, 1024, 0, 1024, 9, "vec", "vec"),
+                       (1, 77, 64, 8, 32, 1, "vec", "vec"),
+                       (2, 260, 516, 4, 256, 4, "general", "vec"),
+                       (1, 100, 512, 128, 252, 3, "general", "vec")]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", CONV_FWD_BODY_CASES)
+def test_conv_fwd_bodies(dev, dtype, case):
+    """K9 takes its vec body where the window is 16-byte aligned and its
+    general body elsewhere (`body_launches`); either body's y equals the
+    plain version's to the bit (both round each product and sum in the same
+    order), and two calls give the same bits."""
+    b, l, cols, off, width, k, body16, body32 = case
+    body = body16 if dtype == torch.bfloat16 else body32
+    rng = np.random.default_rng(13)
+    z = _rand(rng, (b, l, cols), dev, dtype, 0.5)
+    w = _rand(rng, (k, width), dev, torch.float32, 0.2)
+    bias = _rand(rng, (width,), dev, torch.float32, 0.1)
+    before = dict(fused_causal_conv1d_silu_cuda.body_launches)
+    got = fused_causal_conv1d_silu_cuda(z, w, bias, off, width)
+    again = fused_causal_conv1d_silu_cuda(z, w, bias, off, width)
+    assert fused_causal_conv1d_silu_cuda.body_launches[body] == before[body] + 2
+    ref = fused_causal_conv1d_silu_torch(z, w, bias, off, width)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, ref)
+
+
+def test_ssd_prologue_body_matches_library(dev):
+    """The prologue's body gate in Python (`ssd_prologue_body`) and in C
+    (`pht_ssd_prologue_body`) agree."""
+    from pixel_heal_thyself_tpu_torch import _build
+
+    lib = _build.lib()
+    for dtype in (torch.bfloat16, torch.float32):
+        for cols in (164, 292, 296, 2190, 2192, 2196):
+            for di in (64, 128, 1020, 1024):
+                for dc in (96, 160, 1148, 1152):
+                    c = lib.pht_ssd_prologue_body(cols, di, dc, int(dtype == torch.bfloat16))
+                    assert ssd_prologue_body(dtype, cols, di, dc) == ("vec" if c else "general")
+
+
+# (b, l, d_inner, d_state, headdim, chunk, k): the prod shape; k 3 at chunk
+# 64 with a d_state that is no multiple of 16; 256 heads (the dt/cum CTA
+# walks its rows in tiles); k 1 and k 9
+PROLOGUE_CASES = [(8, 16384, 1024, 64, 64, 128, 4), (2, 384, 256, 24, 32, 64, 3),
+                  (1, 256, 2048, 16, 8, 32, 2), (1, 256, 128, 16, 16, 64, 1),
+                  (1, 512, 128, 32, 16, 128, 9)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", PROLOGUE_CASES)
+def test_ssd_prologue_bodies(dev, dtype, case):
+    """K7's prologue on its vec body gives the general body's xbc, dt and
+    cum to the bit; K7, its emit variant and K8 launch it on the body
+    `ssd_prologue_body` names (`prologue_body_launches`)."""
+    b, l, d_inner, d_state, headdim, chunk, k = case
+    rng = np.random.default_rng(14)
+    args = _chain_inputs(rng, dev, dtype, b, l, d_inner, d_state, headdim, k)
+    pro = (*args[:4], args[4])  # zxbcdt, conv_w, conv_b, dt_bias, A
+    dims = dict(d_inner=d_inner, d_state=d_state, headdim=headdim, chunk=chunk)
+    assert ssd_prologue_body(dtype, args[0].shape[-1], d_inner, d_inner + 2 * d_state) == "vec"
+    vec = ssd_prologue_cuda(*pro, **dims, body="vec")
+    general = ssd_prologue_cuda(*pro, **dims, body="general")
+    torch.cuda.synchronize()
+    for name, v, g in zip(("xbc", "dt", "cum"), vec, general):
+        assert torch.equal(v, g), name
+    if l > 4096:
+        return
+    _, states = fused_mamba_chain_torch(*args, **dims, emit=True)
+    dy = _rand(rng, (b, l, d_inner), dev, dtype)
+    for fn, call in ((fused_mamba_chain_cuda, lambda: fused_mamba_chain_cuda(*args, **dims)),
+                     (fused_mamba_chain_emit_cuda,
+                      lambda: fused_mamba_chain_emit_cuda(*args, **dims)),
+                     (fused_mamba_chain_bwd_cuda,
+                      lambda: fused_mamba_chain_bwd_cuda(*args, states, dy, **dims))):
+        before = dict(fn.prologue_body_launches)
+        call()
+        assert fn.prologue_body_launches == dict(before, vec=before["vec"] + 1)
+
+
+def test_ssd_prologue_refuses(dev):
+    """The C entry refuses the vec body for a window off the 16-byte rule
+    (bf16 zxbcdt rows of 292 columns) before it launches; the general body
+    takes it."""
+    args = _chain_inputs(np.random.default_rng(15), dev, torch.bfloat16, 1, 128, 128, 16, 32)
+    dims = dict(d_inner=128, d_state=16, headdim=32, chunk=64)
+    assert ssd_prologue_body(torch.bfloat16, args[0].shape[-1], 128, 160) == "general"
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ssd_prologue_cuda(*args[:5], **dims, body="vec")
+    before = dict(fused_mamba_chain_cuda.prologue_body_launches)
+    fused_mamba_chain_cuda(*args, **dims)
+    assert fused_mamba_chain_cuda.prologue_body_launches == dict(
+        before, general=before["general"] + 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -360,6 +360,17 @@ def test_cpu_dispatch_of_k10_k11_counts_no_launch():
      "K10 tap/bias sums"),
     ("void (anonymous namespace)::conv_silu_fwd_kernel<__nv_bfloat16, 4>(__nv_bfloat16 const*)",
      "K9 conv1d + SiLU"),
+    ("void (anonymous namespace)::conv_silu_fwd_vec_kernel<__nv_bfloat16, 4>(__nv_bfloat16 "
+     "const*, float const*, __nv_bfloat16*, (anonymous namespace)::ConvDims)", "K9 conv1d + SiLU"),
+    ("void (anonymous namespace)::conv_silu_fwd_vec_kernel<float, 9>(float const*)",
+     "K9 conv1d + SiLU"),
+    # K7's prologue, both bodies: not K8's conv backward, not cuDNN
+    ("void (anonymous namespace)::ssd_prologue_vec_kernel<__nv_bfloat16, 4>(__nv_bfloat16 "
+     "const*, float const*, float const*, float const*, float const*, float*, float*, float*, "
+     "int, (anonymous namespace)::Dims)", "K7 prologue"),
+    ("void (anonymous namespace)::ssd_prologue_kernel<float>(float const*, float const*, float "
+     "const*, float const*, float const*, float*, float*, float*, (anonymous namespace)::Dims)",
+     "K7 prologue"),
 ])
 def test_profile_groups_name_k9_k10_k11(name, label):
     from pixel_heal_thyself_tpu_torch.profile_serving import group
