@@ -102,6 +102,23 @@ exits non-zero. Phases:
    the counters check on the folded route, so only the projections'
    rounding differs (FRAME_TOL, STEP_GRAD_TOL); every K1 and K4 launch of
    the folded run took its tensor-core body.
+11. Trainer: the training CLI, `train.main`, for `-cn prod` and `-cn prod
+   model=mamba` in a temporary working directory (synthetic 512² scenes,
+   `trainer.epochs=2`, batch 8 × 128², bf16, the kernels on; the patch
+   store built on the first run): `data.loader=auto` resolved to
+   `device`, `train_loss.txt` and `evaluation.txt` one finite line per
+   epoch, the PNG panels decode, `model_epoch{1,2}/state/` written; every
+   train step launched K1–K6 (AFGSA) or K7-emit and K8 (Mamba) for every
+   block and every validation forward K1–K3 or K7 (counter deltas around
+   each call), all on their prod bodies; the first validation batch
+   through the trainer's eval step against the plain route (FRAME_TOL); a
+   resume from `model_epoch1/state` that starts at epoch 2 with G's
+   parameters and both Adam states equal to the saved ones to the bit and
+   its first step at the schedule's learning rate; `model_epoch2/state`
+   served through `inference.load_generator`, one 512² frame equal to the
+   trainer's G to the bit. Prints each epoch's patches/s and io share
+   from the trainer's summary beside phases 5's and 8's step-alone rate,
+   the store build's seconds and peak memory.
 
 Every kernel row states its bound (the least time the card could take:
 the larger of the bytes its function must move over 3.35 TB/s and its
@@ -115,11 +132,18 @@ prints one JSON line of per-kernel results; the last line is
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
+import logging
 import math
+import re
+import struct
 import subprocess
+import tempfile
 import time
+import zlib
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1139,7 +1163,7 @@ def train_and_compare(device, net, kwargs, route, names: tuple, layers: int, lit
     and plain routes, beside the plain route repeated and two witnesses of
     the bf16 flip floor (the inputs one ulp up; the plain literal route,
     `literal` over the plain kwargs), against `grad_tol` = (rms, mass).
-    Returns the launch counts of the 7 steps."""
+    Returns the launch counts of the 7 steps and the steady patches/s."""
     from pixel_heal_thyself_tpu_torch.models.afgsa import count_params
     from pixel_heal_thyself_tpu_torch.training.train_step import (
         LossesConfig,
@@ -1223,11 +1247,12 @@ def train_and_compare(device, net, kwargs, route, names: tuple, layers: int, lit
         f"{mk['d_loss']:.6g} vs {mp['d_loss']:.6g}, g_loss {mk['g_loss']:.6g} vs "
         f"{mp['g_loss']:.6g}; G gradients worst max_rel {dev['max_rel']:.6g} rms_rel "
         f"{dev['rms_rel']:.6g} (bounds rms {grad_tol[0]}, mass {grad_tol[1]})")
-    return launches
+    return launches, batch / steady
 
 
-def phase_training(device) -> dict:
-    """Phase 5. Returns the launch counts of the 7 training steps."""
+def phase_training(device) -> tuple[dict, float]:
+    """Phase 5. Returns the launch counts of the 7 training steps and the
+    steady patches/s."""
     from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet, afgsa_prod_kwargs
 
     kwargs = afgsa_prod_kwargs()
@@ -1238,8 +1263,9 @@ def phase_training(device) -> dict:
                              dict(use_block_kernel=False), STEP_GRAD_TOL, "train")
 
 
-def phase_mamba_training(device) -> dict:
-    """Phase 8, training. Returns the launch counts of the 7 steps."""
+def phase_mamba_training(device) -> tuple[dict, float]:
+    """Phase 8, training. Returns the launch counts of the 7 steps and the
+    steady patches/s."""
     from pixel_heal_thyself_tpu_torch.models.mamba import MambaDenoiserNet, mamba_prod_kwargs
 
     kwargs = mamba_prod_kwargs()
@@ -1518,6 +1544,330 @@ def phase_fold_qkv(device) -> dict:
     return launches
 
 
+# phase 11: `train.main` at `-cn prod` (AFGSA and Mamba) on synthetic scenes.
+# The default synthetic_size 128 leaves no room for 128² patches
+# (`importance_sampling` raises "too small" in both packages), so the
+# scenes are 512²; the rest is prod: 4 scene pairs, num_patches 400, batch
+# 8 × 128², bf16, the kernels on, val batch 8. Cut: 2 epochs (prod 12).
+TRAINER_CONFIG = "prod"
+TRAINER_ARGS = ["data.images.synthesize=true", "data.images.synthetic_size=512",
+                "trainer.epochs=2", "--device", "cuda"]
+# per model: the kernels every train step and every validation forward run
+TRAINER_KERNELS = {"afgsa": (("K1", "K2", "K3", "K4", "K5", "K6"), ("K1", "K2", "K3")),
+                   "mamba": (("K7e", "K8"), ("K7",))}
+EPOCH_SUMMARY = re.compile(r"\[Train\] epoch=(\d+) summary: .*\(([\d.]+) patches/sec, "
+                           r"io ([\d.]+)s = (\d+)%\)")
+
+
+def decode_png(path) -> np.ndarray:
+    """[H, W, 3] uint8 of an 8-bit RGB PNG with unfiltered rows, as
+    `utils.images.write_png` writes one; every chunk's CRC is checked."""
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos : pos + 4])
+        tag, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != struct.unpack(">I", data[pos + 8 + n : pos + 12 + n])[0]:
+            raise AssertionError(f"{path}: bad CRC in {tag!r}")
+        chunks[tag] = chunks.get(tag, b"") + body
+        pos += 12 + n
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    if (depth, color) != (8, 2):
+        raise AssertionError(f"{path}: not 8-bit RGB")
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: filtered rows")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def _clone(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree
+
+
+def same_bits(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def _snapshot(state) -> dict:
+    return {"g": _clone(state.g.state_dict()), "g_opt": _clone(state.g_opt.state_dict()),
+            "d_opt": _clone(state.d_opt.state_dict())}
+
+
+@contextlib.contextmanager
+def trainer_probe(train_names: tuple, eval_names: tuple):
+    """Wrap the trainer's step factories and checkpoint functions for one
+    run. Records each train step's and each validation forward's launches
+    of its kernels (counter deltas around the call), the first validation
+    batch with its output and G's weights then, the state each save wrote
+    and the state each restore left."""
+    from pixel_heal_thyself_tpu_torch.training import checkpoints
+    from pixel_heal_thyself_tpu_torch.training import trainer as trainer_mod
+
+    fns = counters()
+    rec = {"train": [], "eval": [], "first_eval": None, "saved": {}, "restored": None}
+
+    def counted(kind: str, names: tuple, make):
+        def make_counted(*args, **kwargs):
+            fn = make(*args, **kwargs)
+
+            def run(*a, **k):
+                before = {n: fns[n].launches for n in names}
+                out = fn(*a, **k)
+                rec[kind].append({n: fns[n].launches - before[n] for n in names})
+                if kind == "eval" and rec["first_eval"] is None:
+                    rec["first_eval"] = (_clone(a[0]), out[0].detach().clone(),
+                                         _clone(args[0].state_dict()))
+                return out
+
+            run.__dict__.update(fn.__dict__)  # the step's optimizers
+            return run
+        return make_counted
+
+    real = (trainer_mod.make_train_step, trainer_mod.make_eval_step,
+            checkpoints.save_checkpoint, checkpoints.restore_checkpoint)
+
+    def save(path, state, epoch):
+        real[2](path, state, epoch)
+        rec["saved"][epoch] = _snapshot(state)
+
+    def restore(path, state):
+        epoch = real[3](path, state)
+        rec["restored"] = dict(_snapshot(state), lr=state.g_opt.param_groups[0]["lr"],
+                               count=state.g_sched.last_epoch)
+        return epoch
+
+    trainer_mod.make_train_step = counted("train", train_names, real[0])
+    trainer_mod.make_eval_step = counted("eval", eval_names, real[1])
+    checkpoints.save_checkpoint, checkpoints.restore_checkpoint = save, restore
+    try:
+        yield rec
+    finally:
+        trainer_mod.make_train_step, trainer_mod.make_eval_step = real[0], real[1]
+        checkpoints.save_checkpoint, checkpoints.restore_checkpoint = real[2], real[3]
+
+
+@contextlib.contextmanager
+def trainer_log():
+    """The trainer's log lines, kept in a list instead of printed."""
+    lg = logging.getLogger("pht_tpu")
+    lines: list[str] = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    keep = Keep(logging.INFO)
+    levels = [(h, h.level) for h in lg.handlers]
+    for h, _ in levels:
+        h.setLevel(logging.WARNING)
+    lg.addHandler(keep)
+    try:
+        yield lines
+    finally:
+        lg.removeHandler(keep)
+        for h, level in levels:
+            h.setLevel(level)
+
+
+def run_trainer(argv: list, model: str) -> tuple:
+    """`train.main(argv)` from counts of 0 and a fresh run-dir pin: (trainer,
+    probe record, log lines, launch counts, seconds, peak memory)."""
+    from pixel_heal_thyself_tpu_torch import train
+    from pixel_heal_thyself_tpu_torch.config.run_dirs import reset_run_dirs_cache
+
+    reset_run_dirs_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with trainer_probe(*TRAINER_KERNELS[model]) as rec, trainer_log() as lines:
+        t0 = time.perf_counter()
+        trainer = train.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return trainer, rec, lines, read_counts(), secs, torch.cuda.max_memory_allocated()
+
+
+def check_trainer_run(tag: str, model: str, trainer, rec: dict, launches: dict,
+                      epochs: list, layers: int) -> Path:
+    """A run's artifacts and launches; returns its run directory."""
+    run = Path(trainer.cfg.paths.output_dir)
+    if trainer.loader_kind != "device":
+        raise AssertionError(f"[{tag}] data.loader=auto resolved to {trainer.loader_kind!r}")
+    patch = trainer.cfg.data.patches.patch_size
+    for name, pattern in (("train_loss.txt", r"Epoch: (\d+) \tG loss: (\S+) \tD Loss: (\S+)"),
+                          ("evaluation.txt", r"Validation: (\d+) \tAvg MRSE: (\S+) \tAvg PSNR: "
+                                             r"(\S+) \tAvg 1-SSIM: (\S+)")):
+        text = (run / name).read_text()
+        rows = [re.fullmatch(pattern, line) for line in text.splitlines()]
+        if not all(rows) or [int(m[1]) for m in rows] != epochs:
+            raise AssertionError(f"[{tag}] {name} is not one line per epoch {epochs}: {text!r}")
+        if not all(math.isfinite(float(v)) for m in rows for v in m.groups()[1:]):
+            raise AssertionError(f"[{tag}] {name}: non-finite values {text!r}")
+        log(f"[{tag}] {name}: " + " | ".join(text.splitlines()))
+    for epoch in epochs:
+        folder = run / f"model_epoch{epoch}"
+        if not (folder / "state" / "checkpoint.pt").is_file():
+            raise AssertionError(f"[{tag}] {folder}/state has no checkpoint")
+        panels = sorted(folder.glob("*.png"))
+        for png in panels:
+            if decode_png(png).shape != (patch, 3 * patch, 3):
+                raise AssertionError(f"[{tag}] {png}: not a {patch} × {3 * patch} panel")
+        if not panels:
+            raise AssertionError(f"[{tag}] {folder} has no panels")
+    n_train = len(np.load(Path(trainer.cfg.data.patches.dir) / "train" / "aux.npy", mmap_mode="r"))
+    steps = len(epochs) * -(-n_train // trainer.cfg.trainer.batch_size)
+    if len(rec["train"]) != steps:
+        raise AssertionError(f"[{tag}] {len(rec['train'])} train steps, expected {steps}")
+    for kind in ("train", "eval"):
+        short = [(i, d) for i, d in enumerate(rec[kind]) if any(v < layers for v in d.values())]
+        if short or not rec[kind]:
+            raise AssertionError(f"[{tag}] {kind} calls with fewer than {layers} launches of a "
+                                 f"kernel: {short[:3]} ({len(rec[kind])} calls)")
+    check_bodies(tag, launches)
+    log(f"[{tag}] {len(rec['train'])} train steps each launched ≥ {layers} of "
+        f"{', '.join(TRAINER_KERNELS[model][0])}; {len(rec['eval'])} validation forwards each "
+        f"≥ {layers} of {', '.join(TRAINER_KERNELS[model][1])}; launches {launches}")
+    return run
+
+
+def phase_trainer(device, frame: dict, step_rates: dict, smi: str) -> None:
+    """Phase 11: the training CLI, `train.main`, for `-cn prod` and `-cn prod
+    model=mamba` in a temporary working directory: two epochs each, every
+    step and validation forward through its kernels on their prod bodies,
+    the first validation batch against the plain route, a resume from
+    model_epoch1 to the bit, and model_epoch2 served through
+    `inference.load_generator` equal to the trainer's G."""
+    from pixel_heal_thyself_tpu_torch.inference import (
+        afgsa_kwargs_from_config,
+        denoise_frame_fused,
+        load_generator,
+        make_fused_frame_apply,
+        mamba_kwargs_from_config,
+    )
+    from pixel_heal_thyself_tpu_torch.metrics import calculate_ssim
+    from pixel_heal_thyself_tpu_torch.training.train_step import (
+        make_eval_step,
+        multistep_milestone_epochs,
+        multistep_schedule,
+    )
+    from pixel_heal_thyself_tpu_torch.utils.images import tensor2img
+
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        for model in ("afgsa", "mamba"):
+            tag = f"trainer-{model}"
+            base = ["-cn", TRAINER_CONFIG] + (["model=mamba"] if model == "mamba" else [])
+            trainer, rec, lines, launches, secs, peak = run_trainer(
+                base + TRAINER_ARGS + ["run_num=0"], model)
+            cfg = trainer.cfg
+            g = trainer.state.g
+            layers = cfg.model.self_attention.num_layers if model == "afgsa" else cfg.model.num_layers
+            if not trainer.use_kernels:
+                raise AssertionError(f"[{tag}] the trainer did not take the kernels")
+            run0 = check_trainer_run(tag, model, trainer, rec, launches, [1, 2], layers)
+            for line in lines:
+                if any(key in line for key in ("summary:", "patch store", "resolved", "in total")):
+                    log(f"[{tag}] trainer: {line}")
+            if trainer.store_build_seconds is not None:
+                log(f"[{tag}] patch store built in {trainer.store_build_seconds:.2f} s "
+                    f"(synthetic 512² scenes, 4 pairs, num_patches "
+                    f"{cfg.data.patches.num_patches}, patch {cfg.data.patches.patch_size}); {smi}")
+            for m in (EPOCH_SUMMARY.search(line) for line in lines):
+                if m:
+                    log(f"[{tag}] epoch {m[1]}: {m[2]} patches/s with the loader and host syncs "
+                        f"in the loop, io {m[3]} s = {m[4]}% (the trainer's summary); step alone "
+                        f"{step_rates[model]:.3f} patches/s (phase {5 if model == 'afgsa' else 8}); "
+                        f"{smi}")
+            log(f"[{tag}] run of 2 epochs {secs:.2f} s; peak memory {peak} B "
+                f"({peak / 2**30:.3f} GiB); {smi}")
+
+            # the first validation batch: the eval step against the plain route
+            batch, out, weights = rec["first_eval"]
+            kwargs = (afgsa_kwargs_from_config if model == "afgsa" else mamba_kwargs_from_config)(cfg)
+            plain = type(g)(**dict(kwargs, use_kernels=False), device=device)
+            plain.load_state_dict(weights)
+            ref = make_eval_step(plain)(batch)[0]
+            dev = deviation(out, ref)
+            log(f"[{tag}] first validation batch {tuple(batch['noisy'].shape)}, eval step "
+                f"(kernels) vs plain route: max_rel {dev['max_rel']:.6g} rms_rel "
+                f"{dev['rms_rel']:.6g} (bound {FRAME_TOL})")
+            check(f"[{tag}] first validation batch", dev, FRAME_TOL)
+            # what a validation batch costs: the eval forward on the card
+            # against the SSIM of its samples on the host
+            eval_step = make_eval_step(g)
+            eval_step(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            output, _, gt = eval_step(batch)
+            output, gt = output.float().cpu().numpy(), gt.float().cpu().numpy()
+            forward_s = time.perf_counter() - t0
+            out_255 = tensor2img(output, post_spec=True)
+            gt_255 = tensor2img(gt.astype(np.float64))
+            t0 = time.perf_counter()
+            calculate_ssim(out_255, gt_255)
+            ssim_s = time.perf_counter() - t0
+            log(f"[{tag}] one validation batch of {len(out_255)}: eval forward and copy "
+                f"{forward_s * 1e3:.2f} ms, the SSIM of its samples on the host "
+                f"{ssim_s * 1e3:.2f} ms; {smi}")
+            del plain, ref, batch, out, weights, output, gt
+
+            # resume from model_epoch1: its state to the bit, at the schedule
+            ckpt = run0 / "model_epoch1" / "state"
+            resumed, rec2, _, launches2, secs2, _ = run_trainer(
+                base + TRAINER_ARGS + ["run_num=1", "trainer.load_model=true",
+                                       f"trainer.model_path={ckpt.resolve()}"], model)
+            saved, restored = rec["saved"][0], rec2["restored"]
+            for part in ("g", "g_opt", "d_opt"):
+                if not same_bits(restored[part], saved[part]):
+                    raise AssertionError(f"[{tag}] resume: {part} differs from the saved state")
+            milestones = multistep_milestone_epochs(cfg.trainer.epochs, cfg.trainer.lr_milestone)
+            steps = len(rec["train"]) // 2
+            lr = multistep_schedule(cfg.trainer.lr_g, milestones, cfg.trainer.lr_gamma,
+                                    steps)(restored["count"])
+            if restored["count"] != steps or restored["lr"] != lr:
+                raise AssertionError(f"[{tag}] resume: count {restored['count']} lr "
+                                     f"{restored['lr']} (want {steps}, {lr})")
+            check_trainer_run(f"{tag}-resume", model, resumed, rec2, launches2, [2], layers)
+            log(f"[{tag}] resumed from model_epoch1 at epoch 2 in {secs2:.2f} s: G parameters and "
+                f"both Adam states equal to the saved ones to the bit; first step at lr {lr:g} "
+                f"(schedule count {restored['count']})")
+            del resumed, rec2
+
+            # serve model_epoch2 through inference.load_generator
+            serve_cfg = copy.deepcopy(cfg)
+            serve_cfg.trainer.model_path = str(run0 / "model_epoch2" / "state")
+            loaded = load_generator(serve_cfg, device=device)
+            outs = [denoise_frame_fused(
+                make_fused_frame_apply(m.eval(), (SERVE["size"], SERVE["size"]), tile=SERVE["tile"],
+                                       margin=SERVE["margin"], batch_tiles=SERVE["batch"],
+                                       device=device), frame, device=device)
+                for m in (loaded, g)]
+            if outs[0].shape != (SERVE["size"], SERVE["size"], 3) or not np.isfinite(outs[0]).all():
+                raise AssertionError(f"[{tag}] bad served frame")
+            if not np.array_equal(outs[0], outs[1]):
+                dev = deviation(torch.from_numpy(outs[0]), torch.from_numpy(outs[1]))
+                raise AssertionError(f"[{tag}] the served frame differs from the trainer's G: {dev}")
+            log(f"[{tag}] model_epoch2/state served one {SERVE['size']}² frame through "
+                "inference.load_generator, equal to the trainer's G to the bit")
+            del trainer, rec, g, loaded, outs
+            torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main set them
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -1544,14 +1894,15 @@ def main() -> None:
     results = phase_kernels(device)
     frames = synthetic_frames(SERVE["frames"], SERVE["size"])
     serving = phase_serving(device, frames)
-    training = phase_training(device)
+    training, afgsa_rate = phase_training(device)
     phase_literal(device)
     results["K7"], mamba = phase_mamba(device, frames)
     results.update(phase_mamba_kernels(device))
-    mamba_training = phase_mamba_training(device)
+    mamba_training, mamba_rate = phase_mamba_training(device)
     results.update(phase_literal_kernels(device))
     literal = phase_literal_path(device)
     phase_fold_qkv(device)
+    phase_trainer(device, frames[0], {"afgsa": afgsa_rate, "mamba": mamba_rate}, smi)
     # each kernel's count from the path it was ported for
     path = {"K1": serving, "K2": serving, "K3": serving, "K4": training, "K5": training,
             "K6": training, "K7": mamba, "K7e": mamba_training, "K8": mamba_training,

@@ -3,11 +3,12 @@
 Port of `pixel_heal_thyself_tpu/inference.py`, tiled paths only:
 
     python -m pixel_heal_thyself_tpu_torch.inference -cn prod \
-        trainer.model_path=<params.npz> inference.images_dir=data/images \
+        trainer.model_path=<ckpt or .npz> inference.images_dir=data/images \
         [inference.out_dir=...] [inference.device=cuda]
 
-`trainer.model_path` names a flat `.npz` of the flax generator params
-(`tools/export_params_npz.py` writes one from a trainer checkpoint).
+`trainer.model_path` names the port trainer's checkpoint
+(`<run>/model_epochN/state`) or a flat `.npz` of the flax generator
+params (`tools/export_params_npz.py` writes one from a JAX checkpoint).
 Frames are denoised in overlapping tiles (tile 64 + margin 32 → 128²
 windows, 8 to a batch), stitched by cropping the margins, and scored with
 the training metrics into `<scene>_<spp>_evaluation.txt`.
@@ -255,7 +256,10 @@ def _dtype(cfg) -> torch.dtype:
 
 def load_generator(cfg, device: torch.device | str = "cuda"):
     """Build the generator from config and load its weights from
-    `trainer.model_path`, a flat params `.npz` (tools/export_params_npz.py)."""
+    `trainer.model_path`: the port trainer's checkpoint directory
+    (`<run>/model_epochN/state`, `training/checkpoints.py`), a params file
+    of `checkpoints.save_params`, or a flat flax params `.npz`
+    (tools/export_params_npz.py)."""
     from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet
     from pixel_heal_thyself_tpu_torch.models.mamba import MambaDenoiserNet
     from pixel_heal_thyself_tpu_torch.params import (
@@ -263,6 +267,7 @@ def load_generator(cfg, device: torch.device | str = "cuda"):
         load_params_npz,
         mamba_state_from_flax,
     )
+    from pixel_heal_thyself_tpu_torch.training import checkpoints
 
     if cfg.model.name == "afgsa":
         kwargs, net, to_state = afgsa_kwargs_from_config(cfg), AFGSANet, afgsa_state_from_flax
@@ -277,7 +282,16 @@ def load_generator(cfg, device: torch.device | str = "cuda"):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     model = net(**kwargs, device=device)
-    model.load_state_dict(to_state(load_params_npz(cfg.trainer.model_path)))
+    path = Path(cfg.trainer.model_path)
+    if path.suffix == ".npz":
+        state = to_state(load_params_npz(str(path)))
+    elif path.is_dir() and not (path / checkpoints.FILE).exists():
+        raise ValueError(f"{path} is not a checkpoint of the port's trainer (no "
+                         f"{checkpoints.FILE}); export a JAX Orbax checkpoint with "
+                         "tools/export_params_npz.py")
+    else:
+        state = checkpoints.restore_params(path)
+    model.load_state_dict(state)
     return model.eval()
 
 
@@ -397,7 +411,8 @@ def main(argv=None) -> None:
     cfg = ConfigRegistry.create_config(compose(args.config_name, cfg_overrides))
     logger.setup_logger(cfg.logging.level)
     if not cfg.trainer.model_path:
-        raise SystemExit("set trainer.model_path=<params .npz> (tools/export_params_npz.py)")
+        raise SystemExit("set trainer.model_path=<run>/model_epochN/state or a params .npz "
+                         "(tools/export_params_npz.py)")
     images_dir = infer_opts["images_dir"] or cfg.data.images.dir
     out_dir = infer_opts["out_dir"] or os.path.join(cfg.paths.output_dir, "inference")
     run_inference(

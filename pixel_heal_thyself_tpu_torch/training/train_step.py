@@ -12,6 +12,9 @@ count 0, as optax does).
 
 The generator and discriminator are `nn.Module`s updated in place; the
 step returns its losses as 0-dim tensors on the device (no host sync).
+The step carries its Adams and schedules as attributes (`g_opt`,
+`g_sched`, `d_opt`, `d_sched`), which the trainer gathers into a
+`TrainState` to checkpoint and restore.
 The multiscale discriminator's relativistic hinge step, MS-SSIM and LPIPS
 wait for ROADMAP.md slice 7.
 """
@@ -80,6 +83,21 @@ class OptimizerSpec:
         return opt, torch.optim.lr_scheduler.LambdaLR(opt, sched)
 
 
+@dataclass
+class TrainState:
+    """Everything a resumed run needs: both networks, both Adams with
+    their schedules, and the generator the GP interpolation weights are
+    drawn from (None when the caller supplies them)."""
+
+    g: torch.nn.Module
+    d: torch.nn.Module
+    g_opt: torch.optim.Adam
+    d_opt: torch.optim.Adam
+    g_sched: torch.optim.lr_scheduler.LambdaLR
+    d_sched: torch.optim.lr_scheduler.LambdaLR
+    generator: torch.Generator | None = None
+
+
 def make_optimizer(lr: float, milestone_epochs: list[int], gamma: float,
                    steps_per_epoch: int, betas=(0.9, 0.999), eps: float = 1e-8,
                    ) -> OptimizerSpec:
@@ -91,8 +109,10 @@ def make_train_step(g_model: torch.nn.Module, d_model: torch.nn.Module, losses_c
                     use_multiscale: bool, g_tx: OptimizerSpec, d_tx: OptimizerSpec,
                     ) -> Callable:
     """Build the alternating G/D update: `step(batch, *, alpha=None,
-    generator=None) → {g_loss, d_loss, g_gan, g_l1}`. `losses_cfg` is a
-    `LossesConfig` (or any object with its fields).
+    generator=None) → {g_loss, d_loss, g_gan, g_l1}`, with its optimizers
+    and schedules as `step.g_opt`, `step.g_sched`, `step.d_opt` and
+    `step.d_sched`. `losses_cfg` is a `LossesConfig` (or any object with
+    its fields).
 
     `batch` holds NHWC `noisy` [B,H,W,3], `gt` [B,H,W,3] and `aux`
     [B,H,W,7] on the models' device. `alpha` [B,1,1,1] are the GP
@@ -142,6 +162,8 @@ def make_train_step(g_model: torch.nn.Module, d_model: torch.nn.Module, losses_c
         return {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
                 "g_gan": loss_g.detach(), "g_l1": loss_l1.detach()}
 
+    train_step.g_opt, train_step.g_sched = g_opt, g_sched
+    train_step.d_opt, train_step.d_sched = d_opt, d_sched
     return train_step
 
 

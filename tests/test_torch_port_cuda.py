@@ -1314,3 +1314,92 @@ def test_fold_qkv_fn_on_the_card(dev):
     _assert_close(outs[0], outs[1], 1e-5, 1e-6)
     for g, r in zip(*grads):
         _assert_close(g, r, 1e-4, 1e-5)
+
+
+def _tiny_store(root):
+    from pixel_heal_thyself_tpu_torch.data.store import PatchStoreConstructor
+    from pixel_heal_thyself_tpu_torch.data.synthetic import generate_dataset
+
+    generate_dataset(root / "images", height=64, width=64, seed=2)
+    PatchStoreConstructor(str(root / "images"), str(root / "patches"), 16, 8, 5, 0.5,
+                          num_workers=2).construct_store()
+    return root / "patches" / "train"
+
+
+def test_loaders_on_the_card_match_the_cpu(dev, tmp_path):
+    """DeviceLoader's gather on the card and PrefetchLoader's pinned
+    copies give the CPU loader's batches, byte for byte, over 2 epochs."""
+    from pixel_heal_thyself_tpu_torch.data.dataset import DeviceLoader, PatchDataset, PrefetchLoader
+
+    ds = PatchDataset(_tiny_store(tmp_path))
+    kw = dict(batch_size=3, shuffle=True, seed=11)
+    cpu = PrefetchLoader(ds, device="cpu", **kw)
+    on_card = [DeviceLoader(ds, device=dev, **kw), PrefetchLoader(ds, device=dev, workers=2, **kw)]
+    for _ in range(2):
+        want = list(cpu)
+        for loader in on_card:
+            got = list(loader)
+            assert len(got) == len(want)
+            for gb, wb in zip(got, want):
+                for key, val in wb.items():
+                    assert gb[key].device.type == "cuda"
+                    assert torch.equal(gb[key].cpu(), val), key
+
+
+@pytest.mark.parametrize("model", ["afgsa", "mamba"])
+def test_tiny_trainer_on_the_card_runs_its_kernels(dev, tmp_path, monkeypatch, model):
+    """`train.main` on the card at a tiny bf16 config: every train step
+    launches the generator's training kernels (AFGSA K1–K6, Mamba K7-emit
+    and K8), validation its forward kernels, and the run writes its
+    artifacts."""
+    from pixel_heal_thyself_tpu_torch import train
+    from pixel_heal_thyself_tpu_torch.config.run_dirs import reset_run_dirs_cache
+    from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import fused_mamba_chain_bwd_cuda
+    from pixel_heal_thyself_tpu_torch.training import trainer as trainer_mod
+
+    kernels = {
+        "afgsa": {"train": (block_halo_attention_cuda, pointwise_gemm_cuda, conv3x3_cuda,
+                            block_halo_attention_bwd_cuda, conv3x3_dgrad_cuda, weight_grad_cuda),
+                  "eval": (block_halo_attention_cuda, pointwise_gemm_cuda, conv3x3_cuda)},
+        "mamba": {"train": (fused_mamba_chain_emit_cuda, fused_mamba_chain_bwd_cuda),
+                  "eval": (fused_mamba_chain_cuda,)},
+    }[model]
+    calls = {"train": [], "eval": []}
+
+    def counting(kind, make):
+        def wrapped_make(*args, **kwargs):
+            fn = make(*args, **kwargs)
+
+            def run(*a, **k):
+                before = [w.launches for w in kernels[kind]]
+                out = fn(*a, **k)
+                calls[kind].append([w.launches - b for w, b in zip(kernels[kind], before)])
+                return out
+
+            run.__dict__.update(fn.__dict__)
+            return run
+        return wrapped_make
+
+    monkeypatch.setattr(trainer_mod, "make_train_step", counting("train", trainer_mod.make_train_step))
+    monkeypatch.setattr(trainer_mod, "make_eval_step", counting("eval", trainer_mod.make_eval_step))
+    monkeypatch.chdir(tmp_path)
+    reset_run_dirs_cache()
+    sizes = {"afgsa": ["model.feature_map_channels=64", "model.afgsa.self_attention.num_layers=1"],
+             "mamba": ["model=mamba", "model.feature_map_channels=64", "model.mamba.num_layers=1",
+                       "model.mamba.expansion=2", "model.mamba.headdim=16",
+                       "model.mamba.d_state=16"]}[model]
+    trainer = train.main(["-cn", "ci", "--device", "cuda", "trainer.epochs=1",
+                          "trainer.precision=bf16", "data.patches.num_patches=6",
+                          "data.images.synthetic_size=96", "run_num=0", *sizes])
+    reset_run_dirs_cache()
+    assert trainer.use_kernels and trainer.loader_kind == "device"
+    assert calls["train"] and calls["eval"]
+    for kind, per_call in calls.items():
+        for i, launched in enumerate(per_call):
+            assert all(n >= 1 for n in launched), f"{kind} call {i}: launches {launched}"
+    run = tmp_path / "outputs" / "runs" / f"{model}_p32_n6_r1.0" / "run000"
+    assert (run / "model_epoch1" / "state" / "checkpoint.pt").is_file()
+    text = (run / "train_loss.txt").read_text()
+    assert text.startswith("Epoch: 1 \tG loss: ")
+    losses = [float(x) for x in text.split()[4::3]]  # "G loss: x", "D Loss: y"
+    assert len(losses) == 2 and np.isfinite(losses).all()
