@@ -112,13 +112,32 @@ exits non-zero. Phases:
    block and every validation forward K1–K3 or K7 (counter deltas around
    each call), all on their prod bodies; the first validation batch
    through the trainer's eval step against the plain route (FRAME_TOL); a
-   resume from `model_epoch1/state` that starts at epoch 2 with G's
-   parameters and both Adam states equal to the saved ones to the bit and
+   resume from `model_epoch1/state` that starts at epoch 2 with G, D and
+   both Adam states equal to the saved ones to the bit and
    its first step at the schedule's learning rate; `model_epoch2/state`
    served through `inference.load_generator`, one 512² frame equal to the
    trainer's G to the bit. Prints each epoch's patches/s and io share
    from the trainer's summary beside phases 5's and 8's step-alone rate,
    the store build's seconds and peak memory.
+12. The trainer's GAN options at prod width (batch 8 × 128², bf16, the
+   kernels on; 1 warm-up + 3 steps each): (a) the AFGSANet with FiLM, which
+   takes the literal route, WGAN-GP against DiscriminatorVGG: every step
+   launches K1 and K4 five times (the tensor-core bodies) and no block
+   kernel; one step through the kernel and plain routes (STEP_LOSS_TOL,
+   STEP_GRAD_TOL) beside the plain route repeated; one 512² FiLM frame
+   served (K1 40 times, nothing else) against the plain path (FRAME_TOL).
+   (b) The multiscale spectral-norm critic with RaHinge, MS-SSIM and LPIPS
+   (random weights) for the prod AFGSANet (block route) and the prod
+   MambaDenoiserNet: every step launches what a phase 5 or phase 8 step
+   launched; after the first step every SNConv's `u` equals one power
+   iteration from its old `u` with the pre-update weights, recomputed in
+   f32 (SN_U_TOL); the route comparison as in (a) (Mamba:
+   MAMBA_STEP_GRAD_TOL). Prints step seconds and peak memory. (c)
+   `train.main -cn prod` with `model.use_film`, the multiscale critic,
+   MS-SSIM and LPIPS(`random`), 40 patches an image, 2 epochs: every train
+   step launches K1 and K4 and every validation forward K1, five times
+   each; then a resume from `model_epoch1/state` that restores G, D (every
+   `u`) and both Adam states to the bit.
 
 Every kernel row states its bound (the least time the card could take:
 the larger of the bytes its function must move over 3.35 TB/s and its
@@ -776,7 +795,7 @@ def serve(device, frames, net, kwargs, layers: int, names: tuple, tag: str) -> d
             raise AssertionError(f"{name} launched {launches[name]} times < {need} "
                                  f"({layers} layers × {n_batches} batches × {len(frames)} frames)")
     log(f"[{tag}] launches {launches} (need ≥ {need} each of {', '.join(names)})")
-    steady = float(np.mean(secs[1:]))
+    steady = float(np.mean(secs[1:] or secs))
     log(f"[{tag}] seconds per frame {[round(s, 4) for s in secs]} (first includes warm-up); "
         f"steady {steady:.4f} s/frame = {1 / steady:.3f} frames/s; "
         f"peak memory {peak} B ({peak / 2**30:.3f} GiB)")
@@ -1087,16 +1106,25 @@ def phase_mamba_kernels(device) -> dict:
     return rows
 
 
-def _train_state(device, d_dtype, g_kwargs, patch, batch, seed, net=None):
-    """Seeded G (`net`, AFGSANet by default) and D (in `d_dtype`), and one
-    numpy batch (bench.py:107-118) on the card."""
+def _train_state(device, d_dtype, g_kwargs, patch, batch, seed, net=None, multiscale=False):
+    """Seeded G (`net`, AFGSANet by default) and D (in `d_dtype`: the
+    multiscale spectral-norm critic with `multiscale`, else
+    DiscriminatorVGG), and one numpy batch (bench.py:107-118) on the card."""
     from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet
-    from pixel_heal_thyself_tpu_torch.models.discriminators import DiscriminatorVGG
+    from pixel_heal_thyself_tpu_torch.models.discriminators import (
+        DiscriminatorVGG,
+        MultiScaleDiscriminator,
+    )
 
     g = (net or AFGSANet)(**g_kwargs, device=device,
                           generator=torch.Generator().manual_seed(seed))
-    d = DiscriminatorVGG(in_nc=3, base_nf=64, input_size=patch, dtype=d_dtype, device=device,
-                         generator=torch.Generator().manual_seed(seed + 1))
+    d_gen = torch.Generator().manual_seed(seed + 1)
+    if multiscale:
+        d = MultiScaleDiscriminator(in_nc=3, patch_size=patch, dtype=d_dtype, device=device,
+                                    generator=d_gen)
+    else:
+        d = DiscriminatorVGG(in_nc=3, base_nf=64, input_size=patch, dtype=d_dtype,
+                             device=device, generator=d_gen)
     rng = np.random.default_rng(seed)
     arrays = {
         "noisy": np.abs(rng.standard_normal((batch, patch, patch, 3))),
@@ -1119,23 +1147,35 @@ def deterministic_cudnn():
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
 
 
-def _step_grads(device, g_kwargs, patch, batch, alpha, nudge=False, net=None):
-    """One train step from the seeded state with a float32 critic:
-    (metrics, G gradients). `nudge` moves every noisy input value to the
-    next bf16 value up: a change of one bf16 ulp, whose effect on the
-    gradients is the floor that bf16 rounding flips alone set."""
+def make_step(g, d, lpips=None):
+    """The prod train step of G against D: WGAN-GP + L1; or, with `lpips`
+    (LPIPS params on the card), the multiscale RaHinge step + L1 + MS-SSIM
+    + LPIPS (phase 12)."""
     from pixel_heal_thyself_tpu_torch.training.train_step import (
         LossesConfig,
         make_optimizer,
         make_train_step,
     )
 
-    g, d, data = _train_state(device, torch.float32, g_kwargs, patch, batch, seed=3, net=net)
+    spec = make_optimizer(1e-4, [2], 0.5, 100)
+    if lpips is None:
+        return make_train_step(g, d, LossesConfig(), False, spec, spec)
+    return make_train_step(g, d, LossesConfig(use_ssim_loss=True, use_lpips_loss=True), True,
+                           spec, spec, lpips_params=lpips)
+
+
+def _step_grads(device, g_kwargs, patch, batch, alpha, nudge=False, net=None, lpips=None):
+    """One train step from the seeded state with a float32 critic (the
+    multiscale one with SSIM and LPIPS when `lpips` is given): (metrics, G
+    gradients). `nudge` moves every noisy input value to the next bf16
+    value up: a change of one bf16 ulp, whose effect on the gradients is
+    the floor that bf16 rounding flips alone set."""
+    g, d, data = _train_state(device, torch.float32, g_kwargs, patch, batch, seed=3, net=net,
+                              multiscale=lpips is not None)
     if nudge:  # the inputs are ≥ 0, so one more in the bits is one ulp up
         bits = data["noisy"].to(torch.bfloat16).view(torch.int16) + 1
         data["noisy"] = bits.view(torch.bfloat16).float()
-    spec = make_optimizer(1e-4, [2], 0.5, 100)
-    step = make_train_step(g, d, LossesConfig(), False, spec, spec)
+    step = make_step(g, d, lpips)
     metrics = {key: val.item() for key, val in step(data, alpha=alpha).items()}
     # (a Mamba generator's aux encoder feeds no block and gets no gradient)
     return metrics, {n: p.grad.detach().clone() for n, p in g.named_parameters()
@@ -1165,17 +1205,11 @@ def train_and_compare(device, net, kwargs, route, names: tuple, layers: int, lit
     `literal` over the plain kwargs), against `grad_tol` = (rms, mass).
     Returns the launch counts of the 7 steps and the steady patches/s."""
     from pixel_heal_thyself_tpu_torch.models.afgsa import count_params
-    from pixel_heal_thyself_tpu_torch.training.train_step import (
-        LossesConfig,
-        make_optimizer,
-        make_train_step,
-    )
 
     patch, batch, warmup, timed = (TRAIN[k] for k in ("patch", "batch", "warmup", "timed"))
     g, d, data = _train_state(device, torch.bfloat16, kwargs, patch, batch, seed=0, net=net)
     assert route(g), f"the prod {net.__name__} step must take its kernel route"
-    spec = make_optimizer(1e-4, [2], 0.5, 100)
-    step = make_train_step(g, d, LossesConfig(), False, spec, spec)
+    step = make_step(g, d)
     gen = torch.Generator(device=device).manual_seed(7)
     log(f"[{tag}] prod step: G {net.__name__} {count_params(g)} params (bf16, {layers} blocks, "
         f"kernel route), D {count_params(d)} params; batch {batch} × {patch}², WGAN-GP + L1")
@@ -1555,6 +1589,8 @@ TRAINER_ARGS = ["data.images.synthesize=true", "data.images.synthetic_size=512",
 # per model: the kernels every train step and every validation forward run
 TRAINER_KERNELS = {"afgsa": (("K1", "K2", "K3", "K4", "K5", "K6"), ("K1", "K2", "K3")),
                    "mamba": (("K7e", "K8"), ("K7",))}
+# what a resume must restore to the bit (D with any spectral-norm `u`)
+RESUME_PARTS = ("g", "d", "g_opt", "d_opt")
 EPOCH_SUMMARY = re.compile(r"\[Train\] epoch=(\d+) summary: .*\(([\d.]+) patches/sec, "
                            r"io ([\d.]+)s = (\d+)%\)")
 
@@ -1603,8 +1639,7 @@ def same_bits(a, b) -> bool:
 
 
 def _snapshot(state) -> dict:
-    return {"g": _clone(state.g.state_dict()), "g_opt": _clone(state.g_opt.state_dict()),
-            "d_opt": _clone(state.d_opt.state_dict())}
+    return {part: _clone(getattr(state, part).state_dict()) for part in RESUME_PARTS}
 
 
 @contextlib.contextmanager
@@ -1683,8 +1718,9 @@ def trainer_log():
             h.setLevel(level)
 
 
-def run_trainer(argv: list, model: str) -> tuple:
-    """`train.main(argv)` from counts of 0 and a fresh run-dir pin: (trainer,
+def run_trainer(argv: list, kernels: tuple) -> tuple:
+    """`train.main(argv)` from counts of 0 and a fresh run-dir pin, probing
+    `kernels` = (the train step's, the validation forward's): (trainer,
     probe record, log lines, launch counts, seconds, peak memory)."""
     from pixel_heal_thyself_tpu_torch import train
     from pixel_heal_thyself_tpu_torch.config.run_dirs import reset_run_dirs_cache
@@ -1693,7 +1729,7 @@ def run_trainer(argv: list, model: str) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with trainer_probe(*TRAINER_KERNELS[model]) as rec, trainer_log() as lines:
+    with trainer_probe(*kernels) as rec, trainer_log() as lines:
         t0 = time.perf_counter()
         trainer = train.main(argv)
         torch.cuda.synchronize()
@@ -1701,9 +1737,10 @@ def run_trainer(argv: list, model: str) -> tuple:
     return trainer, rec, lines, read_counts(), secs, torch.cuda.max_memory_allocated()
 
 
-def check_trainer_run(tag: str, model: str, trainer, rec: dict, launches: dict,
+def check_trainer_run(tag: str, kernels: tuple, trainer, rec: dict, launches: dict,
                       epochs: list, layers: int) -> Path:
-    """A run's artifacts and launches; returns its run directory."""
+    """A run's artifacts and launches (`kernels` as `run_trainer`'s);
+    returns its run directory."""
     run = Path(trainer.cfg.paths.output_dir)
     if trainer.loader_kind != "device":
         raise AssertionError(f"[{tag}] data.loader=auto resolved to {trainer.loader_kind!r}")
@@ -1739,8 +1776,8 @@ def check_trainer_run(tag: str, model: str, trainer, rec: dict, launches: dict,
                                  f"kernel: {short[:3]} ({len(rec[kind])} calls)")
     check_bodies(tag, launches)
     log(f"[{tag}] {len(rec['train'])} train steps each launched ≥ {layers} of "
-        f"{', '.join(TRAINER_KERNELS[model][0])}; {len(rec['eval'])} validation forwards each "
-        f"≥ {layers} of {', '.join(TRAINER_KERNELS[model][1])}; launches {launches}")
+        f"{', '.join(kernels[0])}; {len(rec['eval'])} validation forwards each "
+        f"≥ {layers} of {', '.join(kernels[1])}; launches {launches}")
     return run
 
 
@@ -1771,13 +1808,14 @@ def phase_trainer(device, frame: dict, step_rates: dict, smi: str) -> None:
             tag = f"trainer-{model}"
             base = ["-cn", TRAINER_CONFIG] + (["model=mamba"] if model == "mamba" else [])
             trainer, rec, lines, launches, secs, peak = run_trainer(
-                base + TRAINER_ARGS + ["run_num=0"], model)
+                base + TRAINER_ARGS + ["run_num=0"], TRAINER_KERNELS[model])
             cfg = trainer.cfg
             g = trainer.state.g
             layers = cfg.model.self_attention.num_layers if model == "afgsa" else cfg.model.num_layers
             if not trainer.use_kernels:
                 raise AssertionError(f"[{tag}] the trainer did not take the kernels")
-            run0 = check_trainer_run(tag, model, trainer, rec, launches, [1, 2], layers)
+            run0 = check_trainer_run(tag, TRAINER_KERNELS[model], trainer, rec, launches, [1, 2],
+                                     layers)
             for line in lines:
                 if any(key in line for key in ("summary:", "patch store", "resolved", "in total")):
                     log(f"[{tag}] trainer: {line}")
@@ -1828,9 +1866,10 @@ def phase_trainer(device, frame: dict, step_rates: dict, smi: str) -> None:
             ckpt = run0 / "model_epoch1" / "state"
             resumed, rec2, _, launches2, secs2, _ = run_trainer(
                 base + TRAINER_ARGS + ["run_num=1", "trainer.load_model=true",
-                                       f"trainer.model_path={ckpt.resolve()}"], model)
+                                       f"trainer.model_path={ckpt.resolve()}"],
+                TRAINER_KERNELS[model])
             saved, restored = rec["saved"][0], rec2["restored"]
-            for part in ("g", "g_opt", "d_opt"):
+            for part in RESUME_PARTS:
                 if not same_bits(restored[part], saved[part]):
                     raise AssertionError(f"[{tag}] resume: {part} differs from the saved state")
             milestones = multistep_milestone_epochs(cfg.trainer.epochs, cfg.trainer.lr_milestone)
@@ -1840,9 +1879,10 @@ def phase_trainer(device, frame: dict, step_rates: dict, smi: str) -> None:
             if restored["count"] != steps or restored["lr"] != lr:
                 raise AssertionError(f"[{tag}] resume: count {restored['count']} lr "
                                      f"{restored['lr']} (want {steps}, {lr})")
-            check_trainer_run(f"{tag}-resume", model, resumed, rec2, launches2, [2], layers)
-            log(f"[{tag}] resumed from model_epoch1 at epoch 2 in {secs2:.2f} s: G parameters and "
-                f"both Adam states equal to the saved ones to the bit; first step at lr {lr:g} "
+            check_trainer_run(f"{tag}-resume", TRAINER_KERNELS[model], resumed, rec2, launches2,
+                              [2], layers)
+            log(f"[{tag}] resumed from model_epoch1 at epoch 2 in {secs2:.2f} s: G and D and both "
+                f"Adam states equal to the saved ones to the bit; first step at lr {lr:g} "
                 f"(schedule count {restored['count']})")
             del resumed, rec2
 
@@ -1866,6 +1906,226 @@ def phase_trainer(device, frame: dict, step_rates: dict, smi: str) -> None:
             torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False  # as main set them
     torch.backends.cudnn.allow_tf32 = False
+
+
+# phase 12: the trainer's GAN options at prod width (batch 8 × 128², bf16,
+# the kernels on): FiLM, which takes the literal route (K1/K4 through
+# `BlockHaloAttentionFn`), and the multiscale spectral-norm critic with
+# RaHinge, MS-SSIM and LPIPS on random weights (no pretrained LPIPS weights
+# are in the repository), for both generators. Each step run: 1 warm-up + 3
+GAN_STEPS = dict(warmup=1, timed=3)
+# an SNConv's u after the first step against one power iteration from its
+# old u with the pre-update weights, recomputed in f32: unit vectors, the
+# same f32 products in the same order
+SN_U_TOL = 1e-6
+# the CLI run: `-cn prod` with the four options; cut: 40 patches an image
+# (prod 400) so that a validation pass, SSIM on the host, stays short
+GAN_TRAINER_ARGS = ["model.use_film=true", "model.discriminator.use_multiscale_discriminator=true",
+                    "model.losses.use_ssim_loss=true", "model.losses.use_lpips_loss=true",
+                    "model.losses.lpips_weights_path=random", "data.images.synthesize=true",
+                    "data.images.synthetic_size=512", "data.patches.num_patches=40",
+                    "trainer.epochs=2", "--device", "cuda"]
+
+
+def per_step(launches: dict, steps: int) -> dict:
+    """A run's launch counts over `steps` equal steps → one step's."""
+    if any(n % steps for n in launches.values()):
+        raise AssertionError(f"launches {launches} are not {steps} equal steps")
+    return {name: n // steps for name, n in launches.items()}
+
+
+def check_u_written(tag: str, sn: dict, before: dict) -> None:
+    """Every SNConv's u after one train step equals one power iteration
+    from its u before the step with the weights before the D update: the D
+    step's fake forward wrote it, once. Beside it, how far two iterations
+    lie (what a second write would give)."""
+    worst, second = 0.0, math.inf
+    for name, m in sn.items():
+        w, u = before[name]
+        w = w.reshape(w.shape[0], -1)
+
+        def iterate(u):
+            v = F.normalize(w.t() @ u, dim=0, eps=1e-12)
+            return F.normalize(w @ v, dim=0, eps=1e-12)
+
+        u1 = iterate(u)
+        worst = max(worst, (m.u - u1).abs().max().item())
+        if u.numel() > 1:  # a 1-channel head's u is ±1 whatever the iterations
+            second = min(second, (m.u - iterate(u1)).abs().max().item())
+    log(f"[{tag}] after step 0, {len(sn)} SNConv u against one power iteration from the old u "
+        f"and weights (f32): worst max_abs_err {worst:.3e} (bound {SN_U_TOL}); two iterations "
+        f"would differ by ≥ {second:.3e}")
+    if worst > SN_U_TOL:
+        raise AssertionError(f"[{tag}] an SNConv's u is not one power iteration from its old u")
+
+
+def gan_step(device, net, kwargs, lpips, route, expect: dict, grad_tol: tuple, tag: str) -> dict:
+    """Phase 12's prod training steps of the generator `net(**kwargs)`
+    (`route(g)`: it takes the route under test): WGAN-GP against
+    DiscriminatorVGG, or, with `lpips` (LPIPS params on the card), the
+    multiscale RaHinge step with MS-SSIM and LPIPS. Every step must launch
+    exactly `expect` (0 for a kernel not named) on the prod bodies, and
+    after the first step every SNConv's u must be one power iteration from
+    its old u; then one step through the kernel and plain routes (f32
+    critic) beside the plain route repeated: losses within STEP_LOSS_TOL,
+    G gradients within `grad_tol`. Returns the launch counts."""
+    from pixel_heal_thyself_tpu_torch.models.afgsa import count_params
+    from pixel_heal_thyself_tpu_torch.models.discriminators import SNConv
+
+    patch, batch = TRAIN["patch"], TRAIN["batch"]
+    warmup, steps = GAN_STEPS["warmup"], GAN_STEPS["warmup"] + GAN_STEPS["timed"]
+    g, d, data = _train_state(device, torch.bfloat16, kwargs, patch, batch, seed=0, net=net,
+                              multiscale=lpips is not None)
+    if not route(g):
+        raise AssertionError(f"[{tag}] the prod {net.__name__} step left its route")
+    step = make_step(g, d, lpips)
+    gen = torch.Generator(device=device).manual_seed(7)
+    sn = {name: m for name, m in d.named_modules() if isinstance(m, SNConv)}
+    before = {name: (m.weight.detach().clone(), m.u.clone()) for name, m in sn.items()}
+    log(f"[{tag}] prod step: G {net.__name__} {count_params(g)} params (bf16), D "
+        f"{type(d).__name__} {count_params(d)} params ({len(sn)} SNConv); batch {batch} × "
+        f"{patch}², " + ("RaHinge + L1 + MS-SSIM + LPIPS (random weights)" if sn
+                         else "WGAN-GP + L1"))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    secs, history, counts = [], [], []
+    for i in range(steps):
+        c0 = read_counts()
+        t0 = time.perf_counter()
+        metrics = step(data, generator=gen)
+        history.append({key: val.item() for key, val in metrics.items()})  # syncs
+        secs.append(time.perf_counter() - t0)
+        counts.append({k: n - c0[k] for k, n in read_counts().items()})
+        if i == 0 and sn:
+            check_u_written(tag, sn, before)
+    launches = read_counts()
+    check_bodies(tag, launches)
+    peak = torch.cuda.max_memory_allocated()
+    del g, d, data, step, before
+    want = {name: expect.get(name, 0) for name in KERNEL_NAMES}
+    for i, got in enumerate(counts):
+        if got != want:
+            raise AssertionError(f"[{tag}] step {i} launched {got}, expected {want}")
+    for i, m in enumerate(history):
+        if not all(math.isfinite(val) for val in m.values()):
+            raise AssertionError(f"[{tag}] step {i}: non-finite losses {m}")
+    steady = float(np.mean(secs[warmup:]))
+    log(f"[{tag}] every step launched {want}")
+    log(f"[{tag}] losses step 0 {history[0]}; step {steps - 1} {history[-1]}")
+    log(f"[{tag}] seconds per step {[round(s_, 4) for s_ in secs]} (first {warmup} warm-up); "
+        f"steady {steady:.4f} s/step = {batch / steady:.3f} patches/s; "
+        f"peak memory {peak} B ({peak / 2**30:.3f} GiB)")
+
+    alpha = torch.rand((batch, 1, 1, 1), generator=gen, device=device)
+    plain = dict(kwargs, use_kernels=False)
+    with deterministic_cudnn():
+        mk, gk = _step_grads(device, kwargs, patch, batch, alpha, net=net, lpips=lpips)
+        mp, gp = _step_grads(device, plain, patch, batch, alpha, net=net, lpips=lpips)
+        mr, gr = _step_grads(device, plain, patch, batch, alpha, net=net, lpips=lpips)
+    for key in ("d_loss", "g_loss"):
+        if abs(mk[key] - mp[key]) > STEP_LOSS_TOL * max(1.0, abs(mp[key])):
+            raise AssertionError(f"[{tag}] {key}: kernel route {mk[key]} vs plain route {mp[key]}")
+    table, floor = grad_table(gk, gp), grad_table(gr, gp)
+    log(f"[{tag}] one step (float32 critic), kernel route vs plain route: d_loss "
+        f"{mk['d_loss']:.6g} vs {mp['d_loss']:.6g}, g_loss {mk['g_loss']:.6g} vs "
+        f"{mp['g_loss']:.6g}; G gradients worst rms_rel {max(r[1] for r in table):.4e}, worst "
+        f"mass {table[0][2]:.4e} ({table[0][0]}) (bounds {grad_tol}); the plain route repeated: "
+        f"worst rms_rel {max(r[1] for r in floor):.4e}, worst mass {floor[0][2]:.4e}")
+    check_table(tag, table, grad_tol)
+    return launches
+
+
+def phase_gan_steps(device, frame, training: dict, mamba_training: dict, smi: str) -> None:
+    """Phase 12 (a): the prod FiLM AFGSA step on the literal route (K1 and
+    K4, 5 a step each; no block kernel) and one FiLM frame served; (b) the
+    multiscale + MS-SSIM + LPIPS step of the prod AFGSA (block route) and
+    the prod Mamba, each step launching what a phase 5 / phase 8 step
+    launched (`training`, `mamba_training`: their launch counts)."""
+    from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet, afgsa_prod_kwargs
+    from pixel_heal_thyself_tpu_torch.models.lpips import random_lpips_params
+    from pixel_heal_thyself_tpu_torch.models.mamba import MambaDenoiserNet, mamba_prod_kwargs
+
+    t_phase = time.perf_counter()
+    patch, batch = TRAIN["patch"], TRAIN["batch"]
+    steps = TRAIN["warmup"] + TRAIN["timed"]
+    film = dict(afgsa_prod_kwargs(), use_film=True)
+    layers = film["num_sa"]
+    gan_step(device, AFGSANet, film, None,
+             lambda g: not g.block_route(batch, patch, patch)
+             and all(blk.attention.use_film for blk in g.blocks),
+             {"K1": layers, "K4": layers}, STEP_GRAD_TOL, "film")
+    launches = serve(device, [frame], AFGSANet, film, layers, ("K1",), "film-serve")
+    n_batches = math.ceil((SERVE["size"] // SERVE["tile"]) ** 2 / SERVE["batch"])
+    if launches != {name: layers * n_batches if name == "K1" else 0 for name in KERNEL_NAMES}:
+        raise AssertionError(f"[film-serve] a FiLM frame launched {launches}, expected K1 "
+                             f"{layers * n_batches} and nothing else")
+
+    lpips = random_lpips_params(0, device=device)
+    afgsa = afgsa_prod_kwargs()
+    gan_step(device, AFGSANet, afgsa, lpips, lambda g: g.block_route(batch, patch, patch),
+             per_step(training, steps), STEP_GRAD_TOL, "multiscale")
+    mamba = mamba_prod_kwargs()
+    gan_step(device, MambaDenoiserNet, mamba, lpips,
+             lambda g: all(blk.mamba.fused_route(patch * patch) for blk in g.blocks),
+             per_step(mamba_training, steps), MAMBA_STEP_GRAD_TOL, "multiscale-mamba")
+    del lpips
+    torch.cuda.empty_cache()
+    log(f"[gan] phase 12 (a) and (b) {time.perf_counter() - t_phase:.2f} s; {smi}")
+
+
+def phase_gan_trainer(smi: str) -> None:
+    """Phase 12 (c): `train.main -cn prod` with FiLM, the multiscale
+    critic, MS-SSIM and LPIPS(random) for 2 epochs (every train step K1 and
+    K4 for every block, every validation forward K1), then a resume from
+    model_epoch1 that restores G, D (with every u) and both Adams to the
+    bit."""
+    t_phase = time.perf_counter()
+    kernels = (("K1", "K4"), ("K1",))
+    tag = "trainer-gan"
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        base = ["-cn", TRAINER_CONFIG] + GAN_TRAINER_ARGS
+        trainer, rec, lines, launches, secs, peak = run_trainer(base + ["run_num=0"], kernels)
+        cfg, state = trainer.cfg, trainer.state
+        if not (trainer.use_kernels and type(state.d).__name__ == "MultiScaleDiscriminator"
+                and all(blk.attention.use_film for blk in state.g.blocks)):
+            raise AssertionError(f"[{tag}] the trainer did not take FiLM, the multiscale critic "
+                                 "and the kernels")
+        layers = cfg.model.self_attention.num_layers
+        run0 = check_trainer_run(tag, kernels, trainer, rec, launches, [1, 2], layers)
+        if any(c != {"K1": layers, "K4": layers} for c in rec["train"]) or any(
+                c != {"K1": layers} for c in rec["eval"]):
+            raise AssertionError(f"[{tag}] a train step or validation forward launched other "
+                                 f"than {layers} K1 (+ {layers} K4): {rec['train'][:2]}")
+        for line in lines:
+            if any(key in line for key in ("SSIM lossW", "multiscale", "FiLM", "LPIPS",
+                                           "summary:", "in total")):
+                log(f"[{tag}] trainer: {line}")
+        log(f"[{tag}] run of 2 epochs {secs:.2f} s; peak memory {peak} B "
+            f"({peak / 2**30:.3f} GiB); {smi}")
+
+        ckpt = run0 / "model_epoch1" / "state"
+        resumed, rec2, _, launches2, secs2, _ = run_trainer(
+            base + ["run_num=1", "trainer.load_model=true",
+                    f"trainer.model_path={ckpt.resolve()}"], kernels)
+        saved, restored = rec["saved"][0], rec2["restored"]
+        for part in RESUME_PARTS:
+            if not same_bits(restored[part], saved[part]):
+                raise AssertionError(f"[{tag}] resume: {part} differs from the saved state")
+        n_u = sum(name.endswith(".u") for name in restored["d"])
+        if n_u != sum(1 for name in state.d.state_dict() if name.endswith(".u")) or not n_u:
+            raise AssertionError(f"[{tag}] resume: the critic's u buffers are missing")
+        if restored["count"] != len(rec["train"]) // 2:
+            raise AssertionError(f"[{tag}] resume at schedule count {restored['count']}")
+        check_trainer_run(f"{tag}-resume", kernels, resumed, rec2, launches2, [2], layers)
+        log(f"[{tag}] resumed from model_epoch1 at epoch 2 in {secs2:.2f} s: G, D (its {n_u} "
+            f"SNConv u) and both Adam states equal to the saved ones to the bit")
+        del trainer, resumed, rec, rec2, state
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main set them
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[gan] phase 12 (c) {time.perf_counter() - t_phase:.2f} s; {smi}")
 
 
 def main() -> None:
@@ -1903,6 +2163,8 @@ def main() -> None:
     literal = phase_literal_path(device)
     phase_fold_qkv(device)
     phase_trainer(device, frames[0], {"afgsa": afgsa_rate, "mamba": mamba_rate}, smi)
+    phase_gan_steps(device, frames[0], training, mamba_training, smi)
+    phase_gan_trainer(smi)
     # each kernel's count from the path it was ported for
     path = {"K1": serving, "K2": serving, "K3": serving, "K4": training, "K5": training,
             "K6": training, "K7": mamba, "K7e": mamba_training, "K8": mamba_training,

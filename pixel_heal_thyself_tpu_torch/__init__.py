@@ -8,7 +8,10 @@ TPU kernel on the ported path is a hand-written CUDA kernel for Hopper
 
 Ported so far: tiled full-frame inference of the AFGSA and Mamba
 generators (`inference.py`); their GAN training step
-(`training/train_step.py`); and the trainer that drives it
+(`training/train_step.py`) with every option of the JAX trainer — FiLM,
+the multiscale spectral-norm critic with the relativistic hinge, the
+MS-SSIM (`ops/msssim.py`) and LPIPS (`models/lpips.py`) terms; and the
+trainer that drives it
 (`python -m pixel_heal_thyself_tpu_torch.train`, `training/trainer.py`:
 the importance-sampled patch store of `data/store.py` built on first
 run, the loaders of `data/dataset.py`, validation with its logs and PNG

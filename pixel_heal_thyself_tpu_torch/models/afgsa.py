@@ -33,8 +33,11 @@ under the JAX gate: `use_kernels`, `fold_qkv` and a channel count that is
 a multiple of 128, on the literal route only (the block route takes
 precedence and ignores it, as in JAX).
 
-Not ported yet: FiLM conditioning (ROADMAP.md slice 7) raises
-NotImplementedError.
+`use_film` fuses the noisy and aux features with FiLM (JAX
+`models/afgsa.py:58`: cond = aux → 1×1 conv to 128 → ReLU → 1×1 conv to
+2·ch, spatial γ, β; γ·noisy + β) instead of the 1×1 ConvBlock over their
+concat. Under FiLM every block takes the literal route, whatever
+`use_block_kernel` says (the whole-block kernel has no FiLM), as in JAX.
 """
 
 from __future__ import annotations
@@ -77,13 +80,6 @@ def afgsa_prod_kwargs() -> dict:
     )
 
 
-def _not_ported(what: str, slice_no: int):
-    return NotImplementedError(
-        f"{what} is not ported to pixel_heal_thyself_tpu_torch yet "
-        f"(ROADMAP.md slice {slice_no})",
-    )
-
-
 def multi_scale_encode(
     x: torch.Tensor, convs, slopes: tuple, padding_mode: str, dtype: torch.dtype,
 ) -> torch.Tensor:
@@ -123,11 +119,29 @@ class MultiScaleEncoder(nn.Module):
         return multi_scale_encode(x, self.branches, self.slopes, self.padding_mode, self.dtype)
 
 
+class FiLM(nn.Module):
+    """Feature-wise linear modulation, spatial (SPADE-like), as AFGSA uses
+    it (`use_spatial=True` in the JAX package, the only setting it takes):
+    γ, β = split(conv1(relu(conv0(cond)))) per pixel; returns γ·x + β in
+    `dtype`."""
+
+    def __init__(self, ch: int, cond_ch: int, hidden: int = 128, dtype=torch.float32,
+                 generator=None) -> None:
+        super().__init__()
+        self.conv0 = Conv(cond_ch, hidden, 1, dtype=dtype, generator=generator)
+        self.conv1 = Conv(hidden, 2 * ch, 1, dtype=dtype, generator=generator)
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        gamma, beta = self.conv1(torch.relu(self.conv0(cond))).chunk(2, dim=-1)
+        return gamma * x + beta
+
+
 class AFGSA(nn.Module):
     """Auxiliary-feature-guided self-attention: fuse noisy+aux (1×1 conv
-    over the concat), bias-free 1×1 q/k projections of the fused features
-    and v of the noisy ones, then block-halo attention (the projections
-    folded into the attention op when `folded`)."""
+    over the concat, or FiLM of noisy by aux), bias-free 1×1 q/k
+    projections of the fused features and v of the noisy ones, then
+    block-halo attention (the projections folded into the attention op
+    when `folded`)."""
 
     def __init__(
         self, ch: int, noisy_ch: int, aux_ch: int, *, block_size=8, halo_size=3,
@@ -135,8 +149,6 @@ class AFGSA(nn.Module):
         use_kernels=False, dtype=torch.float32, generator=None,
     ) -> None:
         super().__init__()
-        if use_film:
-            raise _not_ported("FiLM conditioning (use_film)", 7)
         if ch % num_heads:
             raise ValueError("ch should be divided by # heads")
         head_ch = ch // num_heads
@@ -147,8 +159,12 @@ class AFGSA(nn.Module):
         # the JAX gate (models/afgsa.py:350), use_pallas being use_kernels
         self.folded = use_kernels and fold_qkv and ch % 128 == 0
         self.dtype = dtype
-        self.fuse = ConvBlock(noisy_ch + aux_ch, ch, 1, act_type="relu", dtype=dtype,
-                              generator=generator)
+        self.use_film = use_film
+        if use_film:
+            self.film = FiLM(noisy_ch, aux_ch, hidden=128, dtype=dtype, generator=generator)
+        else:
+            self.fuse = ConvBlock(noisy_ch + aux_ch, ch, 1, act_type="relu", dtype=dtype,
+                                  generator=generator)
         self.q_weight = nn.Parameter(torch.empty(ch, ch, 1, 1))
         self.k_weight = nn.Parameter(torch.empty(ch, ch, 1, 1))
         self.v_weight = nn.Parameter(torch.empty(ch, noisy_ch, 1, 1))
@@ -161,7 +177,10 @@ class AFGSA(nn.Module):
 
     def forward(self, noisy: torch.Tensor, aux: torch.Tensor,
                 residual: torch.Tensor | None = None) -> torch.Tensor:
-        n_aux = self.fuse(torch.cat([noisy, aux], dim=-1))
+        if self.use_film:
+            n_aux = self.film(noisy.to(self.dtype), aux)
+        else:
+            n_aux = self.fuse(torch.cat([noisy, aux], dim=-1))
         if self.folded:
             w = (t[:, :, 0, 0].t() for t in (self.q_weight, self.k_weight, self.v_weight))
             return QKVBlockHaloAttentionFn.apply(
@@ -211,7 +230,8 @@ class TransformerBlock(nn.Module):
         self.ffn2 = ConvBlock(ch, ch, 3, **conv)
 
     def block_params(self) -> tuple:
-        """The block's parameters in `ops.block_cuda.PARAM_NAMES` order."""
+        """The block's parameters in `ops.block_cuda.PARAM_NAMES` order
+        (not under FiLM, which the whole-block route does not take)."""
         att = self.attention
         return (
             att.fuse.conv.weight, att.fuse.conv.bias, att.q_weight, att.k_weight,
@@ -259,12 +279,11 @@ class AFGSANet(nn.Module):
         super().__init__()
         if num_gcp > num_sa:
             raise ValueError(f"num_gcp={num_gcp} > num_sa={num_sa}")
-        if use_film:
-            raise _not_ported("FiLM conditioning (use_film)", 7)
         self.base_ch = base_ch
         self.num_gcp = num_gcp
         self.block_size, self.halo_size, self.num_heads = block_size, halo_size, num_heads
-        self.use_block_kernel = use_block_kernel
+        # the JAX rule (models/afgsa.py:527): no whole-block route under FiLM
+        self.use_block_kernel = use_block_kernel and not use_film
         self.dtype = dtype
         g = generator
         cb = dict(dtype=dtype, generator=g)

@@ -2,11 +2,19 @@
 
 `afgsa_state_from_flax(tree)` takes the flax param tree (nested dicts of
 numpy arrays, the `params` collection of `AFGSANet.init`) and returns a
-`state_dict` for `models.afgsa.AFGSANet`; `discriminator_state_from_flax`
+`state_dict` for `models.afgsa.AFGSANet` (FiLM's `FiLM_0/Conv_{0,1}` →
+`attention.film.conv{0,1}`); `discriminator_state_from_flax`
 does the same for `models.discriminators.DiscriminatorVGG` (BatchNorm
 `scale`/`bias` as they are, Dense kernels `[in, out]` transposed to the
-torch Linear layout). Conv kernels are transposed from
-flax's HWIO to torch's OIHW (`transpose(3, 2, 0, 1)`); the block route
+torch Linear layout), and for `DiscriminatorVGG128` and
+`PatchGANDiscriminator`, whose trees are named alike
+(`discriminator_vgg128_state_from_flax`, `patchgan_state_from_flax`).
+`multiscale_discriminator_state_from_flax(params, spectral)` maps a
+`MultiScaleDiscriminator`'s `params` and `spectral` collections: each
+`D<k>/SNConv_<i>` kernel and bias, and its power-iteration vector `u`,
+onto `d<k>.convs.<i>.{weight,bias,u}`. `lpips_params_from_jax` converts a
+JAX LPIPS tree (HWIO kernels) into the port's (OIHW). Conv kernels are
+transposed from flax's HWIO to torch's OIHW (`transpose(3, 2, 0, 1)`); the block route
 re-lays them out for its kernels at call time (`TransformerBlock.
 kernel_weights`). rel_h/rel_w `[window, head_ch//2]` map as they are.
 
@@ -79,6 +87,9 @@ def _block(dst: dict, prefix: str, node: dict) -> None:
                     dst[f"{prefix}attention.{aname}"] = _tensor(aval)
                 elif aname == "ConvBlock_0":
                     _conv(dst, prefix + "attention.fuse.conv", aval["Conv_0"])
+                elif aname == "FiLM_0":
+                    _conv(dst, prefix + "attention.film.conv0", aval["Conv_0"])
+                    _conv(dst, prefix + "attention.film.conv1", aval["Conv_1"])
                 else:
                     raise KeyError(f"unexpected attention param {aname}")
         elif name in _FFN:
@@ -113,7 +124,8 @@ _CONV_BLOCK_NAME = re.compile(r"^ConvBlock_(\d+)$")
 
 
 def discriminator_state_from_flax(tree: dict) -> dict[str, torch.Tensor]:
-    """flax DiscriminatorVGG `params` tree → port `state_dict`."""
+    """flax DiscriminatorVGG `params` tree → port `state_dict`
+    (`ConvBlock_<i>` → `blocks.<i>`, `Dense_<j>` → `dense<j>`)."""
     tree = tree.get("params", tree)
     state: dict[str, torch.Tensor] = {}
     for name, node in tree.items():
@@ -134,6 +146,48 @@ def discriminator_state_from_flax(tree: dict) -> dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unexpected DiscriminatorVGG param {name}")
     return state
+
+
+# DiscriminatorVGG128 and PatchGANDiscriminator name their layers as
+# DiscriminatorVGG does (the latter has no Dense layers)
+discriminator_vgg128_state_from_flax = discriminator_state_from_flax
+patchgan_state_from_flax = discriminator_state_from_flax
+
+_SCALES = {"D1": "d1", "D2": "d2", "D3": "d3"}
+_SN_CONV_NAME = re.compile(r"^SNConv_(\d+)$")
+
+
+def multiscale_discriminator_state_from_flax(params: dict, spectral: dict,
+                                             ) -> dict[str, torch.Tensor]:
+    """flax MultiScaleDiscriminator `params` and `spectral` collections →
+    port `state_dict`, every SNConv's `u` included."""
+    params = params.get("params", params)
+    spectral = spectral.get("spectral", spectral)
+    if params.keys() != spectral.keys():
+        raise KeyError(f"params {sorted(params)} and spectral {sorted(spectral)} differ")
+    state: dict[str, torch.Tensor] = {}
+    for scale, convs in params.items():
+        if scale not in _SCALES:
+            raise KeyError(f"unexpected MultiScaleDiscriminator param {scale}")
+        for name, node in convs.items():
+            m = _SN_CONV_NAME.match(name)
+            if m is None:
+                raise KeyError(f"unexpected PatchDiscriminator param {scale}/{name}")
+            prefix = f"{_SCALES[scale]}.convs.{m.group(1)}"
+            _conv(state, prefix, node)
+            state[f"{prefix}.u"] = _tensor(spectral[scale][name]["u"])
+    return state
+
+
+def lpips_params_from_jax(tree: dict) -> dict:
+    """A JAX LPIPS params tree (`{"convs": [(kernel HWIO, bias)], "lins":
+    [[C]]}` of arrays) → the port's (`models.lpips`: OIHW float32 tensors
+    on the CPU)."""
+    return {
+        "convs": [(_tensor(np.transpose(np.asarray(w), (3, 2, 0, 1))), _tensor(b))
+                  for w, b in tree["convs"]],
+        "lins": [_tensor(lin) for lin in tree["lins"]],
+    }
 
 
 _MAMBA_BLOCK_NAME = re.compile(r"^(Checkpoint)?MambaBlock_(\d+)$")

@@ -4,7 +4,8 @@ Port of `pixel_heal_thyself_tpu/training/checkpoints.py` (which writes
 Orbax state; the reference saved only the networks' state dicts,
 `pht/models/base_trainer.py:487-533`). A checkpoint is a directory,
 `<run>/model_epoch<N>/state/`, holding `checkpoint.pt`: one `torch.save`
-of both networks' state dicts, both Adam states, both LR schedules, the
+of both networks' state dicts (the multiscale critic's spectral-norm `u`
+buffers with D's), both Adam states, both LR schedules, the
 state of the generator the GP weights are drawn from, and the epoch. It
 is written under a temporary name and renamed, so a `checkpoint.pt` is
 always whole, and restored to the bit.

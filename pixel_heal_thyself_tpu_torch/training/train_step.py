@@ -1,11 +1,17 @@
-"""The alternating GAN train step (WGAN-GP), PyTorch.
+"""The alternating GAN train step (WGAN-GP / RaHinge multiscale), PyTorch.
 
 Port of `pixel_heal_thyself_tpu/training/train_step.py` (behavioural spec:
 reference `pht/models/base_trainer.py:369-457`). Per batch: device-side
-preprocessing, one generator forward, a discriminator update with
-WGAN-GP — (fake + real)/2 + gp_w·GP, GP a double backward through D — on
-the detached output, then a generator update against the *updated* D:
-gan_w·GAN + l1_w·L1, its gradient taken through the same generator graph.
+preprocessing, one generator forward, a discriminator update on the
+detached output — WGAN-GP, (fake + real)/2 + gp_w·GP with GP a double
+backward through D; or, with the multiscale critic, the relativistic-
+average hinge over its three logit maps, no GP, where only the fake
+forward writes the spectral norms' `u` (both forwards see the old u, as
+in the JAX step) — then a generator update against the *updated* D:
+gan_w·GAN (multiscale: RaHinge of the fake predictions against the
+updated D's real predictions, taken without gradient) + l1_w·L1
+(+ ssim_w·SSIM, + lpips_w·LPIPS when `lpips_params` is given), its
+gradient taken through the same generator graph.
 Optimizers are Adam(β = (0.9, 0.999), eps 1e-8) with a MultiStepLR-
 equivalent schedule counted in optimizer steps (the first update uses
 count 0, as optax does).
@@ -15,8 +21,6 @@ step returns its losses as 0-dim tensors on the device (no host sync).
 The step carries its Adams and schedules as attributes (`g_opt`,
 `g_sched`, `d_opt`, `d_sched`), which the trainer gathers into a
 `TrainState` to checkpoint and restore.
-The multiscale discriminator's relativistic hinge step, MS-SSIM and LPIPS
-wait for ROADMAP.md slice 7.
 """
 
 from __future__ import annotations
@@ -26,7 +30,15 @@ from typing import Callable
 
 import torch
 
-from pixel_heal_thyself_tpu_torch.losses import gan_loss, gradient_penalty, l1_loss
+from pixel_heal_thyself_tpu_torch.losses import (
+    gan_loss,
+    gradient_penalty,
+    l1_loss,
+    ra_hinge_gan_loss,
+    ssim_loss,
+)
+from pixel_heal_thyself_tpu_torch.models.discriminators import spectral_norm_update
+from pixel_heal_thyself_tpu_torch.models.lpips import lpips_distance, to_lpips_range
 from pixel_heal_thyself_tpu_torch.ops.transforms import prepare_batch
 
 
@@ -51,14 +63,15 @@ def multistep_schedule(base_lr: float, milestone_epochs: list[int], gamma: float
 class LossesConfig:
     """The loss weights and switches the step reads; the defaults are the
     JAX package's `config.schema.LossesConfig` defaults (held against them
-    in tests/test_torch_port_train_step.py). MS-SSIM and LPIPS are not
-    ported yet, so their switches stay off."""
+    in tests/test_torch_port_train_step.py)."""
 
     l1_loss_w: float = 1.0
     gan_loss_w: float = 0.005
     gp_loss_w: float = 10.0
     use_ssim_loss: bool = False
+    ssim_loss_w: float = 0.1
     use_lpips_loss: bool = False
+    lpips_loss_w: float = 0.1
 
 
 @dataclass(frozen=True)
@@ -107,29 +120,27 @@ def make_optimizer(lr: float, milestone_epochs: list[int], gamma: float,
 
 def make_train_step(g_model: torch.nn.Module, d_model: torch.nn.Module, losses_cfg,
                     use_multiscale: bool, g_tx: OptimizerSpec, d_tx: OptimizerSpec,
-                    ) -> Callable:
+                    lpips_params: dict | None = None) -> Callable:
     """Build the alternating G/D update: `step(batch, *, alpha=None,
     generator=None) → {g_loss, d_loss, g_gan, g_l1}`, with its optimizers
     and schedules as `step.g_opt`, `step.g_sched`, `step.d_opt` and
     `step.d_sched`. `losses_cfg` is a `LossesConfig` (or any object with
-    its fields).
+    its fields). `use_multiscale` takes the RaHinge step (for
+    `MultiScaleDiscriminator`). LPIPS is used when `losses_cfg` asks for
+    it and `lpips_params` (`models.lpips`, on the models' device) is not
+    None, as in the JAX step.
 
     `batch` holds NHWC `noisy` [B,H,W,3], `gt` [B,H,W,3] and `aux`
     [B,H,W,7] on the models' device. `alpha` [B,1,1,1] are the GP
-    interpolation weights, drawn from `generator` when None."""
-    if use_multiscale:
-        raise NotImplementedError(
-            "the multiscale discriminator step (relativistic hinge) is not ported to "
-            "pixel_heal_thyself_tpu_torch yet (ROADMAP.md slice 7)",
-        )
-    if losses_cfg.use_ssim_loss or losses_cfg.use_lpips_loss:
-        raise NotImplementedError(
-            "MS-SSIM and LPIPS losses are not ported to pixel_heal_thyself_tpu_torch yet "
-            "(ROADMAP.md slice 7)",
-        )
+    interpolation weights, drawn from `generator` when None (WGAN-GP
+    only)."""
     gan_w = float(losses_cfg.gan_loss_w)
     l1_w = float(losses_cfg.l1_loss_w)
     gp_w = float(losses_cfg.gp_loss_w)
+    use_ssim = bool(losses_cfg.use_ssim_loss)
+    ssim_w = float(losses_cfg.ssim_loss_w)
+    use_lpips = bool(losses_cfg.use_lpips_loss) and lpips_params is not None
+    lpips_w = float(losses_cfg.lpips_loss_w)
     g_params = [p for p in g_model.parameters() if p.requires_grad]
     g_opt, g_sched = g_tx.build(g_params)
     d_opt, d_sched = d_tx.build(d_model.parameters())
@@ -143,19 +154,39 @@ def make_train_step(g_model: torch.nn.Module, d_model: torch.nn.Module, losses_c
 
         # ---- discriminator update ---------------------------------------
         d_opt.zero_grad(set_to_none=True)
-        loss_real = gan_loss(d_model(gt), True, "wgan")
-        loss_fake = gan_loss(d_model(fake), False, "wgan")
-        gp = gradient_penalty(d_model, gt, fake, alpha=alpha, generator=generator)
-        d_loss = (loss_fake + loss_real) / 2.0 + gp_w * gp
+        if use_multiscale:
+            # the real forward first: both read the old u, and the fake
+            # forward alone writes the new one
+            pred_real = d_model(gt)
+            with spectral_norm_update(d_model):
+                pred_fake = d_model(fake)
+            d_loss = ra_hinge_gan_loss(pred_real, pred_fake)
+        else:
+            loss_real = gan_loss(d_model(gt), True, "wgan")
+            loss_fake = gan_loss(d_model(fake), False, "wgan")
+            gp = gradient_penalty(d_model, gt, fake, alpha=alpha, generator=generator)
+            d_loss = (loss_fake + loss_real) / 2.0 + gp_w * gp
         d_loss.backward()
         d_opt.step()
         d_sched.step()
 
         # ---- generator update against the updated D ---------------------
         g_opt.zero_grad(set_to_none=True)
-        loss_g = gan_loss(d_model(output), True, "wgan")
+        if use_multiscale:
+            pred_g_fake = d_model(output)
+            with torch.no_grad():
+                pred_d_real = d_model(gt)
+            # reference base_trainer.py:417-420: (fake preds, no-grad real preds)
+            loss_g = ra_hinge_gan_loss(pred_g_fake, pred_d_real)
+        else:
+            loss_g = gan_loss(d_model(output), True, "wgan")
         loss_l1 = l1_loss(output, gt)
         g_loss = gan_w * loss_g + l1_w * loss_l1
+        if use_ssim:
+            g_loss = g_loss + ssim_w * ssim_loss(output, gt)
+        if use_lpips:
+            g_loss = g_loss + lpips_w * torch.mean(lpips_distance(
+                lpips_params, to_lpips_range(output), to_lpips_range(gt)))
         g_loss.backward(inputs=g_params)  # D's parameters take no gradient
         g_opt.step()
         g_sched.step()

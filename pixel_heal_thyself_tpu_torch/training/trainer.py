@@ -8,9 +8,14 @@ reference `pht/models/base_trainer.py:83-595` and the per-model trainers
   else reflect;
 - the patch store built on first run (`data/store.py`), from synthetic
   scenes when `data.images.synthesize` and the image tree is missing;
-- the WGAN-GP step of `training/train_step.py` with Adam and the
-  MultiStep schedule, the GP weights drawn from a `torch.Generator` on the
-  device seeded from cfg.seed;
+- the GAN step of `training/train_step.py` with Adam and the MultiStep
+  schedule: WGAN-GP against `DiscriminatorVGG` (the GP weights drawn from
+  a `torch.Generator` on the device seeded from cfg.seed) or, with
+  `model.discriminator.use_multiscale_discriminator`, the relativistic
+  hinge against the spectral-norm `MultiScaleDiscriminator`; the optional
+  MS-SSIM (`model.losses.use_ssim_loss`) and LPIPS (`use_lpips_loss`, its
+  weights from `lpips_weights_path`: an npz of
+  `tools/convert_lpips_weights.py`, or `random`) terms;
 - per-epoch `train_loss.txt` lines `Epoch: N \\tG loss: x \\tD Loss: y`
   and, every `save_interval` epochs, validation with PSNR/SSIM/MRSE into
   `evaluation.txt` lines `Validation: N \\tAvg MRSE: a \\tAvg PSNR: b
@@ -124,17 +129,40 @@ class BaseTrainer:
         raise NotImplementedError
 
     def create_discriminator(self) -> torch.nn.Module:
-        from pixel_heal_thyself_tpu_torch.models.discriminators import DiscriminatorVGG
+        from pixel_heal_thyself_tpu_torch.models.discriminators import (
+            DiscriminatorVGG,
+            MultiScaleDiscriminator,
+        )
 
+        generator = torch.Generator().manual_seed(self.cfg.seed + 1)
         if self.cfg.model.discriminator.use_multiscale_discriminator:
-            raise NotImplementedError(
-                "the multiscale discriminator step (relativistic hinge) is not ported to "
-                "pixel_heal_thyself_tpu_torch yet (ROADMAP.md slice 7)",
+            return MultiScaleDiscriminator(
+                in_nc=self.cfg.model.input_channels,
+                patch_size=self.cfg.data.patches.patch_size,
+                dtype=self.compute_dtype, device=self.device, generator=generator,
             )
         return DiscriminatorVGG(
             in_nc=3, base_nf=64, input_size=self.cfg.data.patches.patch_size,
-            dtype=self.compute_dtype, device=self.device,
-            generator=torch.Generator().manual_seed(self.cfg.seed + 1),
+            dtype=self.compute_dtype, device=self.device, generator=generator,
+        )
+
+    def lpips_params(self) -> dict | None:
+        """LPIPS weights on the device when `use_lpips_loss`: `random`, or
+        the npz at `lpips_weights_path`; neither raises."""
+        losses = self.cfg.model.losses
+        if not losses.use_lpips_loss:
+            return None
+        from pixel_heal_thyself_tpu_torch.models import lpips
+
+        path = losses.lpips_weights_path
+        if path == "random":
+            logger.warning("LPIPS using RANDOM weights (test mode)")
+            return lpips.random_lpips_params(device=self.device)
+        if path:
+            return lpips.load_lpips_params(path, device=self.device)
+        raise ValueError(
+            "use_lpips_loss=true requires model.losses.lpips_weights_path (see "
+            "tools/convert_lpips_weights.py) or the value 'random'",
         )
 
     # -- data ------------------------------------------------------------
@@ -206,17 +234,18 @@ class BaseTrainer:
         logger.info(f"{self.model_name} GAN lossW: {cfg.model.losses.gan_loss_w}")
         logger.info(f"{self.model_name} GP lossW: {cfg.model.losses.gp_loss_w}")
         logger.info(f"{self.model_name} precision: {cfg.trainer.precision}")
+        if cfg.model.losses.use_ssim_loss:
+            logger.info(f"{self.model_name} SSIM lossW: {cfg.model.losses.ssim_loss_w}")
+        if cfg.model.discriminator.use_multiscale_discriminator:
+            logger.info(f"{self.model_name} multiscale discriminator")
+        if cfg.model.use_film:
+            logger.info(f"{self.model_name} use FiLM")
         logger.info(f"{self.model_name} device: {self.device}, hand kernels: "
                     f"{'on' if self.use_kernels else 'off'}")
 
     # -- training --------------------------------------------------------
     def train(self) -> None:
         cfg = self.cfg
-        if cfg.model.losses.use_lpips_loss or cfg.model.losses.use_ssim_loss:
-            raise NotImplementedError(
-                "MS-SSIM and LPIPS losses are not ported to pixel_heal_thyself_tpu_torch yet "
-                "(ROADMAP.md slice 7)",
-            )
         logger.info(
             f"Starting training: model={self.model_name}, seed={cfg.seed}, "
             f"batch_size={cfg.trainer.batch_size}, epochs={cfg.trainer.epochs}",
@@ -239,6 +268,7 @@ class BaseTrainer:
         step_fn = make_train_step(
             g_model, d_model, cfg.model.losses,
             cfg.model.discriminator.use_multiscale_discriminator, g_tx, d_tx,
+            lpips_params=self.lpips_params(),
         )
         state = TrainState(
             g=g_model, d=d_model, g_opt=step_fn.g_opt, d_opt=step_fn.d_opt,

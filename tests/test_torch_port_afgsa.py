@@ -131,10 +131,19 @@ def test_prod_kwargs_match_config():
 
 
 def test_film_and_fold_qkv_are_not_ported():
-    """FiLM is not ported yet and raises; fold_qkv is ported now and builds
-    (tests/test_torch_port_fold_qkv.py holds it against the JAX package)."""
-    with pytest.raises(NotImplementedError, match="FiLM"):
-        AFGSANet(**SMALL, use_film=True)
+    """Both were once unported; both build and run now. FiLM builds, runs
+    and takes the literal route whatever `use_block_kernel` says
+    (tests/test_torch_port_film.py holds it against the JAX package);
+    fold_qkv builds under its gate (tests/test_torch_port_fold_qkv.py)."""
+    film = AFGSANet(**SMALL, use_film=True, use_kernels=True, use_block_kernel=True)
+    assert not film.block_route(2, 32, 32)
+    assert all(blk.attention.use_film and not hasattr(blk.attention, "fuse")
+               for blk in film.blocks)
+    x, a = (torch.from_numpy(t) for t in _inputs(7))
+    out = film(x, a)
+    assert out.shape == (2, 32, 32, 3) and torch.isfinite(out).all()
+    out.square().mean().backward()
+    assert all(p.grad is not None for p in film.parameters())
     assert AFGSANet(**SMALL, fold_qkv=True).blocks[0].attention.folded is False  # 16 channels
     assert AFGSANet(**dict(SMALL, base_ch=128), fold_qkv=True,
                     use_kernels=True).blocks[0].attention.folded

@@ -244,8 +244,25 @@ def test_dispatchers_refuse_autograd_in_grad_mode():
 
 
 def test_multiscale_step_is_not_ported():
-    g = AFGSANet(**G_KW)
-    d = DiscriminatorVGG(input_size=PATCH, base_nf=D_NF)
+    """Once unported, the multiscale step builds and runs now: two steps of
+    the RaHinge step against `MultiScaleDiscriminator` with MS-SSIM and
+    LPIPS(random) give finite losses, train G and D and write every u
+    once a step (tests/test_torch_port_multiscale_step.py holds the step
+    against the JAX package)."""
+    from pixel_heal_thyself_tpu_torch.models.discriminators import MultiScaleDiscriminator
+    from pixel_heal_thyself_tpu_torch.models.lpips import random_lpips_params
+
+    g = AFGSANet(**G_KW, generator=torch.Generator().manual_seed(0))
+    d = MultiScaleDiscriminator(patch_size=PATCH, generator=torch.Generator().manual_seed(1))
     spec = make_optimizer(LR, [2], GAMMA, 100)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        make_train_step(g, d, LossesConfig(), True, spec, spec)
+    cfg = LossesConfig(use_ssim_loss=True, use_lpips_loss=True)
+    step = make_train_step(g, d, cfg, True, spec, spec, lpips_params=random_lpips_params())
+    u0 = {k: v.clone() for k, v in d.state_dict().items() if k.endswith(".u")}
+    g0 = {k: v.clone() for k, v in g.state_dict().items()}
+    for batch in _batches(np.random.default_rng(9), 2):
+        metrics = step(_torch_batch(batch))
+        assert all(torch.isfinite(v) for v in metrics.values())
+    # (a 1-channel head's u is ±1 and stays so)
+    moved = [not torch.equal(d.state_dict()[k], u) for k, u in u0.items() if u.numel() > 1]
+    assert len(u0) == 6 and len(moved) == 3 and all(moved)
+    assert any(not torch.equal(g.state_dict()[k], v) for k, v in g0.items())

@@ -44,6 +44,18 @@ def _port_run_dirs():
     reset_run_dirs_cache()
 
 
+@pytest.fixture(autouse=True)
+def _two_threads():
+    """Two intra-op threads for these runs: under the tier-1 command's six
+    workers, torch's default of a thread per core in every worker
+    oversubscribes the cores, and an AFGSA CLI run took 240–440 s there
+    against about 7 s alone (about 60 s with two threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def _check_run(run: Path, epochs: list[int]) -> None:
     """The artifacts of a run that trained and validated `epochs`."""
     losses = TRAIN_LOSS.findall((run / "train_loss.txt").read_text())
@@ -60,9 +72,10 @@ def _check_run(run: Path, epochs: list[int]) -> None:
     assert (run / ".hydra" / "config.yaml").is_file()
 
 
-def _resume(tmp_cwd, monkeypatch, model: str, run0: Path):
-    """The resume leg: epoch 2 from run0's model_epoch1/state. Returns the
-    trainer and what `restore_checkpoint` left in its state."""
+def _resume(tmp_cwd, monkeypatch, model: str, run0: Path, extra: tuple = ()):
+    """The resume leg: epoch 2 from run0's model_epoch1/state (`extra`: the
+    first leg's other overrides). Returns the trainer; what
+    `restore_checkpoint` left in its state equals the saved state."""
     restored = {}
     real = checkpoints.restore_checkpoint
 
@@ -75,7 +88,7 @@ def _resume(tmp_cwd, monkeypatch, model: str, run0: Path):
 
     monkeypatch.setattr(checkpoints, "restore_checkpoint", spy)
     ckpt = run0 / "model_epoch1" / "state"
-    trainer = ptrain.main(["-cn", "ci", "--device", "cpu", *TINY[model], "run_num=1",
+    trainer = ptrain.main(["-cn", "ci", "--device", "cpu", *TINY[model], *extra, "run_num=1",
                            "trainer.epochs=2", "trainer.load_model=true",
                            f"trainer.model_path={ckpt}"])
     saved = torch.load(ckpt / checkpoints.FILE, weights_only=True)
