@@ -138,6 +138,21 @@ exits non-zero. Phases:
    step launches K1 and K4 and every validation forward K1, five times
    each; then a resume from `model_epoch1/state` that restores G, D (every
    `u`) and both Adam states to the bit.
+13. Serving artifacts: for each prod generator (seeded weights, the
+   phase 4 / 7 models), `save_params` → `tools.export_model.main`
+   (`-cn prod`, platforms cuda: window 128, batch 8) → `serving.
+   load_exported`; the graph's `pht::` ops (5 of `transformer_block_fwd`
+   or `fused_mamba_chain`); phase 4's three frames through the artifact
+   and through the live model: exactly K2 160, K1 40, K3 80 (AFGSA) or K7
+   40 (Mamba) a frame from each, on the prod bodies, frame 0 within
+   FRAME_TOL of the live model (and whether equal to the bit), steady
+   s/frame of both, export and load seconds, artifact bytes, peak memory.
+   For AFGSA also: a fresh interpreter serves one frame from the artifact
+   with no model class imported; the portable `cpu,cuda` artifact (the
+   plain route, traced on the CPU) runs on the card with no launch within
+   FRAME_TOL of the kernel artifact; `inference.main` with
+   `inference.from_export` scores a synthetic 512² scene, launching one
+   frame's kernels.
 
 Every kernel row states its bound (the least time the card could take:
 the larger of the bytes its function must move over 3.35 TB/s and its
@@ -158,6 +173,7 @@ import math
 import re
 import struct
 import subprocess
+import sys
 import tempfile
 import time
 import zlib
@@ -757,21 +773,16 @@ def phase_kernels(device) -> dict:
 SERVE = dict(size=512, frames=3, tile=64, margin=32, batch=8)
 
 
-def serve(device, frames, net, kwargs, layers: int, names: tuple, tag: str) -> dict:
-    """Denoise `frames` with `net(**kwargs)` (seeded random weights) through
-    the device tiler, the path `inference.run_inference` takes: checks the
-    outputs, that each kernel in `names` ran for every one of `layers`
-    layers of every batch (launch counters), and frame 0 against the
-    model's plain path on the card. Returns the launch counts."""
+def serve_frames(device, frames, apply_fn, tag: str) -> tuple:
+    """Denoise `frames` with `apply_fn` (a model, or a loaded serving
+    artifact) through the device tiler, the path `inference.run_inference`
+    takes, from counts of 0: checks the outputs and that every launch took
+    its prod body. Returns (outputs, launch counts, steady s/frame, peak
+    memory)."""
     from pixel_heal_thyself_tpu_torch.inference import denoise_frame_fused, make_fused_frame_apply
-    from pixel_heal_thyself_tpu_torch.models.afgsa import count_params
 
     size, tile, margin, batch = (SERVE[k] for k in ("size", "tile", "margin", "batch"))
-    model = net(**kwargs, device=device, generator=torch.Generator().manual_seed(0)).eval()
-    log(f"[{tag}] {net.__name__} prod width: {count_params(model)} params, "
-        f"{len(frames)} synthetic {size}² frames, tile {tile} + margin {margin}, batch {batch}")
-
-    fused = make_fused_frame_apply(model, (size, size), tile=tile, margin=margin,
+    fused = make_fused_frame_apply(apply_fn, (size, size), tile=tile, margin=margin,
                                    batch_tiles=batch, device=device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -784,21 +795,38 @@ def serve(device, frames, net, kwargs, layers: int, names: tuple, tag: str) -> d
     launches = read_counts()
     check_bodies(tag, launches)
     peak = torch.cuda.max_memory_allocated()
-
-    n_batches = math.ceil((size // tile) ** 2 / batch)
-    need = layers * n_batches * len(frames)
     for out in outs:
         if out.shape != (size, size, 3) or not np.isfinite(out).all():
             raise AssertionError(f"bad frame output {out.shape}, finite={np.isfinite(out).all()}")
+    steady = float(np.mean(secs[1:] or secs))
+    log(f"[{tag}] seconds per frame {[round(s, 4) for s in secs]} (first includes warm-up); "
+        f"steady {steady:.4f} s/frame = {1 / steady:.3f} frames/s; "
+        f"peak memory {peak} B ({peak / 2**30:.3f} GiB)")
+    return outs, launches, steady, peak
+
+
+def serve(device, frames, net, kwargs, layers: int, names: tuple, tag: str) -> dict:
+    """Denoise `frames` with `net(**kwargs)` (seeded random weights) through
+    the device tiler (`serve_frames`): checks that each kernel in `names`
+    ran for every one of `layers` layers of every batch (launch counters),
+    and frame 0 against the model's plain path on the card. Returns the
+    launch counts."""
+    from pixel_heal_thyself_tpu_torch.inference import denoise_frame_fused, make_fused_frame_apply
+    from pixel_heal_thyself_tpu_torch.models.afgsa import count_params
+
+    size, tile, margin, batch = (SERVE[k] for k in ("size", "tile", "margin", "batch"))
+    model = net(**kwargs, device=device, generator=torch.Generator().manual_seed(0)).eval()
+    log(f"[{tag}] {net.__name__} prod width: {count_params(model)} params, "
+        f"{len(frames)} synthetic {size}² frames, tile {tile} + margin {margin}, batch {batch}")
+    outs, launches, _, _ = serve_frames(device, frames, model, tag)
+
+    n_batches = math.ceil((size // tile) ** 2 / batch)
+    need = layers * n_batches * len(frames)
     for name in names:
         if launches[name] < need:
             raise AssertionError(f"{name} launched {launches[name]} times < {need} "
                                  f"({layers} layers × {n_batches} batches × {len(frames)} frames)")
     log(f"[{tag}] launches {launches} (need ≥ {need} each of {', '.join(names)})")
-    steady = float(np.mean(secs[1:] or secs))
-    log(f"[{tag}] seconds per frame {[round(s, 4) for s in secs]} (first includes warm-up); "
-        f"steady {steady:.4f} s/frame = {1 / steady:.3f} frames/s; "
-        f"peak memory {peak} B ({peak / 2**30:.3f} GiB)")
 
     plain = net(**dict(kwargs, use_kernels=False), device=device).eval()
     plain.load_state_dict(model.state_dict())
@@ -2128,6 +2156,189 @@ def phase_gan_trainer(smi: str) -> None:
     log(f"[gan] phase 12 (c) {time.perf_counter() - t_phase:.2f} s; {smi}")
 
 
+# phase 13: each prod generator's serving artifact (`tools.export_model` at
+# its defaults: window 128 = tile 64 + 2 × margin 32, batch 8, platforms
+# cuda), its kernel ops in the graph and what a 512² frame launches
+# through it: 8 batches × 5 blocks of K2 ×4 → K1 → K3 ×2, or of K7
+EXPORT = {"afgsa": ({"transformer_block_fwd": 5}, {"K1": 40, "K2": 160, "K3": 80}),
+          "mamba": ({"fused_mamba_chain": 5}, {"K7": 40})}
+# a fresh process serving one frame from the AFGSA artifact: no model
+# class may be imported
+SERVE_ALONE = """
+import json, sys, time
+import numpy as np
+import torch
+from pixel_heal_thyself_tpu_torch.inference import denoise_frame_fused, make_fused_frame_apply
+from pixel_heal_thyself_tpu_torch.serving import load_exported
+
+art, frame, out, tile, margin, device = sys.argv[1:]
+t0 = time.perf_counter()
+apply_fn, manifest = load_exported(art, device)
+load_s = time.perf_counter() - t0
+data = dict(np.load(frame))
+fused = make_fused_frame_apply(apply_fn, data["noisy"].shape[:2], tile=int(tile),
+                               margin=int(margin), batch_tiles=manifest["batch_tiles"],
+                               device=device)
+t0 = time.perf_counter()
+np.save(out, denoise_frame_fused(fused, data, device=device))
+frame_s = time.perf_counter() - t0
+models = sorted(m for m in sys.modules if m.startswith("pixel_heal_thyself_tpu_torch.models"))
+print(json.dumps({"models": models, "load_s": load_s, "frame_s": frame_s}))
+"""
+
+
+def export_artifact(tag: str, base: list, out_dir: str, *extra) -> tuple:
+    """`tools.export_model.main` from a fresh run-dir pin: (artifact dir,
+    seconds, bytes)."""
+    from pixel_heal_thyself_tpu_torch.config.run_dirs import reset_run_dirs_cache
+    from pixel_heal_thyself_tpu_torch.tools import export_model
+
+    reset_run_dirs_cache()
+    t0 = time.perf_counter()
+    art = export_model.main(base + [f"export.out_dir={out_dir}", *extra])
+    secs = time.perf_counter() - t0
+    size = sum(f.stat().st_size for f in Path(art).iterdir())
+    log(f"[{tag}] exported {art.name} {list(extra)} in {secs:.2f} s (config, model build, "
+        f"trace, save): {size} B")
+    return art, secs, size
+
+
+def serve_alone(tag: str, art, frame: dict, want: np.ndarray, tmp: str, device) -> None:
+    """A fresh interpreter loads `art` and denoises `frame`: no model class
+    imported, the artifact's frame 0 within FRAME_TOL."""
+    np.savez(Path(tmp, "frame.npz"), noisy=frame["noisy"], aux=frame["aux"])
+    out = Path(tmp, "alone.npy")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", SERVE_ALONE, str(art), str(Path(tmp, "frame.npz")), str(out),
+         str(SERVE["tile"]), str(SERVE["margin"]), str(device)],
+        capture_output=True, text=True, cwd=Path(__file__).resolve().parent, timeout=300,
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"[{tag}] the fresh process failed:\n{proc.stderr[-3000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    if rec["models"]:
+        raise AssertionError(f"[{tag}] the fresh process imported model classes {rec['models']}")
+    got = np.load(out)
+    dev = deviation(torch.from_numpy(got), torch.from_numpy(want))
+    check(f"[{tag}] fresh-process frame", dev, FRAME_TOL)
+    log(f"[{tag}] a fresh process ({time.perf_counter() - t0:.2f} s in all) loaded the artifact "
+        f"in {rec['load_s']:.2f} s and denoised one frame in {rec['frame_s']:.4f} s (first, "
+        f"warm-up included) with no model class imported; equal to the bit: "
+        f"{np.array_equal(got, want)}, max_rel {dev['max_rel']:.6g}")
+
+
+def phase_export(device, frames, smi: str) -> None:
+    """Phase 13: serving artifacts of both prod generators (seeded weights):
+    `save_params` → `tools.export_model` (platforms cuda) → `load_exported`;
+    phase 4's frames through the artifact and the live model (launches,
+    bodies, frame 0 within FRAME_TOL and whether equal to the bit, steady
+    s/frame, peak memory); for AFGSA a fresh process serving a frame, the
+    portable `cpu,cuda` artifact (the plain route: no launch, within
+    FRAME_TOL of the kernel artifact) and `inference.main` with
+    `inference.from_export` on a synthetic 512² scene."""
+    from pixel_heal_thyself_tpu_torch.config.run_dirs import reset_run_dirs_cache
+    from pixel_heal_thyself_tpu_torch.data.synthetic import generate_dataset
+    from pixel_heal_thyself_tpu_torch.inference import (
+        denoise_frame_fused,
+        make_fused_frame_apply,
+    )
+    from pixel_heal_thyself_tpu_torch.inference import main as inference_main
+    from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet, afgsa_prod_kwargs
+    from pixel_heal_thyself_tpu_torch.models.mamba import MambaDenoiserNet, mamba_prod_kwargs
+    from pixel_heal_thyself_tpu_torch.serving import load_exported
+    from pixel_heal_thyself_tpu_torch.training.checkpoints import save_params
+
+    t_phase = time.perf_counter()
+    size, tile, margin, batch = (SERVE[k] for k in ("size", "tile", "margin", "batch"))
+    models = {"afgsa": (AFGSANet, afgsa_prod_kwargs(), []),
+              "mamba": (MambaDenoiserNet, mamba_prod_kwargs(), ["model=mamba"])}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        for name, (net, kwargs, cfg) in models.items():
+            tag = f"export-{name}"
+            ops, per_frame = EXPORT[name]
+            model = net(**kwargs, device=device, generator=torch.Generator().manual_seed(0))
+            model.eval()
+            save_params(Path(tmp, f"{name}.pt"), model)
+            base = ["-cn", "prod", *cfg, f"trainer.model_path={Path(tmp, name + '.pt')}"]
+            art, export_s, art_bytes = export_artifact(tag, base, str(Path(tmp, f"{name}_art")))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            apply_fn, manifest = load_exported(art, device)
+            load_s = time.perf_counter() - t0
+            if manifest["kernel_ops"] != ops or manifest["platforms"] != [device.type]:
+                raise AssertionError(f"[{tag}] manifest {manifest['kernel_ops']} "
+                                     f"{manifest['platforms']}, expected {ops} on {device}")
+
+            outs, launches, steady, peak = serve_frames(device, frames, apply_fn, tag)
+            want = {k: per_frame.get(k, 0) * len(frames) for k in KERNEL_NAMES}
+            if launches != want:
+                raise AssertionError(f"[{tag}] the artifact launched {launches}, expected {want}")
+            live, live_launches, live_steady, live_peak = serve_frames(device, frames, model,
+                                                                        f"{tag}-live")
+            if live_launches != launches:
+                raise AssertionError(f"[{tag}] the live model launched {live_launches}, the "
+                                     f"artifact {launches}")
+            dev = deviation(torch.from_numpy(outs[0]), torch.from_numpy(live[0]))
+            check(f"[{tag}] frame 0", dev, FRAME_TOL)
+            log(f"[{tag}] launches per frame {per_frame} (artifact and live model alike), "
+                f"prod bodies; frame 0 artifact vs live model: equal to the bit "
+                f"{all(np.array_equal(o, w) for o, w in zip(outs, live))}, max_rel "
+                f"{dev['max_rel']:.6g} rms_rel {dev['rms_rel']:.6g} (bound {FRAME_TOL})")
+            log(f"[{tag}] steady s/frame: artifact {steady:.4f}, live model {live_steady:.4f} "
+                f"({steady / live_steady - 1:+.2%}); export {export_s:.2f} s, artifact "
+                f"{art_bytes} B, load {load_s:.2f} s; peak memory artifact {peak} B, live "
+                f"{live_peak} B; {smi}")
+            if name != "afgsa":
+                del model, apply_fn
+                continue
+
+            serve_alone(tag, art, frames[0], outs[0], tmp, device)
+
+            portable, _, _ = export_artifact(f"{tag}-portable", base, str(Path(tmp, "portable")),
+                                             "export.platforms=cpu,cuda")
+            port_fn, port_manifest = load_exported(portable, device)
+            if port_manifest["kernel_ops"] or port_manifest["traced_on"] != "cpu":
+                raise AssertionError(f"[{tag}] portable manifest {port_manifest}")
+            reset_counts()
+            fused = make_fused_frame_apply(port_fn, (size, size), tile=tile, margin=margin,
+                                           batch_tiles=batch, device=device)
+            t0 = time.perf_counter()
+            got = denoise_frame_fused(fused, frames[0], device=device)
+            port_s = time.perf_counter() - t0
+            if any(read_counts().values()):
+                raise AssertionError(f"[{tag}] the portable artifact launched {read_counts()}")
+            dev = deviation(torch.from_numpy(got), torch.from_numpy(outs[0]))
+            check(f"[{tag}] portable frame 0", dev, FRAME_TOL)
+            log(f"[{tag}] portable cpu,cuda artifact (plain route, traced on the CPU, moved to "
+                f"the card): no kernel launch, frame 0 {port_s:.4f} s (first), vs the kernel "
+                f"artifact max_rel {dev['max_rel']:.6g} rms_rel {dev['rms_rel']:.6g}")
+
+            images, out_dir = Path(tmp, "images"), Path(tmp, "served")
+            generate_dataset(images, scenes=["fftle0_0"], height=size, width=size, seed=0)
+            reset_run_dirs_cache()
+            reset_counts()
+            t0 = time.perf_counter()
+            inference_main(["-cn", "prod", f"inference.from_export={art}",
+                            f"inference.images_dir={images}", f"inference.out_dir={out_dir}",
+                            f"inference.device={device.type}"])
+            cli_s = time.perf_counter() - t0
+            cli = read_counts()
+            if cli != {k: per_frame.get(k, 0) for k in KERNEL_NAMES}:
+                raise AssertionError(f"[{tag}] inference.main launched {cli}, expected "
+                                     f"{per_frame} for its one frame")
+            text = (out_dir / "fftle0_0_32_evaluation.txt").read_text()
+            values = [float(line.split(": ")[1]) for line in text.splitlines()]
+            if len(values) != 3 or not np.isfinite(values).all():
+                raise AssertionError(f"[{tag}] evaluation.txt {text!r}")
+            log(f"[{tag}] inference.main inference.from_export: one 512² scene in {cli_s:.2f} s "
+                f"(EXR read, frame, scoring), launches {per_frame}, evaluation "
+                f"{text.strip().replace(chr(10), '; ')}")
+            del model, apply_fn, port_fn
+        torch.cuda.empty_cache()
+    log(f"[export] phase 13 {time.perf_counter() - t_phase:.2f} s; {smi}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -2165,6 +2376,7 @@ def main() -> None:
     phase_trainer(device, frames[0], {"afgsa": afgsa_rate, "mamba": mamba_rate}, smi)
     phase_gan_steps(device, frames[0], training, mamba_training, smi)
     phase_gan_trainer(smi)
+    phase_export(device, frames, smi)
     # each kernel's count from the path it was ported for
     path = {"K1": serving, "K2": serving, "K3": serving, "K4": training, "K5": training,
             "K6": training, "K7": mamba, "K7e": mamba_training, "K8": mamba_training,

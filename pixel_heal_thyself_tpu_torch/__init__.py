@@ -15,7 +15,13 @@ trainer that drives it
 (`python -m pixel_heal_thyself_tpu_torch.train`, `training/trainer.py`:
 the importance-sampled patch store of `data/store.py` built on first
 run, the loaders of `data/dataset.py`, validation with its logs and PNG
-panels, and checkpoints with resume, `training/checkpoints.py`). The
+panels, and checkpoints with resume, `training/checkpoints.py`);
+exported serving artifacts (`serving.py`: `torch.export` programs with
+the weights inside, written by `python -m
+pixel_heal_thyself_tpu_torch.tools.export_model` and served by
+`inference.from_export`), whose kernels stay in the graph as the
+`torch.library` ops of `ops/library.py`; and the import of the
+reference's `G.pt`/`D.pt` (`tools/import_torch_checkpoint.py`). The
 kernels: the block-halo attention, forward and backward
 (`ops/attention_cuda.py`), the whole TransformerBlock, forward and
 backward (`ops/block_cuda.py`), the fused Mamba2 layer interior, forward

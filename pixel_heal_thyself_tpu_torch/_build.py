@@ -235,7 +235,19 @@ def refuse_autograd(what: str, *tensors) -> None:
 def dispatch(name: str, x: torch.Tensor, cuda_fn, torch_fn, *args, **kw):
     """Run a kernel's wrapper for a CUDA `x` (it launches or raises) and its
     plain version for a CPU `x`; refuse grad-mode inputs that require grad
-    either way."""
+    either way.
+
+    Under `torch.export` it raises: a launch through `ctypes` is invisible
+    to the trace, and the plain version would put other ops in its place.
+    The kernels an export may capture are the `pht::` ops of
+    `ops/library.py`, whose implementations call this at run time."""
+    if torch.compiler.is_exporting():
+        raise RuntimeError(
+            f"{name}: its kernel is not a torch.library op, so torch.export cannot "
+            "capture this route; export a model whose kernels run through the pht:: ops "
+            "(ops/library.py; the Mamba literal route's use_pallas has none), or the "
+            "plain route (export.platforms=cpu,cuda)",
+        )
     refuse_autograd(name, *[t for t in (*args, *kw.values()) if isinstance(t, torch.Tensor)])
     if x.device.type == "cuda":
         return cuda_fn(*args, **kw)

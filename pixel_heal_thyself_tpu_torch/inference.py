@@ -17,8 +17,17 @@ By default (`inference.fused=true`) the padding, window gather, batched
 model calls and stitching run on the device (`make_fused_frame_apply`);
 `inference.fused=false` takes the host loop (`denoise_frame`). Both
 generators are served: `model=afgsa` (AFGSANet) and `model=mamba`
-(MambaDenoiserNet). Spatial sharding and exported artifacts (ROADMAP.md)
-are not ported yet and raise NotImplementedError.
+(MambaDenoiserNet).
+
+    python -m pixel_heal_thyself_tpu_torch.inference -cn prod \
+        inference.from_export=<artifact dir> inference.images_dir=...
+
+serves an artifact of `tools/export_model.py` (`serving.py`) in place of
+the model: no model class and no checkpoint. Its window and batch win
+over `inference.tile`/`batch_tiles` (the margin stays; the tile takes the
+difference), and both tilers take its `apply_fn` as they take the live
+model. Spatial sharding (ROADMAP.md) is not ported yet and raises
+NotImplementedError.
 
 Everything runs on the card (`inference.device=cuda`, the default) unless
 the caller asks for the CPU (`inference.device=cpu`); with no card the
@@ -254,12 +263,14 @@ def _dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.trainer.precision == "bf16" else torch.float32
 
 
-def load_generator(cfg, device: torch.device | str = "cuda"):
+def load_generator(cfg, device: torch.device | str = "cuda", kernels: bool = True):
     """Build the generator from config and load its weights from
     `trainer.model_path`: the port trainer's checkpoint directory
     (`<run>/model_epochN/state`, `training/checkpoints.py`), a params file
     of `checkpoints.save_params`, or a flat flax params `.npz`
-    (tools/export_params_npz.py)."""
+    (tools/export_params_npz.py). `kernels=False` builds the plain route:
+    the config's routes through the kernels' plain versions
+    (`use_kernels=False`, which also turns `fold_qkv` off)."""
     from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet
     from pixel_heal_thyself_tpu_torch.models.mamba import MambaDenoiserNet
     from pixel_heal_thyself_tpu_torch.params import (
@@ -276,6 +287,7 @@ def load_generator(cfg, device: torch.device | str = "cuda"):
                                  mamba_state_from_flax)
     else:
         raise ValueError(f"Unsupported model: {cfg.model.name!r}")
+    kwargs["use_kernels"] = kwargs["use_kernels"] and kernels
     if kwargs["dtype"] == torch.float32:
         # fp32 is true float32, as the JAX trainer's HIGHEST matmul
         # precision: on the GPU cuDNN convolutions default to TF32
@@ -312,7 +324,9 @@ def run_inference(
     device: torch.device | str = "cuda",
 ) -> list[dict]:
     """Denoise and score every frame pair under `images_dir` with the
-    generator of `cfg` (`load_generator`)."""
+    generator of `cfg` (`load_generator`), or with the serving artifact
+    at `from_export` (`serving.load_exported`), whose window and batch
+    then set the tile and batch."""
     from pixel_heal_thyself_tpu_torch.data.exr import write_exr_groups
     from pixel_heal_thyself_tpu_torch.metrics import (
         calculate_psnr,
@@ -321,16 +335,45 @@ def run_inference(
     )
 
     if from_export:
-        raise NotImplementedError(
-            "inference.from_export (exported serving artifacts) is not ported to "
-            "pixel_heal_thyself_tpu_torch yet (ROADMAP.md slice 7)",
-        )
-    if spatial:
+        # a serving artifact (tools/export_model.py): fixed tile window and
+        # batch baked into the graph; no model code or checkpoint
+        from pixel_heal_thyself_tpu_torch.serving import load_exported
+
+        if spatial:
+            raise ValueError(
+                "inference.spatial shards the live model; exported "
+                "artifacts serve the tiled path only",
+            )
+        model, manifest = load_exported(from_export, device)
+        window = manifest["window"]
+        if window != tile + 2 * margin:
+            # honor the artifact's geometry: margin stays as configured
+            # (receptive-field coverage), tile absorbs the difference
+            new_tile = window - 2 * margin
+            if new_tile <= 0:
+                raise ValueError(
+                    f"artifact window {window} can't cover margin {margin}; "
+                    "lower inference.margin or re-export with a larger "
+                    "export.window",
+                )
+            logger.info(
+                f"[Infer] artifact window {window}: using tile {new_tile} "
+                f"(+2×{margin} margin) instead of configured {tile}",
+            )
+            tile = new_tile
+        if batch_tiles != manifest["batch_tiles"]:
+            logger.info(
+                f"[Infer] artifact batch_tiles {manifest['batch_tiles']} "
+                f"overrides configured {batch_tiles}",
+            )
+            batch_tiles = manifest["batch_tiles"]
+    elif spatial:
         raise NotImplementedError(
             "inference.spatial (multi-GPU frame sharding) is not ported to "
-            "pixel_heal_thyself_tpu_torch yet (ROADMAP.md slice 7)",
+            "pixel_heal_thyself_tpu_torch yet (ROADMAP.md Queue 1)",
         )
-    model = load_generator(cfg, device)
+    else:
+        model = load_generator(cfg, device)
     os.makedirs(out_dir, exist_ok=True)
 
     results = []
@@ -410,9 +453,9 @@ def main(argv=None) -> None:
                          "pass inference.device=cpu to denoise on the CPU")
     cfg = ConfigRegistry.create_config(compose(args.config_name, cfg_overrides))
     logger.setup_logger(cfg.logging.level)
-    if not cfg.trainer.model_path:
+    if not cfg.trainer.model_path and not infer_opts["from_export"]:
         raise SystemExit("set trainer.model_path=<run>/model_epochN/state or a params .npz "
-                         "(tools/export_params_npz.py)")
+                         "(tools/export_params_npz.py), or inference.from_export=<artifact dir>")
     images_dir = infer_opts["images_dir"] or cfg.data.images.dir
     out_dir = infer_opts["out_dir"] or os.path.join(cfg.paths.output_dir, "inference")
     run_inference(

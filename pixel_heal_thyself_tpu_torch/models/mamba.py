@@ -250,7 +250,8 @@ def positional_encoding_2d(channels: int, height: int, width: int) -> np.ndarray
     div = np.exp(np.arange(0, channels, 2) * -(math.log(10000.0) / channels))
     pe[0::2] = np.sin(y_pos[None, :, :] * div[:, None, None])
     pe[1::2] = np.cos(x_pos[None, :, :] * div[: channels // 2, None, None])
-    return pe.transpose(1, 2, 0)
+    # contiguous: in an exported graph (serving.py) it is a constant, saved whole
+    return np.ascontiguousarray(pe.transpose(1, 2, 0))
 
 
 class MambaDenoiserNet(nn.Module):

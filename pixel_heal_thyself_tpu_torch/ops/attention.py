@@ -27,8 +27,9 @@ gradients in bf16).
 
 `block_halo_attention` / `block_halo_attention_bwd` are the dispatching
 entry points: the CUDA kernel for a CUDA tensor, the plain version for a
-CPU tensor. Neither is differentiable and both refuse inputs that require
-grad in grad mode; `BlockHaloAttentionFn` is the differentiable op whose
+CPU tensor (the forward through `ops/library.py`, which `torch.export`
+keeps as the op `pht::block_halo_attention`). Neither is differentiable
+and both refuse inputs that require grad in grad mode; `BlockHaloAttentionFn` is the differentiable op whose
 forward and backward run them, and `QKVBlockHaloAttentionFn` the same op
 with the q/k/v projections folded in (the `fold_qkv` variant).
 """
@@ -40,10 +41,8 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from pixel_heal_thyself_tpu_torch._build import dispatch
-from pixel_heal_thyself_tpu_torch.ops.attention_cuda import (
-    block_halo_attention_bwd_cuda,
-    block_halo_attention_cuda,
-)
+from pixel_heal_thyself_tpu_torch.ops import library
+from pixel_heal_thyself_tpu_torch.ops.attention_cuda import block_halo_attention_bwd_cuda
 
 
 def extract_halo_windows(x: torch.Tensor, block_size: int, halo_size: int) -> torch.Tensor:
@@ -228,8 +227,10 @@ def block_halo_attention(
     num_heads: int,
     residual: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Dispatching entry point: the CUDA kernel for CUDA tensors (launch or
-    raise), the plain version for CPU tensors. Not differentiable."""
+    """Dispatching entry point (`ops/library.py`; the op
+    `pht::block_halo_attention` under `torch.export`): the CUDA kernel for
+    CUDA tensors (launch or raise), the plain version for CPU tensors. Not
+    differentiable."""
     _, h, w, _ = q.shape
     if h % block_size != 0 or w % block_size != 0:
         raise ValueError(
@@ -237,12 +238,8 @@ def block_halo_attention(
             f"block_size={block_size}; pad or tile the input "
             f"(inference.py tiles full frames to block-aligned sizes)",
         )
-    kw = dict(
-        block_size=block_size, halo_size=halo_size, num_heads=num_heads,
-        residual=residual,
-    )
-    return dispatch("block_halo_attention", q, block_halo_attention_cuda,
-                    block_halo_attention_torch, q, k, v, rel_h, rel_w, **kw)
+    return library.block_halo_attention(q, k, v, rel_h, rel_w, residual, block_size, halo_size,
+                                        num_heads)
 
 
 def block_halo_attention_bwd(q, k, v, rel_h, rel_w, do, *, block_size: int, halo_size: int,

@@ -60,12 +60,13 @@ from torch.autograd.function import once_differentiable
 
 from pixel_heal_thyself_tpu_torch import _build
 from pixel_heal_thyself_tpu_torch._build import dispatch, refuse_autograd
+from pixel_heal_thyself_tpu_torch.ops import library
 from pixel_heal_thyself_tpu_torch.ops.attention import (
-    block_halo_attention,
     block_halo_attention_bwd,
     block_halo_attention_bwd_torch,
     block_halo_attention_torch,
 )
+from pixel_heal_thyself_tpu_torch.ops.attention_cuda import block_halo_attention_cuda
 from pixel_heal_thyself_tpu_torch.ops.padding import pad2d
 
 PAD_MODES = {"zeros": 0, "reflect": 1, "replicate": 2}
@@ -608,18 +609,35 @@ def _require_supported(name, x, block_size, halo_size, num_heads):
         )
 
 
-def transformer_block_fwd(x, a, wcat, bcat, wq, wk, wv, rel_h, rel_w, w1, b1, w2, b2,
-                          *, block_size=8, halo_size=3, num_heads=4,
-                          padding_mode="reflect", emit=False):
-    """Block forward: K2 → K1 → K3 → K3 on the card for CUDA tensors (each
-    launches or raises), the plain version for CPU tensors."""
-    _require_supported("transformer_block_fwd", x, block_size, halo_size, num_heads)
+def transformer_block_cuda(x, a, wcat, bcat, wq, wk, wv, rel_h, rel_w, w1, b1, w2, b2,
+                           *, block_size=8, halo_size=3, num_heads=4,
+                           padding_mode="reflect", emit=False):
+    """Block forward on the card: K2 → K1 → K3 → K3, each wrapper launching
+    or raising."""
     return _block_chain(
-        pointwise_gemm, block_halo_attention, conv3x3,
+        pointwise_gemm_cuda, block_halo_attention_cuda, conv3x3_cuda,
         x, a, wcat, bcat, wq, wk, wv, rel_h, rel_w, w1, b1, w2, b2,
         block_size=block_size, halo_size=halo_size, num_heads=num_heads,
         padding_mode=padding_mode, emit=emit,
     )
+
+
+def transformer_block_fwd(x, a, wcat, bcat, wq, wk, wv, rel_h, rel_w, w1, b1, w2, b2,
+                          *, block_size=8, halo_size=3, num_heads=4,
+                          padding_mode="reflect", emit=False):
+    """Block forward: `transformer_block_cuda` for CUDA tensors, the plain
+    version for CPU tensors. Without `emit` (serving) through
+    `ops/library.py`, which `torch.export` keeps as the op
+    `pht::transformer_block_fwd`."""
+    _require_supported("transformer_block_fwd", x, block_size, halo_size, num_heads)
+    weights = (wcat, bcat, wq, wk, wv, rel_h, rel_w, w1, b1, w2, b2)
+    if emit:
+        return dispatch("transformer_block_fwd", x, transformer_block_cuda,
+                        transformer_block_torch, x, a, *weights, block_size=block_size,
+                        halo_size=halo_size, num_heads=num_heads, padding_mode=padding_mode,
+                        emit=True)
+    return library.transformer_block_fwd(x, a, *weights, block_size, halo_size, num_heads,
+                                         padding_mode)
 
 
 def _block_bwd_chain(gemm, attention_bwd, dgrad, wgrad, x, a, x1, f1, f2, do,

@@ -2,7 +2,9 @@
 
 `fused_mamba_chain(zxbcdt, ...)` computes RMSNormGated(SSD(silu(conv1d(
 xBC)), softplus(dt + dt_bias), A, D), z): everything of a Mamba2 layer
-between in_proj and out_proj. For a CUDA tensor it launches the kernel K7
+between in_proj and out_proj, through `ops/library.py` (under
+`torch.export` the op `pht::fused_mamba_chain`). For a CUDA tensor it
+launches the kernel K7
 (`ops/ssd_mega_cuda.py`, `csrc/ssd_fwd.cu`), the port of the TPU kernel
 `pixel_heal_thyself_tpu/ops/ssd_mega.py:256` (`_fwd_kernel_infer`); for a
 CPU tensor it runs `fused_mamba_chain_torch`, the plain version that the
@@ -33,9 +35,9 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from pixel_heal_thyself_tpu_torch import _build
+from pixel_heal_thyself_tpu_torch.ops import library
 from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import (
     fused_mamba_chain_bwd_cuda,
-    fused_mamba_chain_cuda,
     fused_mamba_chain_emit_cuda,
 )
 
@@ -332,14 +334,12 @@ def fused_mamba_chain(
     zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w,
     d_inner: int, d_state: int, headdim: int, chunk: int = 128,
 ) -> torch.Tensor:
-    """The kernel for a CUDA `zxbcdt` (it launches or raises), the plain
-    version for a CPU one; inputs that require grad in grad mode are
-    refused either way."""
-    return _build.dispatch(
-        "fused_mamba_chain", zxbcdt, fused_mamba_chain_cuda, fused_mamba_chain_torch,
-        zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w,
-        d_inner=d_inner, d_state=d_state, headdim=headdim, chunk=chunk,
-    )
+    """Through `ops/library.py` (under `torch.export` the op
+    `pht::fused_mamba_chain`): the kernel for a CUDA `zxbcdt` (it launches
+    or raises), the plain version for a CPU one; inputs that require grad
+    in grad mode are refused either way."""
+    return library.fused_mamba_chain(zxbcdt, conv_w, conv_b, dt_bias, A, D, norm_w, d_inner,
+                                     d_state, headdim, chunk)
 
 
 def fused_mamba_chain_emit(

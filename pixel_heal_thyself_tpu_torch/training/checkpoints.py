@@ -70,9 +70,11 @@ def restore_checkpoint(path: str | Path, state: TrainState) -> int:
     return int(ckpt["epoch"])
 
 
-def save_params(path: str | Path, model: torch.nn.Module) -> None:
-    """Params-only export of `model` (a deploy artifact) to the file `path`."""
-    _save({k: v.detach().cpu() for k, v in model.state_dict().items()}, Path(path))
+def save_params(path: str | Path, model: torch.nn.Module | dict) -> None:
+    """Params-only export of `model`, a module or its state dict (a deploy
+    artifact), to the file `path`."""
+    state = model.state_dict() if isinstance(model, torch.nn.Module) else model
+    _save({k: v.detach().cpu() for k, v in state.items()}, Path(path))
 
 
 def restore_params(path: str | Path) -> dict:

@@ -1403,3 +1403,48 @@ def test_tiny_trainer_on_the_card_runs_its_kernels(dev, tmp_path, monkeypatch, m
     assert text.startswith("Epoch: 1 \tG loss: ")
     losses = [float(x) for x in text.split()[4::3]]  # "G loss: x", "D Loss: y"
     assert len(losses) == 2 and np.isfinite(losses).all()
+
+
+# model, kwargs, the wrappers its serving forward launches
+EXPORT_CASES = {
+    "afgsa-block-bf16": (AFGSANet, dict(base_ch=64, enc_ch=32, num_sa=2, num_heads=4,
+                                        use_block_kernel=True, dtype=torch.bfloat16)),
+    "afgsa-literal-fp32": (AFGSANet, dict(base_ch=64, enc_ch=32, num_sa=2, num_heads=4)),
+    "afgsa-film-bf16": (AFGSANet, dict(base_ch=64, enc_ch=32, num_sa=2, num_heads=4,
+                                       use_film=True, dtype=torch.bfloat16)),
+    "mamba-fused-bf16": (MambaDenoiserNet, dict(base_ch=32, enc_ch=32, num_blocks=2, d_state=16,
+                                                headdim=32, expansion=4, use_megakernel=True,
+                                                dtype=torch.bfloat16)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EXPORT_CASES))
+def test_exported_artifact_matches_live_model(dev, tmp_path, case):
+    """A CUDA artifact (`serving.export_denoiser`) loaded back on the card
+    gives the live model's output to the bit and launches the same
+    kernels the same number of times (the `pht::` ops call the wrappers)."""
+    from pixel_heal_thyself_tpu_torch.serving import export_denoiser, load_exported
+
+    net, kw = EXPORT_CASES[case]
+    model = net(**kw, num_gcp=0, padding_mode="replicate", use_kernels=True, device=dev,
+                generator=torch.Generator().manual_seed(0)).eval()
+    out = export_denoiser(model, tmp_path / "art", window=32, batch_tiles=2)
+    apply_fn, manifest = load_exported(out, device=dev)
+    assert manifest["kernel_ops"] and manifest["platforms"] == ["cuda"]
+    rng = np.random.default_rng(5)
+    x = _rand(rng, (2, 32, 32, 3), dev, torch.float32).abs()
+    a = _rand(rng, (2, 32, 32, 7), dev, torch.float32)
+    wrappers = (block_halo_attention_cuda, pointwise_gemm_cuda, conv3x3_cuda,
+                fused_mamba_chain_cuda)
+
+    def launched(fn):
+        before = [w.launches for w in wrappers]
+        with torch.inference_mode():
+            y = fn(x, a)
+        torch.cuda.synchronize()
+        return y, [w.launches - b for w, b in zip(wrappers, before)]
+
+    got, got_launches = launched(apply_fn)
+    want, want_launches = launched(model)
+    assert got_launches == want_launches and any(got_launches)
+    assert torch.equal(got, want)

@@ -52,7 +52,8 @@ def _imported_frameworks(modules: list[str]) -> list[str]:
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "print(json.dumps(sorted(m for m in sys.modules if m in ('jax', 'flax', 'jaxlib')\n"
-        "    or m == 'pixel_heal_thyself_tpu' or m.startswith('pixel_heal_thyself_tpu.'))))\n"
+        "    or m in ('pixel_heal_thyself_tpu', 'tools')\n"
+        "    or m.startswith(('pixel_heal_thyself_tpu.', 'tools.')))))\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -65,15 +66,21 @@ def test_port_modules_import_no_jax():
     modules = _port_modules()
     assert "pixel_heal_thyself_tpu_torch.ops.attention_cuda" in modules
     assert "pixel_heal_thyself_tpu_torch.inference" in modules
+    assert {"pixel_heal_thyself_tpu_torch.ops.library", "pixel_heal_thyself_tpu_torch.serving",
+            "pixel_heal_thyself_tpu_torch.tools.export_model",
+            "pixel_heal_thyself_tpu_torch.tools.import_torch_checkpoint"} <= set(modules)
     assert set(SHARED) <= set(modules)
     assert _imported_frameworks(modules + ["chip_smoke"]) == []
 
 
-_JAX_PACKAGE_IMPORT = re.compile(r"^\s*(from|import) pixel_heal_thyself_tpu(\.|\s|$)", re.M)
+_JAX_PACKAGE_IMPORT = re.compile(
+    r"^\s*(from|import) (pixel_heal_thyself_tpu|tools)(\.|\s|$)", re.M)
 
 
 def test_no_source_imports_the_jax_package():
-    """Lazy imports inside functions included."""
+    """Lazy imports inside functions included; the repository's `tools/`
+    (the JAX package's scripts) neither: the port has its own
+    `pixel_heal_thyself_tpu_torch.tools`."""
     sources = sorted((REPO / "pixel_heal_thyself_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(sources) > 20
     hits = [f"{src.relative_to(REPO)}: {m.group(0).strip()}" for src in sources

@@ -177,12 +177,16 @@ def test_run_inference_end_to_end(tmp_path, tmp_cwd):
 
 
 def test_unported_paths_raise(tmp_path):
+    """Spatial sharding is not ported; with an exported artifact it is
+    refused as in the JAX package (artifacts serve the tiled path only)."""
     for model in ("afgsa", "mamba"):
         cfg = ConfigRegistry.create_config(compose("prod", [f"model={model}"],
                                                    resolve_interpolations=False))
-        for kw in ({"spatial": True}, {"from_export": "artifact"}):
-            with pytest.raises(NotImplementedError, match="not ported"):
-                run_inference(cfg, str(tmp_path), str(tmp_path / "o"), device="cpu", **kw)
+        with pytest.raises(NotImplementedError, match="not ported"):
+            run_inference(cfg, str(tmp_path), str(tmp_path / "o"), device="cpu", spatial=True)
+        with pytest.raises(ValueError, match="tiled path only"):
+            run_inference(cfg, str(tmp_path), str(tmp_path / "o"), device="cpu", spatial=True,
+                          from_export="artifact")
 
 
 @pytest.mark.parametrize("fn", ["denoise_frame", "make_fused_frame_apply",
