@@ -153,6 +153,22 @@ exits non-zero. Phases:
    FRAME_TOL of the kernel artifact; `inference.main` with
    `inference.from_export` scores a synthetic 512² scene, launching one
    frame's kernels.
+14. Sharded serving (`parallel/`) on the one card, phase 4's frame 0 at
+   prod width (seeded weights): the row-sharded AFGSANet over 2 gloo
+   ranks sharing the card (`parallel.distributed.spawn_world`) at margin
+   32, its gathered frame equal to the bit to the two strips this process
+   computes with their halo rows put in by hand, each rank's launches K1 5,
+   K2 20, K3 10 a frame on their prod bodies, and at margin 72 (the prod
+   reach is 65 px) within FRAME_TOL of one rank; one rank on nccl (its
+   process group and a CUDA-tensor all_gather), equal to the bit to one
+   rank with no process group; the sequence-sharded MambaDenoiserNet over
+   the 2 ranks (the literal chain: no K7) within FRAME_TOL of the literal
+   model on the whole frame; `python -m torch.distributed.run
+   --nproc-per-node 2 -m pixel_heal_thyself_tpu_torch.inference -cn prod
+   parallel.multihost=true inference.spatial=true` on a synthetic 512²
+   scene, one finite `evaluation.txt`. Prints s/frame per path, peak
+   memory per rank and the phase's seconds. Two ranks on one card measure
+   correctness and overhead, not a multi-GPU speed-up.
 
 Every kernel row states its bound (the least time the card could take:
 the larger of the bytes its function must move over 3.35 TB/s and its
@@ -170,6 +186,7 @@ import copy
 import json
 import logging
 import math
+import os
 import re
 import struct
 import subprocess
@@ -2339,6 +2356,272 @@ def phase_export(device, frames, smi: str) -> None:
     log(f"[export] phase 13 {time.perf_counter() - t_phase:.2f} s; {smi}")
 
 
+# phase 14: full-frame serving sharded over the ranks of torch.distributed,
+# every rank on the one card: phase 4's frame 0 (512²) at prod width
+# (seeded weights as phases 4 and 7). AFGSA row-sharded over 2 gloo ranks at
+# margin 32 (against the strips the parent computes with their halos put in
+# by hand: equal to the bit) and at margin 72 ≥ the prod reach of 2 + 5·12 +
+# 3 = 65 px (against one rank: FRAME_TOL); one rank on nccl; Mamba
+# sequence-sharded over 2 gloo ranks against the unsharded literal model
+# (FRAME_TOL); the sharded CLI under `torch.distributed.run`. Two ranks
+# sharing one card measure correctness and overhead, not a multi-GPU speed-up
+SHARD = dict(ranks=2, margin=32, wide_margin=72, frames=2)
+# what each rank launches for its strip of one frame: 5 blocks of K2 ×4 →
+# K1 → K3 ×2 (AFGSA), nothing for the sequence path (its layers take the
+# literal chain under seq_axis, as the JAX gate says: no K7)
+SHARD_LAUNCHES = {"afgsa": {"K1": 5, "K2": 20, "K3": 10}, "mamba": {}}
+
+
+def sharded_rank(tmp: str, jobs: list, device_type: str) -> None:
+    """One rank of phase 14 (run by `parallel.distributed.spawn_world`): for
+    each job (model, margin) the frame through the sharded path
+    SHARD["frames"] times, each from counts of 0; saves the frames (rank
+    0), each frame's launches and per-body launches, seconds and peak
+    memory to `tmp/rank<r>.pt`."""
+    import torch.distributed as dist
+
+    from pixel_heal_thyself_tpu_torch import _build
+    from pixel_heal_thyself_tpu_torch.inference import (
+        denoise_frame_sequence,
+        denoise_frame_spatial,
+    )
+    from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet, afgsa_prod_kwargs
+    from pixel_heal_thyself_tpu_torch.models.mamba import MambaDenoiserNet, mamba_prod_kwargs
+    from pixel_heal_thyself_tpu_torch.parallel import (
+        make_seq_sharded_apply,
+        make_sharded_apply_rows,
+        row_axis,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.lib()  # the parent's build
+    device = (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
+              else torch.device(device_type))
+    axis = row_axis()
+    frame = dict(np.load(Path(tmp, "frame.npz")))
+    nets = {"afgsa": (AFGSANet, afgsa_prod_kwargs()), "mamba": (MambaDenoiserNet,
+                                                               mamba_prod_kwargs())}
+    res, models = {"backend": dist.get_backend(), "device": str(device)}, {}
+    with deterministic_cudnn():
+        for name, margin in jobs:
+            if name not in models:
+                net, kwargs = nets[name]
+                models[name] = net(**kwargs, device=device).eval()
+                models[name].load_state_dict(torch.load(Path(tmp, f"{name}.pt")))
+            if name == "afgsa":
+                sharded = make_sharded_apply_rows(models[name], margin, axis)
+                run = partial(denoise_frame_spatial, sharded, frame, axis.size, margin=margin,
+                              device=device)
+            else:
+                run = partial(denoise_frame_sequence, make_seq_sharded_apply(models[name], axis),
+                              frame, axis.size, device=device)
+            rec = {"secs": [], "launches": [], "bodies": []}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(SHARD["frames"]):
+                reset_counts()
+                t0 = time.perf_counter()
+                out = run()  # syncs: the frame comes back to the host
+                rec["secs"].append(time.perf_counter() - t0)
+                rec["launches"].append(read_counts())
+                rec["bodies"].append({k: dict(fn.body_launches) for k, fn in counters().items()
+                                      if hasattr(fn, "body_launches")})
+            rec["peak"] = torch.cuda.max_memory_allocated()
+            if axis.index == 0:
+                rec["frame"] = out
+            res[f"{name}/{margin}"] = rec
+    torch.save(res, Path(tmp, f"rank{axis.index}.pt"))
+
+
+def hand_strips(model, frame: dict, ranks: int, margin: int, device) -> np.ndarray:
+    """`denoise_frame_spatial`'s frame computed in this process with no
+    process group: the frame padded as it pads it, each rank's strip given
+    `margin` rows of its neighbours (the frame's edge row replicated at the
+    top and bottom) by hand, through the model, cropped and stacked."""
+    from pixel_heal_thyself_tpu_torch.data.preprocessing import postprocess_specular
+    from pixel_heal_thyself_tpu_torch.inference import _model_inputs
+
+    noisy, aux = _model_inputs(frame)
+    h, w = noisy.shape[:2]
+    pad = ((0, (-h) % (8 * ranks)), (margin, margin + (-w) % 8), (0, 0))
+    noisy, aux = (np.pad(x, pad, mode="edge") for x in (noisy, aux))
+    strip = noisy.shape[0] // ranks
+    outs = []
+    for r in range(ranks):
+        lo, hi = r * strip, (r + 1) * strip
+        rows = np.concatenate([np.full(margin, lo), np.arange(lo, hi), np.full(margin, hi - 1)])
+        if r:
+            rows[:margin] = np.arange(lo - margin, lo)
+        if r < ranks - 1:
+            rows[-margin:] = np.arange(hi, hi + margin)
+        with torch.inference_mode():
+            out = model(torch.from_numpy(noisy[rows][None]).to(device),
+                        torch.from_numpy(aux[rows][None]).to(device))
+        outs.append(out[0, margin:-margin].float().cpu().numpy())
+    return postprocess_specular(np.concatenate(outs)[:h, margin:margin + w])
+
+
+def spawn_ranks(tmp: str, ranks: int, jobs: list, tag: str, device) -> tuple:
+    """`sharded_rank` in `ranks` fresh processes on `device`: (each rank's
+    record, seconds in all, spawn and process-group start included)."""
+    from pixel_heal_thyself_tpu_torch.parallel.distributed import spawn_world
+
+    for r in range(ranks):
+        Path(tmp, f"rank{r}.pt").unlink(missing_ok=True)
+    init = Path(tmp, f"init_{tag}")
+    init.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    spawn_world(sharded_rank, ranks, f"file://{init}", device.type, args=(tmp, jobs, device.type))
+    secs = time.perf_counter() - t0
+    return [torch.load(Path(tmp, f"rank{r}.pt"), weights_only=False) for r in range(ranks)], secs
+
+
+def check_shard_run(tag: str, recs: list, key: str, want: dict, backend: str) -> None:
+    """Every rank's backend, and each of its frames' launches: `want` and
+    nothing else, every launch on its prod body."""
+    for r, rec in enumerate(recs):
+        if rec["backend"] != backend:
+            raise AssertionError(f"[{tag}] rank {r}: backend {rec['backend']}, expected {backend}")
+        job = rec[key]
+        for launches, bodies in zip(job["launches"], job["bodies"]):
+            expect = {k: want.get(k, 0) for k in KERNEL_NAMES}
+            if launches != expect:
+                raise AssertionError(f"[{tag}] rank {r} {key}: launches {launches}, expected "
+                                     f"{expect}")
+            for name, n in want.items():
+                if bodies[name]["general"] or bodies[name][PROD_BODIES[name]] != n:
+                    raise AssertionError(f"[{tag}] rank {r} {key}: {name} bodies {bodies[name]}")
+        log(f"[{tag}] rank {r} ({rec['device']}, {backend}) {key}: launches a frame "
+            f"{want or 'none'} on the prod bodies; seconds per frame "
+            f"{[round(x, 4) for x in job['secs']]} (first includes warm-up); peak memory "
+            f"{job['peak']} B ({job['peak'] / 2**30:.3f} GiB)")
+
+
+def phase_sharded(device, frame: dict, smi: str) -> None:
+    """Phase 14: sharded full-frame serving on the one card (SHARD's comment):
+    the 2-rank gloo world runs AFGSA at margins 32 and 72 and Mamba; a
+    1-rank nccl world AFGSA at margin 32; then the CLI under
+    `torch.distributed.run` with 2 ranks. Any rank's failure fails it."""
+    from pixel_heal_thyself_tpu_torch.data.preprocessing import postprocess_specular
+    from pixel_heal_thyself_tpu_torch.data.synthetic import generate_dataset
+    from pixel_heal_thyself_tpu_torch.inference import _model_inputs, denoise_frame_spatial
+    from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet, afgsa_prod_kwargs
+    from pixel_heal_thyself_tpu_torch.models.mamba import MambaDenoiserNet, mamba_prod_kwargs
+    from pixel_heal_thyself_tpu_torch.parallel import make_sharded_apply_rows
+    from pixel_heal_thyself_tpu_torch.training.checkpoints import save_params
+
+    t_phase = time.perf_counter()
+    ranks, margin, wide = SHARD["ranks"], SHARD["margin"], SHARD["wide_margin"]
+    with tempfile.TemporaryDirectory() as tmp:
+        afgsa = AFGSANet(**afgsa_prod_kwargs(), device=device,
+                         generator=torch.Generator().manual_seed(0)).eval()
+        mamba_kwargs = mamba_prod_kwargs()
+        mamba = MambaDenoiserNet(**mamba_kwargs, device=device,
+                                 generator=torch.Generator().manual_seed(0)).eval()
+        for name, model in (("afgsa", afgsa), ("mamba", mamba)):
+            torch.save(model.state_dict(), Path(tmp, f"{name}.pt"))
+        np.savez(Path(tmp, "frame.npz"), noisy=frame["noisy"], aux=frame["aux"])
+
+        # this process, no process group: the references
+        with deterministic_cudnn():
+            strips = hand_strips(afgsa, frame, ranks, margin, device)
+            t0 = time.perf_counter()
+            one_rank = {m: denoise_frame_spatial(make_sharded_apply_rows(afgsa, m), frame, 1,
+                                                 margin=m, device=device) for m in (margin, wide)}
+            one_rank_s = (time.perf_counter() - t0) / 2
+            literal = MambaDenoiserNet(**dict(mamba_kwargs, use_megakernel=False),
+                                       device=device).eval()
+            literal.load_state_dict(mamba.state_dict())
+            noisy, aux = (torch.from_numpy(x[None]).to(device) for x in _model_inputs(frame))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            whole_s = []
+            for _ in range(SHARD["frames"]):
+                t0 = time.perf_counter()
+                with torch.inference_mode():
+                    whole = postprocess_specular(literal(noisy, aux)[0].float().cpu().numpy())
+                whole_s.append(round(time.perf_counter() - t0, 4))
+            whole_peak = torch.cuda.max_memory_allocated()
+        log(f"[sharded] references in this process: AFGSA one rank {one_rank_s:.4f} s/frame "
+            f"(mean of margins {margin} and {wide}); Mamba literal model on the whole frame "
+            f"({noisy.shape[1] * noisy.shape[2]} tokens a layer) {whole_s} s/frame (first "
+            f"includes warm-up), peak {whole_peak} B")
+        del literal, mamba, noisy, aux
+        torch.cuda.empty_cache()
+
+        # 2 gloo ranks sharing the card
+        recs, secs = spawn_ranks(tmp, ranks, [("afgsa", margin), ("afgsa", wide),
+                                              ("mamba", 0)], "gloo", device)
+        for key in (f"afgsa/{margin}", f"afgsa/{wide}", "mamba/0"):
+            check_shard_run("sharded", recs, key, SHARD_LAUNCHES[key.split("/")[0]], "gloo")
+        got = recs[0][f"afgsa/{margin}"]["frame"]
+        if not np.array_equal(got, strips):
+            dev = deviation(torch.from_numpy(got), torch.from_numpy(strips))
+            raise AssertionError(f"[sharded] AFGSA {ranks} ranks, margin {margin}: the gathered "
+                                 f"frame differs from the hand-built strips: {dev}")
+        log(f"[sharded] AFGSA {ranks} gloo ranks, margin {margin}: the gathered frame equals the "
+            "strips computed here with their halos put in by hand, to the bit")
+        dev = deviation(torch.from_numpy(recs[0][f"afgsa/{wide}"]["frame"]),
+                        torch.from_numpy(one_rank[wide]))
+        check(f"[sharded] AFGSA margin {wide}", dev, FRAME_TOL)
+        log(f"[sharded] AFGSA {ranks} ranks, margin {wide} (≥ the reach of 65 px) vs one rank: "
+            f"max_rel {dev['max_rel']:.6g} rms_rel {dev['rms_rel']:.6g} (bound {FRAME_TOL})")
+        dev = deviation(torch.from_numpy(recs[0]["mamba/0"]["frame"]), torch.from_numpy(whole))
+        check("[sharded] Mamba sequence-sharded frame", dev, FRAME_TOL)
+        log(f"[sharded] Mamba {ranks} ranks, sequence-sharded (literal chain, no K7) vs the "
+            f"literal model on the whole frame: max_rel {dev['max_rel']:.6g} rms_rel "
+            f"{dev['rms_rel']:.6g} (bound {FRAME_TOL})")
+        log(f"[sharded] {ranks}-rank gloo world: {secs:.2f} s in all (spawn, process group, "
+            f"builds, 3 paths × {SHARD['frames']} frames); {smi}")
+
+        # one rank on nccl: its process group and a CUDA-tensor all_gather
+        recs, secs = spawn_ranks(tmp, 1, [("afgsa", margin)], "nccl", device)
+        check_shard_run("sharded-nccl", recs, f"afgsa/{margin}", SHARD_LAUNCHES["afgsa"], "nccl")
+        got = recs[0][f"afgsa/{margin}"]["frame"]
+        if not np.array_equal(got, one_rank[margin]):
+            dev = deviation(torch.from_numpy(got), torch.from_numpy(one_rank[margin]))
+            raise AssertionError(f"[sharded-nccl] the frame differs from one rank with no process "
+                                 f"group: {dev}")
+        log(f"[sharded-nccl] 1 rank on nccl, margin {margin}: the frame equals this process's "
+            f"one-rank frame to the bit; {secs:.2f} s in all; {smi}")
+
+        # the CLI: 2 ranks under torch.distributed.run
+        images, out_dir = Path(tmp, "images"), Path(tmp, "served")
+        generate_dataset(images, scenes=["fftle0_0"], height=SERVE["size"],
+                         width=SERVE["size"], seed=0)
+        save_params(Path(tmp, "afgsa_params.pt"), afgsa)
+        repo = Path(__file__).resolve().parent
+        env = {**os.environ, "PYTHONPATH": str(repo)}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc-per-node={ranks}", "-m", "pixel_heal_thyself_tpu_torch.inference", "-cn",
+             "prod", "parallel.multihost=true", "inference.spatial=true",
+             f"trainer.model_path={Path(tmp, 'afgsa_params.pt')}",
+             f"inference.images_dir={images}", f"inference.out_dir={out_dir}",
+             f"inference.device={device.type}"],
+            capture_output=True, text=True, cwd=tmp, env=env, timeout=600,
+        )
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"[sharded-cli] torch.distributed.run exited {proc.returncode}:"
+                                 f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        written = sorted(p.name for p in out_dir.iterdir())
+        text = (out_dir / "fftle0_0_32_evaluation.txt").read_text()
+        values = [float(line.split(": ")[1]) for line in text.splitlines()]
+        if written != ["fftle0_0_32_evaluation.txt"] or not np.isfinite(values).all():
+            raise AssertionError(f"[sharded-cli] wrote {written}: {text!r}")
+        backends = sorted(set(re.findall(r"backend (\w+)", proc.stdout + proc.stderr)))
+        log(f"[sharded-cli] torch.distributed.run --nproc-per-node={ranks} inference -cn prod "
+            f"inference.spatial=true: one {SERVE['size']}² scene in {cli_s:.2f} s in all (launcher, "
+            f"{ranks} processes, EXR read, frame, scoring), backend {backends}, one evaluation "
+            f"{text.strip().replace(chr(10), '; ')}")
+        del afgsa
+        torch.cuda.empty_cache()
+    log(f"[sharded] phase 14 {time.perf_counter() - t_phase:.2f} s; {smi}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -2377,6 +2660,7 @@ def main() -> None:
     phase_gan_steps(device, frames[0], training, mamba_training, smi)
     phase_gan_trainer(smi)
     phase_export(device, frames, smi)
+    phase_sharded(device, frames[0], smi)
     # each kernel's count from the path it was ported for
     path = {"K1": serving, "K2": serving, "K3": serving, "K4": training, "K5": training,
             "K6": training, "K7": mamba, "K7e": mamba_training, "K8": mamba_training,

@@ -20,8 +20,11 @@ exported serving artifacts (`serving.py`: `torch.export` programs with
 the weights inside, written by `python -m
 pixel_heal_thyself_tpu_torch.tools.export_model` and served by
 `inference.from_export`), whose kernels stay in the graph as the
-`torch.library` ops of `ops/library.py`; and the import of the
-reference's `G.pt`/`D.pt` (`tools/import_torch_checkpoint.py`). The
+`torch.library` ops of `ops/library.py`; the import of the
+reference's `G.pt`/`D.pt` (`tools/import_torch_checkpoint.py`); and
+full frames served sharded over the ranks of a `torch.distributed`
+process group (`parallel/`: AFGSA row-sharded with halo exchange, Mamba
+sequence-sharded with its scan state chained across ranks). The
 kernels: the block-halo attention, forward and backward
 (`ops/attention_cuda.py`), the whole TransformerBlock, forward and
 backward (`ops/block_cuda.py`), the fused Mamba2 layer interior, forward

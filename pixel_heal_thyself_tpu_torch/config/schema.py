@@ -144,7 +144,9 @@ class ParallelConfig:
     data_axis: int = -1  # -1: use all available devices for data parallelism
     model_axis: int = 1  # tensor-parallel degree (heads/channels)
     spatial_axis: int = 1  # spatial sharding for full-frame inference
-    multihost: bool = False  # jax.distributed auto-init (TPU pod slices)
+    # join the process group of a launcher (`python -m torch.distributed.run`:
+    # RANK/WORLD_SIZE, init_method env://), parallel/distributed.py
+    multihost: bool = False
 
 
 @dataclass

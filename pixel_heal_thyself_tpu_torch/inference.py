@@ -1,6 +1,6 @@
 """Full-frame tiled inference CLI (PyTorch port).
 
-Port of `pixel_heal_thyself_tpu/inference.py`, tiled paths only:
+Port of `pixel_heal_thyself_tpu/inference.py`:
 
     python -m pixel_heal_thyself_tpu_torch.inference -cn prod \
         trainer.model_path=<ckpt or .npz> inference.images_dir=data/images \
@@ -26,8 +26,23 @@ serves an artifact of `tools/export_model.py` (`serving.py`) in place of
 the model: no model class and no checkpoint. Its window and batch win
 over `inference.tile`/`batch_tiles` (the margin stays; the tile takes the
 difference), and both tilers take its `apply_fn` as they take the live
-model. Spatial sharding (ROADMAP.md) is not ported yet and raises
-NotImplementedError.
+model.
+
+`inference.spatial=true` shards whole frames over the ranks of a
+`torch.distributed` process group (`parallel/`): AFGSA row-sharded with
+`margin` halo rows from each neighbour (`denoise_frame_spatial`), Mamba
+sequence-sharded, exactly the unsharded model (`denoise_frame_sequence`).
+Every rank reads each frame and computes its strip; the frame is
+gathered to every rank and only rank 0 scores it and writes files. One
+process per card:
+
+    python -m torch.distributed.run --nproc-per-node <cards> \
+        -m pixel_heal_thyself_tpu_torch.inference -cn prod \
+        parallel.multihost=true inference.spatial=true trainer.model_path=...
+
+(`PHT_COORDINATOR`/`PHT_NUM_PROCESSES`/`PHT_PROCESS_ID` instead of the
+launcher work too, `parallel/distributed.py`). With no process group,
+`spatial` runs the same code with one rank.
 
 Everything runs on the card (`inference.device=cuda`, the default) unless
 the caller asks for the CPU (`inference.device=cpu`); with no card the
@@ -197,6 +212,58 @@ def denoise_frame_fused(fused_apply, data: dict[str, np.ndarray],
     return postprocess_specular(out_log.cpu().numpy().astype(np.float32))
 
 
+def denoise_frame_spatial(sharded_apply, data: dict[str, np.ndarray], n_ranks: int,
+                          margin: int = 32, device: torch.device | str = "cuda") -> np.ndarray:
+    """Denoise one frame with its rows sharded over `n_ranks` ranks and halo
+    exchange between neighbours (`parallel.spatial.make_sharded_apply_rows`,
+    built once per run). H is edge-padded to a multiple of 8·n_ranks (each
+    strip stays on the attention block grid) and W by `margin` on each side
+    plus up to a multiple of 8, as the tiled path sees its borders; with
+    `margin` at least the model's receptive reach both paths give the same
+    frame. Raises when a strip is shorter than `margin`."""
+    noisy_log, aux = _model_inputs(data)
+    h, w, _ = noisy_log.shape
+    ph = (-h) % (8 * n_ranks)
+    strip = (h + ph) // n_ranks
+    if strip < margin:
+        # the exchange ships `margin` rows a neighbour; a shorter strip has
+        # fewer to ship
+        raise ValueError(
+            f"spatial inference needs per-rank row strips >= margin: frame height {h} over "
+            f"{n_ranks} ranks gives {strip}-row strips < margin {margin}; lower "
+            "inference.margin, use fewer ranks, or drop inference.spatial for this frame size",
+        )
+    pad = ((0, ph), (margin, margin + (-w) % 8), (0, 0))
+    noisy_p = np.pad(noisy_log, pad, mode="edge")[None]
+    aux_p = np.pad(aux, pad, mode="edge")[None]
+    with torch.inference_mode():
+        out = sharded_apply(torch.from_numpy(noisy_p).to(device),
+                            torch.from_numpy(aux_p).to(device))
+    out_log = out.float().cpu().numpy()[0, :h, margin:margin + w]
+    return postprocess_specular(out_log)
+
+
+def denoise_frame_sequence(seq_apply, data: dict[str, np.ndarray], n_ranks: int,
+                           device: torch.device | str = "cuda") -> np.ndarray:
+    """Denoise one frame with its raster-scan token sequence sharded over
+    `n_ranks` ranks (`parallel.sequence.make_seq_sharded_apply`): the Mamba
+    full-frame path. When the ranks divide the frame height this is the
+    unsharded model on the whole frame, up to floating-point reordering. A
+    height they do not divide is edge-padded to a multiple first:
+    causality keeps the padded rows out of every real row's scan state, but
+    the 3×3 conv FFNs after the mixers see the padded rows' activations
+    where the unsharded model sees its boundary padding, so the bottom few
+    real rows may deviate slightly."""
+    noisy_log, aux = _model_inputs(data)
+    h = noisy_log.shape[0]
+    pad = ((0, (-h) % n_ranks), (0, 0), (0, 0))
+    noisy_p = np.pad(noisy_log, pad, mode="edge")[None]
+    aux_p = np.pad(aux, pad, mode="edge")[None]
+    with torch.inference_mode():
+        out = seq_apply(torch.from_numpy(noisy_p).to(device), torch.from_numpy(aux_p).to(device))
+    return postprocess_specular(out.float().cpu().numpy()[0, :h])
+
+
 def tensor2img(image: np.ndarray) -> np.ndarray:
     """HWC linear HDR → tone-mapped uint8, as `pixel_heal_thyself_tpu.utils.
     images.tensor2img` without post-processing. That module imports
@@ -326,13 +393,17 @@ def run_inference(
     """Denoise and score every frame pair under `images_dir` with the
     generator of `cfg` (`load_generator`), or with the serving artifact
     at `from_export` (`serving.load_exported`), whose window and batch
-    then set the tile and batch."""
+    then set the tile and batch. `spatial` shards each frame over the
+    ranks of the process group (one rank without one): every rank must
+    call this; rank 0 scores and writes, and returns the results, the
+    others return []. Several ranks without `spatial` raise."""
     from pixel_heal_thyself_tpu_torch.data.exr import write_exr_groups
     from pixel_heal_thyself_tpu_torch.metrics import (
         calculate_psnr,
         calculate_rmse,
         calculate_ssim,
     )
+    from pixel_heal_thyself_tpu_torch.parallel import is_main_process, process_count
 
     if from_export:
         # a serving artifact (tools/export_model.py): fixed tile window and
@@ -367,21 +438,44 @@ def run_inference(
                 f"overrides configured {batch_tiles}",
             )
             batch_tiles = manifest["batch_tiles"]
+    elif not spatial and process_count() > 1:
+        raise ValueError(f"{process_count()} ranks serving the tiled path would each denoise "
+                         "every frame: set inference.spatial=true to shard the frames")
     elif spatial:
-        raise NotImplementedError(
-            "inference.spatial (multi-GPU frame sharding) is not ported to "
-            "pixel_heal_thyself_tpu_torch yet (ROADMAP.md Queue 1)",
+        from pixel_heal_thyself_tpu_torch.parallel import (
+            make_seq_sharded_apply,
+            make_sharded_apply_rows,
+            row_axis,
         )
+
+        axis = row_axis(model_axis=cfg.parallel.model_axis)
+        model = load_generator(cfg, device)
+        if cfg.model.name == "mamba":
+            # the global raster scan's receptive field is unbounded, so no
+            # halo can cover it: shard the token sequence and chain the
+            # state across ranks instead
+            sharded = make_seq_sharded_apply(model, axis)
+            logger.info(f"[Infer] sequence sharding over {axis.size} rank(s)")
+        else:
+            sharded = make_sharded_apply_rows(model, margin, axis)
+            logger.info(f"[Infer] spatial sharding over {axis.size} rank(s), margin {margin}")
     else:
         model = load_generator(cfg, device)
-    os.makedirs(out_dir, exist_ok=True)
+    main_process = is_main_process()
+    if main_process:
+        os.makedirs(out_dir, exist_ok=True)
 
     results = []
     fused_cache: dict[tuple[int, int], object] = {}
     for stem, noisy_path, gt_path in find_frame_pairs(images_dir, noisy_spp, gt_spp):
         start = time.time()
         data = preprocess_data(noisy_path, gt_path, scale=scale)
-        if fused:
+        if spatial and cfg.model.name == "mamba":
+            out_lin = denoise_frame_sequence(sharded, data, axis.size, device=device)
+        elif spatial:
+            out_lin = denoise_frame_spatial(sharded, data, axis.size, margin=margin,
+                                            device=device)
+        elif fused:
             hw = data["noisy"].shape[:2]
             if hw not in fused_cache:
                 fused_cache[hw] = make_fused_frame_apply(
@@ -394,6 +488,8 @@ def run_inference(
                 model, data, tile=tile, margin=margin, batch_tiles=batch_tiles,
                 device=device,
             )
+        if not main_process:
+            continue
         gt_lin = data["gt"].astype(np.float64)
 
         rmse = calculate_rmse(out_lin.astype(np.float64), gt_lin)
@@ -456,6 +552,13 @@ def main(argv=None) -> None:
     if not cfg.trainer.model_path and not infer_opts["from_export"]:
         raise SystemExit("set trainer.model_path=<run>/model_epochN/state or a params .npz "
                          "(tools/export_params_npz.py), or inference.from_export=<artifact dir>")
+    import torch.distributed as dist
+
+    from pixel_heal_thyself_tpu_torch.parallel import maybe_initialize_distributed, shutdown
+
+    # a process group this call starts, it also ends
+    own_group = not dist.is_initialized() and maybe_initialize_distributed(
+        cfg.parallel.multihost, infer_opts["device"])
     images_dir = infer_opts["images_dir"] or cfg.data.images.dir
     out_dir = infer_opts["out_dir"] or os.path.join(cfg.paths.output_dir, "inference")
     run_inference(
@@ -474,6 +577,10 @@ def main(argv=None) -> None:
         fused=infer_opts["fused"],
         device=infer_opts["device"],
     )
+    # not on an exception: leaving the group would wait for the other ranks,
+    # and the launcher stops them when this one exits
+    if own_group:
+        shutdown()
 
 
 if __name__ == "__main__":

@@ -82,12 +82,16 @@ def afgsa_prod_kwargs() -> dict:
 
 def multi_scale_encode(
     x: torch.Tensor, convs, slopes: tuple, padding_mode: str, dtype: torch.dtype,
+    pad_fn=None,
 ) -> torch.Tensor:
     """The three parallel 1×1/3×3/5×5 encoder convs as ONE 5×5 conv whose
     kernel is the branch kernels zero-embedded in 5×5 envelopes and
     concatenated along the outputs (exact: embedded zeros contribute
     nothing, and padding values at distance d do not depend on the pad
-    width). `slopes` are the per-branch leaky-relu slopes (0 = relu)."""
+    width). `slopes` are the per-branch leaky-relu slopes (0 = relu).
+    `pad_fn` replaces `pad2d` as in `ConvBlock`; under the row-halo
+    exchange the pad-2 rows are the true neighbour rows, whose inner ring
+    is the pad-1 rows, so the merged conv stays exact."""
     kernels, biases = [], []
     for conv in convs:
         p = (5 - conv.weight.shape[-1]) // 2
@@ -95,7 +99,8 @@ def multi_scale_encode(
         biases.append(conv.bias)
     kernel = torch.cat(kernels, dim=0)
     bias = torch.cat(biases).to(dtype)
-    y = conv_nhwc(pad2d(x, 2, padding_mode), kernel, dtype) + bias
+    pad = pad2d if pad_fn is None else pad_fn
+    y = conv_nhwc(pad(x, 2, padding_mode), kernel, dtype) + bias
     if all(s == slopes[0] for s in slopes):
         return apply_act(y, "relu" if slopes[0] == 0.0 else "leakyrelu")
     e = convs[0].weight.shape[0]
@@ -115,8 +120,9 @@ class MultiScaleEncoder(nn.Module):
             Conv(in_ch, features, k, dtype=dtype, generator=generator) for k in (1, 3, 5)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return multi_scale_encode(x, self.branches, self.slopes, self.padding_mode, self.dtype)
+    def forward(self, x: torch.Tensor, pad_fn=None) -> torch.Tensor:
+        return multi_scale_encode(x, self.branches, self.slopes, self.padding_mode, self.dtype,
+                                  pad_fn)
 
 
 class FiLM(nn.Module):

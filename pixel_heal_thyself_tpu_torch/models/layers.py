@@ -122,7 +122,10 @@ class PReLU(nn.Module):
 
 class ConvBlock(nn.Module):
     """pad2d → conv (+ bias) → optional norm → optional activation
-    (reference conv_block)."""
+    (reference conv_block). `forward(x, pad_fn)` pads with `pad_fn(x, pad,
+    mode)` in place of `pad2d`: the sequence-sharded Mamba path passes the
+    row-halo exchange (`ops/padding.make_row_halo_pad`), so every rank's
+    convolution sees its true neighbour rows."""
 
     def __init__(
         self, in_ch: int, features: int, kernel_size: int, *, stride: int = 1,
@@ -149,8 +152,9 @@ class ConvBlock(nn.Module):
                 raise NotImplementedError(f"Normalization layer [{nt}] is not found")
         self.prelu = PReLU() if act_type and act_type.lower() == "prelu" else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(pad2d(x, self.padding, self.padding_mode))
+    def forward(self, x: torch.Tensor, pad_fn=None) -> torch.Tensor:
+        pad = pad2d if pad_fn is None else pad_fn
+        x = self.conv(pad(x, self.padding, self.padding_mode))
         if self.norm is not None:
             x = self.norm(x)
         if self.prelu is not None:

@@ -28,6 +28,19 @@ package:
   versions on any device — the reference the kernels are held against on
   the card.
 
+`forward(..., seq_axis=axis)` is the sequence-sharded mode
+(`parallel/sequence.py`): the model runs on one rank's strip of rows of a
+frame whose rows are split over the ranks of `axis` (a
+`parallel.mesh.RowAxis`), and equals the unsharded model on the whole
+frame: every padded conv exchanges row halos (`ops/padding.
+make_row_halo_pad`), the positional encoding is the global table's slice
+at the strip's rows, each Mamba2 layer's conv1d takes the previous rank's
+last k-1 tokens and its SSD is `ops/ssd.ssd_sharded`. Under `seq_axis` a
+layer takes the literal chain with the plain conv1d, whatever
+`use_megakernel` and `use_pallas` say, as in the JAX package (its
+megakernel gate excludes `seq_axis`, and the seq branch comes before the
+fused conv's).
+
 In grad mode the fused interior goes through `ssd_mega.MambaChainFn` (K7's
 emit variant forward, K8 backward; the TPU custom VJP's pair), as
 AFGSANet's block route goes through `TransformerBlockFn`; out of it, the
@@ -42,6 +55,7 @@ values).
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import numpy as np
 import torch
@@ -53,7 +67,8 @@ from pixel_heal_thyself_tpu_torch.models.afgsa import MultiScaleEncoder
 from pixel_heal_thyself_tpu_torch.models.layers import ConvBlock
 from pixel_heal_thyself_tpu_torch.ops import conv_fused, ssd_mega
 from pixel_heal_thyself_tpu_torch.ops.conv import causal_depthwise_conv1d
-from pixel_heal_thyself_tpu_torch.ops.ssd import ssd_chunked
+from pixel_heal_thyself_tpu_torch.ops.padding import make_row_halo_pad
+from pixel_heal_thyself_tpu_torch.ops.ssd import ssd_chunked, ssd_sharded
 
 
 def mamba_prod_kwargs() -> dict:
@@ -161,9 +176,10 @@ class Mamba2Layer(nn.Module):
         self.out_proj = nn.Linear(d_inner, d_model, bias=False)
         _uniform_(self.out_proj.weight, 1.0 / math.sqrt(d_inner), g)
 
-    def fused_route(self, l: int) -> bool:
-        """Whether a sequence of length `l` takes the fused interior."""
-        return self.use_megakernel and ssd_mega.supports_shapes(
+    def fused_route(self, l: int, seq_axis=None) -> bool:
+        """Whether a sequence of length `l` takes the fused interior: never
+        in the sequence-sharded mode (the JAX gate, `models/mamba.py:169`)."""
+        return seq_axis is None and self.use_megakernel and ssd_mega.supports_shapes(
             l, self.d_inner, 1, self.d_state, self.headdim, self.d_conv, self.chunk_size,
         )
 
@@ -174,12 +190,12 @@ class Mamba2Layer(nn.Module):
             l, self.d_inner, self.conv_dim, self.d_conv, conv_fused.pick_l_tile(l),
         )
 
-    def forward(self, u: torch.Tensor) -> torch.Tensor:
+    def forward(self, u: torch.Tensor, seq_axis=None) -> torch.Tensor:
         b, l, _ = u.shape
         di, n, h, p = self.d_inner, self.d_state, self.nheads, self.headdim
         zxbcdt = F.linear(u.to(self.dtype), self.in_proj.weight.to(self.dtype))
         A = -torch.exp(self.A_log)
-        if self.fused_route(l):
+        if self.fused_route(l, seq_axis):
             params = (self.conv1d_weight, self.conv1d_bias, self.dt_bias, A, self.D,
                       self.norm.weight)
             if torch.is_grad_enabled():
@@ -192,18 +208,26 @@ class Mamba2Layer(nn.Module):
                           chunk=self.chunk_size)
         else:
             z = zxbcdt[..., :di]
-            if self.fused_conv_route(l):  # its forward is the same in and out of grad mode
+            xbc = zxbcdt[..., di:di + self.conv_dim]
+            sharded_conv = seq_axis is not None and self.d_conv > 1
+            if not sharded_conv and self.fused_conv_route(l):
+                # its forward is the same in and out of grad mode
                 xbc = conv_fused.FusedConvSiluFn.apply(
                     zxbcdt, self.conv1d_weight, self.conv1d_bias, di, self.conv_dim,
                     self.use_kernels,
                 )
             else:
+                # sharded: the previous rank's last k-1 tokens; rank 0 has
+                # none, the global causal zero pad
+                tail = (seq_axis.exchange(xbc[:, -(self.d_conv - 1):], None)[0]
+                        if sharded_conv else None)
                 xbc = F.silu(causal_depthwise_conv1d(
-                    zxbcdt[..., di:di + self.conv_dim], self.conv1d_weight, self.conv1d_bias,
+                    xbc, self.conv1d_weight, self.conv1d_bias, initial_tokens=tail,
                 ))
             x, B, C = torch.split(xbc, [di, n, n], dim=-1)
             dt = ssd_mega.softplus(zxbcdt[..., di + self.conv_dim:].float() + self.dt_bias)
-            y = ssd_chunked(
+            ssd = ssd_chunked if seq_axis is None else partial(ssd_sharded, axis=seq_axis)
+            y = ssd(
                 x.reshape(b, l, h, p), dt.to(self.dtype), A.to(self.dtype),
                 B.reshape(b, l, 1, n), C.reshape(b, l, 1, n), self.D.to(self.dtype),
                 chunk=self.chunk_size,
@@ -214,7 +238,9 @@ class Mamba2Layer(nn.Module):
 
 class MambaBlock(nn.Module):
     """LayerNorm → raster-scan Mamba2 → residual → residual two-conv FFN,
-    carrying the (noisy, aux) pair; aux passes through untouched."""
+    carrying the (noisy, aux) pair; aux passes through untouched.
+    `seq_axis`/`pad_fn`: the sequence-sharded mode (see the module
+    docstring)."""
 
     def __init__(
         self, ch: int, d_state: int = 64, d_conv: int = 4, expansion: int = 4,
@@ -234,11 +260,11 @@ class MambaBlock(nn.Module):
         self.ffn1 = ConvBlock(ch, ch, 3, **conv)
         self.ffn2 = ConvBlock(ch, ch, 3, **conv)
 
-    def forward(self, noisy: torch.Tensor, aux: torch.Tensor):
+    def forward(self, noisy: torch.Tensor, aux: torch.Tensor, seq_axis=None, pad_fn=None):
         b, h, w, c = noisy.shape
-        mixed = self.mamba(self.norm1(noisy.reshape(b, h * w, c)))
+        mixed = self.mamba(self.norm1(noisy.reshape(b, h * w, c)), seq_axis)
         noisy = noisy + mixed.reshape(b, h, w, c)
-        return noisy + self.ffn2(self.ffn1(noisy)), aux
+        return noisy + self.ffn2(self.ffn1(noisy, pad_fn), pad_fn), aux
 
 
 def positional_encoding_2d(channels: int, height: int, width: int) -> np.ndarray:
@@ -307,15 +333,24 @@ class MambaDenoiserNet(nn.Module):
             self._pe[key] = torch.from_numpy(pe).to(device=device, dtype=self.dtype)
         return self._pe[key]
 
-    def forward(self, x: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
-        out = self.noisy_proj(self.noisy_enc(x.to(self.dtype)))
-        out = out + self.positional_encoding(out.shape[1], out.shape[2], out.device)
+    def forward(self, x: torch.Tensor, aux: torch.Tensor, seq_axis=None) -> torch.Tensor:
+        """`seq_axis`: the sequence-sharded mode, x and aux being this
+        rank's strip of rows (module docstring)."""
+        pad_fn = None if seq_axis is None else make_row_halo_pad(seq_axis)
+        out = self.noisy_proj(self.noisy_enc(x.to(self.dtype), pad_fn), pad_fn)
+        h, w = out.shape[1:3]
+        if seq_axis is None:
+            pe = self.positional_encoding(h, w, out.device)
+        else:  # this strip's rows of the whole frame's table
+            pe = self.positional_encoding(h * seq_axis.size, w, out.device)
+            pe = pe[seq_axis.index * h:(seq_axis.index + 1) * h]
+        out = out + pe
         first_gcp = len(self.blocks) - self.num_gcp
         for i, blk in enumerate(self.blocks):
             if i >= first_gcp and torch.is_grad_enabled():
-                out, aux = checkpoint(blk, out, aux, use_reentrant=False)
+                out, aux = checkpoint(blk, out, aux, seq_axis, pad_fn, use_reentrant=False)
             else:
-                out, aux = blk(out, aux)
+                out, aux = blk(out, aux, seq_axis, pad_fn)
         for conv in self.decoder:
-            out = conv(out)
+            out = conv(out, pad_fn)
         return out.float() + x.float()

@@ -104,7 +104,7 @@ class BaseTrainer:
             raise NotImplementedError(
                 "multi-GPU training (parallel.data_axis > 1, parallel.model_axis > 1, "
                 "parallel.multihost) is not ported to pixel_heal_thyself_tpu_torch yet "
-                "(ROADMAP.md Queue 1 item 9)",
+                "(ROADMAP.md Queue 1 items 9b and 9c)",
             )
         self.padding_mode = "replicate" if self.deterministic else "reflect"
         if cfg.trainer.precision not in ("bf16", "fp32"):

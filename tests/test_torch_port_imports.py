@@ -69,6 +69,8 @@ def test_port_modules_import_no_jax():
     assert {"pixel_heal_thyself_tpu_torch.ops.library", "pixel_heal_thyself_tpu_torch.serving",
             "pixel_heal_thyself_tpu_torch.tools.export_model",
             "pixel_heal_thyself_tpu_torch.tools.import_torch_checkpoint"} <= set(modules)
+    assert {f"pixel_heal_thyself_tpu_torch.parallel.{m}"
+            for m in ("distributed", "mesh", "spatial", "sequence")} <= set(modules)
     assert set(SHARED) <= set(modules)
     assert _imported_frameworks(modules + ["chip_smoke"]) == []
 

@@ -177,10 +177,12 @@ def test_run_inference_end_to_end(tmp_path, tmp_cwd):
 
 
 def test_unported_paths_raise(tmp_path):
-    """Spatial sharding is not ported; with an exported artifact it is
-    refused as in the JAX package (artifacts serve the tiled path only)."""
+    """Spatial sharding with tensor parallelism (`parallel.model_axis` > 1)
+    is not ported; with an exported artifact spatial sharding is refused as
+    in the JAX package (artifacts serve the tiled path only)."""
     for model in ("afgsa", "mamba"):
-        cfg = ConfigRegistry.create_config(compose("prod", [f"model={model}"],
+        cfg = ConfigRegistry.create_config(compose("prod", [f"model={model}",
+                                                            "parallel.model_axis=2"],
                                                    resolve_interpolations=False))
         with pytest.raises(NotImplementedError, match="not ported"):
             run_inference(cfg, str(tmp_path), str(tmp_path / "o"), device="cpu", spatial=True)
