@@ -95,7 +95,11 @@ exits non-zero. Phases:
    the `ssd_pallas` section K11 (launch counters), every K9 and K10 launch
    on its vec body and every K11 launch on its tensor-core body (per-body
    counters); the G forward and the L1 forward + backward through the
-   kernel route against the plain route (FRAME_TOL, MAMBA_STEP_GRAD_TOL).
+   kernel route against the plain route (FRAME_TOL, MAMBA_STEP_GRAD_TOL);
+   then, in a fresh process with CUBLAS_WORKSPACE_CONFIG=:4096:8, two L1
+   forward + backward passes of each route equal to the bit, no aten op
+   whose two runs on the same inputs differ, and the same under
+   `torch.use_deterministic_algorithms(True)` with no op warned of.
 10. `fold_qkv`: one L1 forward + backward of the prod-width AFGSANet on
    the literal route (8 × 128²) with the q/k/v projections folded into
    the attention op against the unfolded model: both run K1 and K4, which
@@ -169,6 +173,20 @@ exits non-zero. Phases:
    scene, one finite `evaluation.txt`. Prints s/frame per path, peak
    memory per rank and the phase's seconds. Two ranks on one card measure
    correctness and overhead, not a multi-GPU speed-up.
+15. Multi-GPU training (`parallel/`, `make_train_step(..., mesh=)`) on the
+   one card, prod widths, global batch 8 × 128²: 2 gloo ranks sharing the
+   card train the AFGSA (K1–K6) and Mamba (K7e/K8) steps data-parallel (4
+   rows a rank) and the AFGSA step with Adam sharded over the 2 ranks (D=1
+   × M=2): 4 timed bf16 steps each (s/step, host seconds in the gradient
+   and parameter collectives, peak memory and launches per rank, every
+   launch on its prod body, the global losses equal on every rank), then
+   one step with a float32 critic under deterministic cuDNN against one
+   process (STEP_LOSS_TOL and STEP_GRAD_TOL, Mamba MAMBA_STEP_GRAD_TOL; D=1
+   × M=2 equal to the bit); one rank on nccl equal to the bit to no
+   process group, and over a data group of itself; the training CLI under
+   `torch.distributed.run --nproc-per-node 2` (4 synthetic 512² scenes, 16
+   patches an image, 1 epoch) and its resume, only rank 0 writing, each
+   rank's epoch launching K1–K6 (the trainer's own counts).
 
 Every kernel row states its bound (the least time the card could take:
 the larger of the bytes its function must move over 3.35 TB/s and its
@@ -1151,10 +1169,12 @@ def phase_mamba_kernels(device) -> dict:
     return rows
 
 
-def _train_state(device, d_dtype, g_kwargs, patch, batch, seed, net=None, multiscale=False):
+def _train_state(device, d_dtype, g_kwargs, patch, batch, seed, net=None, multiscale=False,
+                 data_group=None):
     """Seeded G (`net`, AFGSANet by default) and D (in `d_dtype`: the
     multiscale spectral-norm critic with `multiscale`, else
-    DiscriminatorVGG), and one numpy batch (bench.py:107-118) on the card."""
+    DiscriminatorVGG over `data_group`), and one numpy batch
+    (bench.py:107-118) on the card."""
     from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet
     from pixel_heal_thyself_tpu_torch.models.discriminators import (
         DiscriminatorVGG,
@@ -1169,7 +1189,7 @@ def _train_state(device, d_dtype, g_kwargs, patch, batch, seed, net=None, multis
                                     generator=d_gen)
     else:
         d = DiscriminatorVGG(in_nc=3, base_nf=64, input_size=patch, dtype=d_dtype,
-                             device=device, generator=d_gen)
+                             device=device, generator=d_gen, data_group=data_group)
     rng = np.random.default_rng(seed)
     arrays = {
         "noisy": np.abs(rng.standard_normal((batch, patch, patch, 3))),
@@ -1192,10 +1212,10 @@ def deterministic_cudnn():
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags
 
 
-def make_step(g, d, lpips=None):
-    """The prod train step of G against D: WGAN-GP + L1; or, with `lpips`
-    (LPIPS params on the card), the multiscale RaHinge step + L1 + MS-SSIM
-    + LPIPS (phase 12)."""
+def make_step(g, d, lpips=None, mesh=None):
+    """The prod train step of G against D: WGAN-GP + L1 (over `mesh`,
+    phase 15); or, with `lpips` (LPIPS params on the card), the multiscale
+    RaHinge step + L1 + MS-SSIM + LPIPS (phase 12)."""
     from pixel_heal_thyself_tpu_torch.training.train_step import (
         LossesConfig,
         make_optimizer,
@@ -1204,7 +1224,7 @@ def make_step(g, d, lpips=None):
 
     spec = make_optimizer(1e-4, [2], 0.5, 100)
     if lpips is None:
-        return make_train_step(g, d, LossesConfig(), False, spec, spec)
+        return make_train_step(g, d, LossesConfig(), False, spec, spec, mesh=mesh)
     return make_train_step(g, d, LossesConfig(use_ssim_loss=True, use_lpips_loss=True), True,
                            spec, spec, lpips_params=lpips)
 
@@ -1574,7 +1594,134 @@ def phase_literal_path(device) -> dict:
         f"{max(r[1] for r in table):.4e}, worst mass {table[0][2]:.4e} ({table[0][0]}) "
         f"(bounds {MAMBA_STEP_GRAD_TOL})")
     check_table("literal-mamba", table, MAMBA_STEP_GRAD_TOL)
+    del models, data, gk, gp
+    torch.cuda.empty_cache()  # the probe's process needs the route's 41 GB
+    # the route's backward once varied from run to run (F.pad's reflect
+    # backward summed with atomics, PERF.md §6): now two passes of each
+    # route give the same bits, and no aten op differs between two runs on
+    # the same inputs
+    res = literal_determinism_probe("literal-mamba")
+    for route in ("kernel route", "plain route"):
+        r = res[route]
+        if not (r["equal"] and r["deterministic_mode_equal"]) or r["varying_ops"] or \
+                r["nondeterministic_ops"]:
+            raise AssertionError(f"[literal-mamba] {route} is not deterministic: {r}")
     return launches
+
+
+def _grads_twice(model, data) -> tuple:
+    from pixel_heal_thyself_tpu_torch import bench_mamba
+
+    a = {k: v.clone() for k, v in bench_mamba.g_fwd_bwd(model, data).items()}
+    b = bench_mamba.g_fwd_bwd(model, data)
+    worst = max(a, key=lambda k: (a[k].float() - b[k].float()).abs().max().item())
+    return (all(torch.equal(a[k], b[k]) for k in a),
+            (a[worst].float() - b[worst].float()).abs().max().item(), worst)
+
+
+def _varying_ops(model, data) -> dict:
+    """One L1 forward + backward with every aten op that writes no input
+    run twice on the same inputs: {op: (calls whose two results differ,
+    largest difference)}. The hand kernels run outside the dispatcher."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from pixel_heal_thyself_tpu_torch import bench_mamba
+
+    varied = {}
+
+    class Twice(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            if func._schema.is_mutable or "empty" in func.__name__:
+                return out
+            again = func(*args, **kwargs)
+            pairs = [(x, y) for x, y in zip(torch.utils._pytree.tree_leaves(out),
+                                            torch.utils._pytree.tree_leaves(again))
+                     if isinstance(x, torch.Tensor) and x.is_floating_point()]
+            diff = max(((x.float() - y.float()).abs().max().item() for x, y in pairs
+                        if not torch.equal(x, y)), default=None)
+            if diff is not None:
+                n, worst = varied.get(str(func), (0, 0.0))
+                varied[str(func)] = (n + 1, max(worst, diff))
+            return out
+
+    with Twice():
+        bench_mamba.g_fwd_bwd(model, data)
+    return varied
+
+
+def literal_determinism() -> None:
+    """Phase 9's literal Mamba route (`bench_mamba`'s prod model with the
+    fused conv, batch 8 × 128², deterministic cuDNN), kernel and plain:
+    two L1 forward + backward passes compared bit for bit; the aten ops
+    whose two runs on the same inputs differ (`_varying_ops`); then two
+    passes under `torch.use_deterministic_algorithms(True, warn_only=True)`,
+    which also names each op that has no deterministic CUDA
+    implementation. Prints one `DETERMINISM {json}` line."""
+    import warnings
+
+    from pixel_heal_thyself_tpu_torch import _build, bench_mamba
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.lib()
+    device = torch.device("cuda")
+    data = bench_mamba.make_inputs(MAMBA["batch"], TRAIN["patch"], device)
+    out = {"CUBLAS_WORKSPACE_CONFIG": os.environ.get("CUBLAS_WORKSPACE_CONFIG")}
+    for kernels in (True, False):
+        model = bench_mamba.make_model(True, False, kernels, device)
+        with deterministic_cudnn():
+            equal, max_abs, worst = _grads_twice(model, data)
+            varied = _varying_ops(model, data)
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    det_equal, det_max_abs, det_worst = _grads_twice(model, data)
+                    det_varied = _varying_ops(model, data)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        ops = sorted({m.group(1) for w in caught for m in [re.search(
+            r"(\S+) does not have a deterministic implementation", str(w.message))] if m})
+        out["kernel route" if kernels else "plain route"] = {
+            "equal": equal, "max_abs": max_abs, "worst": worst, "varying_ops": varied,
+            "nondeterministic_ops": ops, "deterministic_mode_equal": det_equal,
+            "deterministic_mode_max_abs": det_max_abs, "deterministic_mode_varying_ops": det_varied}
+        del model
+        torch.cuda.empty_cache()
+    print("DETERMINISM " + json.dumps(out), flush=True)
+
+
+def literal_determinism_probe(tag: str, workspace: str | None = ":4096:8") -> dict:
+    """`literal_determinism` in a fresh interpreter, with cuBLAS's
+    deterministic workspace (CUBLAS_WORKSPACE_CONFIG=`workspace`, set for
+    that process only; None leaves it unset); logs and returns its
+    result."""
+    repo = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    env["PYTHONPATH"] = str(repo)
+    if workspace:
+        env["CUBLAS_WORKSPACE_CONFIG"] = workspace
+    proc = subprocess.run([sys.executable, "-c",
+                           "import chip_smoke; chip_smoke.literal_determinism()"],
+                          capture_output=True, text=True, cwd=repo, env=env, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"[{tag}] the determinism probe exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    line = next(x for x in proc.stdout.splitlines() if x.startswith("DETERMINISM "))
+    res = json.loads(line[len("DETERMINISM "):])
+    for route, r in res.items():
+        if not isinstance(r, dict):
+            continue
+        log(f"[{tag}] CUBLAS_WORKSPACE_CONFIG={res['CUBLAS_WORKSPACE_CONFIG']}, {route}: two L1 "
+            f"backward passes equal to the bit {r['equal']} (max_abs {r['max_abs']:.6g} at "
+            f"{r['worst']}); aten ops whose two runs differ {r['varying_ops']}; under "
+            f"torch.use_deterministic_algorithms: ops without a deterministic CUDA "
+            f"implementation {r['nondeterministic_ops']}, two passes equal "
+            f"{r['deterministic_mode_equal']} (max_abs {r['deterministic_mode_max_abs']:.6g}), "
+            f"ops whose two runs differ {r['deterministic_mode_varying_ops']}")
+    return res
 
 
 def phase_fold_qkv(device) -> dict:
@@ -2622,6 +2769,310 @@ def phase_sharded(device, frame: dict, smi: str) -> None:
     log(f"[sharded] phase 14 {time.perf_counter() - t_phase:.2f} s; {smi}")
 
 
+# phase 15: multi-GPU training on the one card. nccl refuses two ranks on
+# one GPU, so 2 gloo ranks share it (their collectives staged through host
+# memory), as in phase 14: correctness and overhead, not a speed-up. Each
+# job trains the prod generator against DiscriminatorVGG(128, 64) on the
+# global batch 8 × 128² (4 rows a rank at D = 2): DP["steps"] timed bf16
+# steps, then one step with a float32 critic under deterministic cuDNN
+# against one process (STEP_LOSS_TOL; STEP_GRAD_TOL, Mamba
+# MAMBA_STEP_GRAD_TOL). The D = 1 × M = 2 job shards Adam over the two
+# ranks: its step must equal one process to the bit.
+DP = dict(ranks=2, steps=4)
+DP_JOBS = (("afgsa", (2, 1)), ("mamba", (2, 1)), ("afgsa", (1, 2)))
+# each kernel a timed step must launch, per generator
+DP_KERNELS = {"afgsa": ("K1", "K2", "K3", "K4", "K5", "K6"), "mamba": ("K7e", "K8")}
+# the CLI: phase 11's cuts (4 synthetic 512² scenes) and 16 patches an
+# image (prod 400: 3 steps an epoch, a short replicated validation), 1
+# epoch, then a resume for a second
+DP_CLI_ARGS = ["-cn", TRAINER_CONFIG, "parallel.multihost=true", "parallel.data_axis=2",
+               "data.images.synthesize=true", "data.images.synthetic_size=512",
+               "data.patches.num_patches=16", "--device", "cuda"]
+
+
+def _prod_net(name: str):
+    from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet, afgsa_prod_kwargs
+    from pixel_heal_thyself_tpu_torch.models.mamba import MambaDenoiserNet, mamba_prod_kwargs
+
+    return {"afgsa": (AFGSANet, afgsa_prod_kwargs()),
+            "mamba": (MambaDenoiserNet, mamba_prod_kwargs())}[name]
+
+
+def _rows(data: dict, mesh) -> dict:
+    """This rank's `host_batch_bounds` rows of a global batch."""
+    from pixel_heal_thyself_tpu_torch.parallel.distributed import host_batch_bounds
+
+    lo, hi = host_batch_bounds(next(iter(data.values())).shape[0], mesh.data_index, mesh.data)
+    return {k: v[lo:hi] for k, v in data.items()}
+
+
+def compare_step(device, name: str, alpha, mesh=None) -> dict:
+    """Phase 15's comparison step: the seeded prod state with a float32
+    critic (over `mesh`'s data group; the global batch's rows of this rank),
+    under deterministic cuDNN: metrics, G gradients and G parameters after
+    the step (on the host)."""
+    net, kwargs = _prod_net(name)
+    patch, batch = TRAIN["patch"], TRAIN["batch"]
+    with deterministic_cudnn():
+        g, d, data = _train_state(device, torch.float32, kwargs, patch, batch, seed=3, net=net,
+                                  data_group=None if mesh is None else mesh.data_group)
+        step = make_step(g, d, mesh=mesh)
+        metrics = {k: v.item() for k, v in step(data if mesh is None else _rows(data, mesh),
+                                                alpha=alpha).items()}
+    return {"metrics": metrics,
+            "grads": {n: p.grad.detach().float().cpu() for n, p in g.named_parameters()
+                      if p.grad is not None},
+            "params": {n: p.detach().float().cpu() for n, p in g.named_parameters()}}
+
+
+def dp_rank(tmp: str, device_type: str, alpha) -> None:
+    """One rank of phase 15's gloo world (`spawn_world`): each of DP_JOBS
+    over its grid: the timed bf16 steps (each step's seconds, its seconds
+    in the step's collectives, the launches and bodies of all of them,
+    peak memory), then `compare_step`. Saves to `tmp/dp_rank<r>.pt`."""
+    import torch.distributed as dist
+
+    from pixel_heal_thyself_tpu_torch import _build
+    from pixel_heal_thyself_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.lib()  # the parent's build
+    device = (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
+              else torch.device(device_type))
+    patch, batch = TRAIN["patch"], TRAIN["batch"]
+    res = {"backend": dist.get_backend(), "device": str(device)}
+    for name, grid in DP_JOBS:
+        mesh = make_mesh(*grid)
+        net, kwargs = _prod_net(name)
+        g, d, data = _train_state(device, torch.bfloat16, kwargs, patch, batch, seed=0, net=net,
+                                  data_group=mesh.data_group)
+        step = make_step(g, d, mesh=mesh)
+        local = _rows(data, mesh)
+        gen = torch.Generator(device=device).manual_seed(7)
+        rec = {"secs": [], "comm": [], "losses": []}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        for _ in range(DP["steps"]):
+            t0, c0 = time.perf_counter(), step.comm_seconds
+            metrics = step(local, generator=gen)
+            rec["losses"].append({k: v.item() for k, v in metrics.items()})  # syncs
+            rec["secs"].append(time.perf_counter() - t0)
+            rec["comm"].append(step.comm_seconds - c0)
+        rec["launches"] = read_counts()
+        rec["bodies"] = {k: dict(fn.body_launches) for k, fn in counters().items()
+                         if hasattr(fn, "body_launches")}
+        rec["peak"] = torch.cuda.max_memory_allocated()
+        rec["kept"] = {part: sum(p.numel() for grp in opt.param_groups for p in grp["params"])
+                       for part, opt in (("g", step.g_opt), ("d", step.d_opt))}
+        del g, d, data, step, local
+        torch.cuda.empty_cache()
+        rec.update(compare_step(device, name, alpha, mesh))
+        res[f"{name}/{grid[0]}x{grid[1]}"] = rec
+    torch.save(res, Path(tmp, f"dp_rank{dist.get_rank()}.pt"))
+
+
+def dp_nccl_rank(tmp: str, alpha) -> None:
+    """Phase 15's nccl rank (a world of 1): after a warm-up step, the
+    comparison step with no grid, over the grid the trainer builds (1 × 1),
+    then over a data group of this one rank, whose collectives run on nccl
+    with CUDA tensors."""
+    import torch.distributed as dist
+
+    from pixel_heal_thyself_tpu_torch import _build
+    from pixel_heal_thyself_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.lib()
+    device = torch.device("cuda", torch.cuda.current_device())
+    res = {"backend": dist.get_backend(), "grid": make_mesh(-1, 1, TRAIN["batch"])}
+    # the first step of a process (cold library handles) need not take the
+    # algorithms of the later ones: compare warm steps, as the gloo ranks do
+    compare_step(device, "afgsa", alpha)
+    res["none"] = compare_step(device, "afgsa", alpha)
+    res["world1"] = compare_step(device, "afgsa", alpha, res["grid"])
+    res["group1"] = compare_step(device, "afgsa", alpha, Mesh(data_group=dist.group.WORLD))
+    torch.save(res, Path(tmp, "dp_nccl.pt"))
+
+
+def _same(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def check_dp_comparison(tag: str, got: dict, ref: dict, grad_tol: tuple) -> None:
+    """A phase 15 comparison step against one process's: the losses within
+    STEP_LOSS_TOL, the G gradients within `grad_tol` (rms, mass)."""
+    for key in ("d_loss", "g_loss"):
+        want = ref["metrics"][key]
+        if abs(got["metrics"][key] - want) > STEP_LOSS_TOL * max(1.0, abs(want)):
+            raise AssertionError(f"[{tag}] {key}: {got['metrics'][key]} vs one process {want}")
+    table = grad_table(got["grads"], ref["grads"])
+    check_table(tag, table, grad_tol)
+    log(f"[{tag}] one step (float32 critic, deterministic cuDNN) vs one process: d_loss "
+        f"{got['metrics']['d_loss']:.6g} vs {ref['metrics']['d_loss']:.6g}, g_loss "
+        f"{got['metrics']['g_loss']:.6g} vs {ref['metrics']['g_loss']:.6g}; G gradients worst "
+        f"rms_rel {max(r[1] for r in table):.4e}, worst mass {table[0][2]:.4e} ({table[0][0]}) "
+        f"(bounds {grad_tol}); equal to the bit: {_same(got['grads'], ref['grads'])}")
+
+
+def check_dp_timed(tag: str, recs: list, key: str, name: str) -> None:
+    """Every rank's timed steps: finite global losses equal on every rank,
+    each kernel of the generator launched for every block of every step on
+    its prod body; prints s/step, collective seconds, peak memory and
+    launches per rank."""
+    layers = 5
+    need = layers * DP["steps"]
+    for r, rec in enumerate(recs):
+        job = rec[key]
+        if job["losses"] != recs[0][key]["losses"]:
+            raise AssertionError(f"[{tag}] rank {r}: losses {job['losses']} differ from rank 0's")
+        if not all(math.isfinite(v) for m in job["losses"] for v in m.values()):
+            raise AssertionError(f"[{tag}] rank {r}: non-finite losses {job['losses']}")
+        for k in DP_KERNELS[name]:
+            bodies = job["bodies"][k]
+            if job["launches"][k] < need or bodies["general"] or bodies[PROD_BODIES[k]] != \
+                    job["launches"][k]:
+                raise AssertionError(f"[{tag}] rank {r}: {k} launched {job['launches'][k]} "
+                                     f"(need ≥ {need}), bodies {bodies}")
+        steady = job["secs"][1:]
+        log(f"[{tag}] rank {r} ({rec['device']}, {rec['backend']}): s/step "
+            f"{[round(x, 4) for x in job['secs']]} (first includes warm-up; steady mean "
+            f"{np.mean(steady):.4f}), gradient/parameter collectives s/step "
+            f"{[round(x, 4) for x in job['comm']]}, peak memory {job['peak']} B "
+            f"({job['peak'] / 2**30:.3f} GiB), parameters its Adams update G {job['kept']['g']} "
+            f"D {job['kept']['d']}, launches {job['launches']}")
+    log(f"[{tag}] losses (global, equal on every rank) step 0 {recs[0][key]['losses'][0]}")
+
+
+def run_dp_cli(tmp: str, extra: list, tag: str) -> tuple:
+    """`torch.distributed.run --nproc-per-node 2 -m ...train` with
+    DP_CLI_ARGS + `extra` in `tmp`: (seconds, output)."""
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={DP['ranks']}", "-m", "pixel_heal_thyself_tpu_torch.train",
+         *DP_CLI_ARGS, *extra],
+        capture_output=True, text=True, cwd=tmp, env=env, timeout=600,
+    )
+    secs = time.perf_counter() - t0
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise AssertionError(f"[{tag}] torch.distributed.run exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    for line in out.splitlines():
+        if any(k in line for k in ("[dist]", "Mesh:", "summary:", "Resumed", "in total",
+                                   "kernel launches")):
+            log(f"[{tag}] {line.split('] ', 2)[-1]}")
+    launches = re.findall(r"kernel launches: (.*);", out)
+    want = ("block_halo_attention_cuda", "pointwise_gemm_cuda", "conv3x3_cuda",
+            "block_halo_attention_bwd_cuda", "conv3x3_dgrad_cuda", "weight_grad_cuda")
+    if len(launches) != DP["ranks"] or not all(k in line for line in launches for k in want):
+        raise AssertionError(f"[{tag}] each rank's epoch must launch K1–K6: {launches}")
+    return secs, out
+
+
+def phase_dp_training(device, smi: str) -> None:
+    """Phase 15 (DP's comment): the 2-rank gloo world over DP_JOBS, one
+    nccl rank, then the training CLI under `torch.distributed.run` and its
+    resume. Any rank's failure fails it."""
+    from pixel_heal_thyself_tpu_torch.parallel.distributed import spawn_world
+
+    t_phase = time.perf_counter()
+    alpha = torch.rand((TRAIN["batch"], 1, 1, 1), generator=torch.Generator().manual_seed(5))
+    # a warm-up step first: a process's first step need not take the
+    # library algorithms of its later ones (dp_nccl_rank)
+    compare_step(device, "afgsa", alpha.to(device))
+    refs = {name: compare_step(device, name, alpha.to(device)) for name in ("afgsa", "mamba")}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn_world(dp_rank, DP["ranks"], f"file://{tmp}/init_gloo", device.type,
+                    args=(tmp, device.type, alpha))
+        secs = time.perf_counter() - t0
+        recs = [torch.load(Path(tmp, f"dp_rank{r}.pt"), weights_only=False)
+                for r in range(DP["ranks"])]
+        for name, grid in DP_JOBS:
+            key = f"{name}/{grid[0]}x{grid[1]}"
+            tag = f"dp-{name}-{grid[0]}x{grid[1]}"
+            if any(rec["backend"] != "gloo" for rec in recs):
+                raise AssertionError(f"[{tag}] backends {[rec['backend'] for rec in recs]}")
+            check_dp_timed(tag, recs, key, name)
+            for r, rec in enumerate(recs):
+                got, ref = rec[key], refs[name]
+                if grid[1] == 1:
+                    tol = MAMBA_STEP_GRAD_TOL if name == "mamba" else STEP_GRAD_TOL
+                    check_dp_comparison(f"{tag} rank {r}", got, ref, tol)
+                    continue
+                if not (got["metrics"] == ref["metrics"] and _same(got["grads"], ref["grads"])
+                        and _same(got["params"], ref["params"])):
+                    dev = deviation(list(got["params"].values()), list(ref["params"].values()))
+                    raise AssertionError(f"[{tag}] rank {r}: the step differs from one "
+                                         f"process's: parameters after it {dev}")
+                log(f"[{tag}] rank {r}: losses, G gradients and G parameters after the step "
+                    f"(Adam on this rank's shards, then the all-gather) equal to one process's "
+                    f"to the bit")
+        log(f"[dp] {DP['ranks']}-rank gloo world: {secs:.2f} s in all (spawn, process group, "
+            f"3 jobs); {smi}")
+
+        t0 = time.perf_counter()
+        spawn_world(dp_nccl_rank, 1, f"file://{tmp}/init_nccl", "cuda", args=(tmp, alpha))
+        rec = torch.load(Path(tmp, "dp_nccl.pt"), weights_only=False)
+        if rec["backend"] != "nccl":
+            raise AssertionError(f"[dp-nccl] backend {rec['backend']}")
+        got, none = rec["world1"], rec["none"]
+        if not (got["metrics"] == none["metrics"] and _same(got["grads"], none["grads"])
+                and _same(got["params"], none["params"])):
+            dev = deviation(list(got["grads"].values()), list(none["grads"].values()))
+            raise AssertionError(f"[dp-nccl] the step over the world-size-1 grid differs from "
+                                 f"the step with no grid: G gradients {dev}")
+        log(f"[dp-nccl] 1 rank on nccl, grid {rec['grid'].data}x{rec['grid'].model}: the step "
+            "(losses, G gradients, G parameters) equals the same process's step with no grid "
+            "to the bit")
+        check_dp_comparison("dp-nccl rank vs this process", none, refs["afgsa"], STEP_GRAD_TOL)
+        check_dp_comparison("dp-nccl data group of 1 rank", rec["group1"], none, STEP_GRAD_TOL)
+        log(f"[dp-nccl] {time.perf_counter() - t0:.2f} s in all; {smi}")
+
+        dp_cli(tmp)
+    torch.cuda.empty_cache()
+    log(f"[dp] phase 15 {time.perf_counter() - t_phase:.2f} s; {smi}")
+
+
+def dp_cli(tmp: str) -> None:
+    """Phase 15's CLI leg in `tmp`: one epoch over 2 ranks, then a resume
+    for a second; only rank 0 makes run directories."""
+    runs = Path(tmp, "outputs", "runs")
+    secs, out = run_dp_cli(tmp, ["trainer.epochs=1", "run_num=0"], "dp-cli")
+    run0 = next(runs.glob("*/run000"))
+    checks = {"backends": sorted(set(re.findall(r"backend (\w+)", out))),
+              "mesh": "Mesh: 2 data x 1 model over 2 ranks" in out,
+              "files": sorted(p.name for p in run0.iterdir()),
+              "loss": (run0 / "train_loss.txt").read_text().splitlines(),
+              "eval": (run0 / "evaluation.txt").read_text().splitlines()}
+    if (checks["backends"] != ["gloo"] or not checks["mesh"] or len(checks["loss"]) != 1
+            or len(checks["eval"]) != 1 or "model_epoch1" not in checks["files"]):
+        raise AssertionError(f"[dp-cli] {checks}")
+    values = [float(v) for v in re.findall(r"-?\d+\.\d+", checks["loss"][0] + checks["eval"][0])]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"[dp-cli] non-finite {checks}")
+    log(f"[dp-cli] 2 ranks, 1 epoch: {secs:.2f} s in all (launcher, processes, store, "
+        f"epoch, replicated validation); {checks['loss'][0]!r}; {checks['eval'][0]!r}")
+    ckpt = run0 / "model_epoch1" / "state"
+    secs, out = run_dp_cli(tmp, ["trainer.epochs=2", "run_num=1", "trainer.load_model=true",
+                                 f"trainer.model_path={ckpt}"], "dp-cli-resume")
+    run1 = next(runs.glob("*/run001"))
+    lines = (run1 / "train_loss.txt").read_text().splitlines()
+    if len(re.findall(r"Resumed from .* at epoch 1", out)) != DP["ranks"] or not (
+            len(lines) == 1 and lines[0].startswith("Epoch: 2")):
+        raise AssertionError(f"[dp-cli-resume] {lines}")
+    if sorted(p.name for p in runs.glob("*/*")) != ["run000", "run001"]:
+        raise AssertionError(f"[dp-cli] run dirs {sorted(p.name for p in runs.glob('*/*'))}")
+    log(f"[dp-cli-resume] both ranks resumed at epoch 2 in {secs:.2f} s: {lines[0]!r}; "
+        "only rank 0 made run directories")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -2661,6 +3112,7 @@ def main() -> None:
     phase_gan_trainer(smi)
     phase_export(device, frames, smi)
     phase_sharded(device, frames[0], smi)
+    phase_dp_training(device, smi)
     # each kernel's count from the path it was ported for
     path = {"K1": serving, "K2": serving, "K3": serving, "K4": training, "K5": training,
             "K6": training, "K7": mamba, "K7e": mamba_training, "K8": mamba_training,

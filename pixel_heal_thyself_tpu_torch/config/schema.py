@@ -141,8 +141,10 @@ class ParallelConfig:
     the reference is strictly single-GPU, SURVEY.md §2.10).
     """
 
-    data_axis: int = -1  # -1: use all available devices for data parallelism
-    model_axis: int = 1  # tensor-parallel degree (heads/channels)
+    # ranks of the D × M grid (parallel/mesh.py); -1: as many ranks as the
+    # global batch divides by and the world holds
+    data_axis: int = -1
+    model_axis: int = 1  # tensor-parallel degree (output channels of each kernel)
     spatial_axis: int = 1  # spatial sharding for full-frame inference
     # join the process group of a launcher (`python -m torch.distributed.run`:
     # RANK/WORLD_SIZE, init_method env://), parallel/distributed.py

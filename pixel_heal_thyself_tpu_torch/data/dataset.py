@@ -13,7 +13,10 @@ loading of {noisy, gt, aux} HWC float patches):
   epoch order), as pinned host tensors when the device is a card, and
   copies each to the device with `non_blocking=True`.
 - `DeviceLoader` keeps the whole store on the device as float32 tensors
-  and gathers each batch there with one `index_select` per key.
+  and gathers each batch there with one `index_select` per key. It is for
+  one process: under data parallelism each rank reads its `host_bounds`
+  rows of every global batch through `PrefetchLoader`, from the one epoch
+  order that every rank draws alike.
 
 Both loaders draw the epoch order from `default_rng(seed + epoch)`, the
 epoch counting from 0 in each process, as the JAX loaders do: for one seed
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from pixel_heal_thyself_tpu_torch.logger import logger
+from pixel_heal_thyself_tpu_torch.parallel.distributed import process_count, put_global
 
 
 class PatchDataset:
@@ -90,6 +94,7 @@ class PrefetchLoader:
         prefetch: int = 2,
         device: torch.device | str = "cuda",
         workers: int = 1,
+        host_bounds: tuple[int, int] | None = None,
     ) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
@@ -99,6 +104,9 @@ class PrefetchLoader:
         self.prefetch = max(1, prefetch)
         self.device = torch.device(device)
         self.workers = max(1, workers)
+        # data parallelism: the [lo, hi) rows of each global batch this
+        # rank reads and feeds (`parallel.distributed.host_batch_bounds`)
+        self.host_bounds = host_bounds
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -116,7 +124,10 @@ class PrefetchLoader:
         return np.random.default_rng(self.seed + self._epoch).permutation(n)
 
     def _batch_indices(self, indices: np.ndarray, b: int) -> np.ndarray:
-        return indices[b * self.batch_size : (b + 1) * self.batch_size]
+        idx = indices[b * self.batch_size : (b + 1) * self.batch_size]
+        if self.host_bounds is not None:
+            idx = idx[self.host_bounds[0] : self.host_bounds[1]]
+        return idx
 
     def _host(self, batch: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         """A host batch as tensors, pinned when they go to a card."""
@@ -154,7 +165,7 @@ class PrefetchLoader:
                 item = queues[b % self.workers].get()
                 if isinstance(item, Exception):
                     raise item
-                yield {k: v.to(self.device, non_blocking=True) for k, v in item.items()}
+                yield put_global(item, self.device)
         finally:
             stop.set()
             for qd in queues:  # unblock any producer waiting on a full queue
@@ -181,6 +192,9 @@ class DeviceLoader(PrefetchLoader):
     ) -> None:
         super().__init__(dataset, batch_size, shuffle=shuffle, seed=seed,
                          drop_last=drop_last, device=device)
+        if process_count() > 1:
+            raise ValueError("DeviceLoader is for one process; ranks of a process group read "
+                             "disjoint host_bounds rows and need PrefetchLoader")
         t0 = time.monotonic()
         self._store = {k: torch.from_numpy(v).to(self.device)
                        for k, v in dataset.arrays().items()}

@@ -448,7 +448,10 @@ def run_inference(
             row_axis,
         )
 
-        axis = row_axis(model_axis=cfg.parallel.model_axis)
+        # every rank is a strip of rows whatever parallel.model_axis says:
+        # tensor parallelism is a training layout, and the JAX package's
+        # sharded serving builds its mesh with model_axis=1 as well
+        axis = row_axis()
         model = load_generator(cfg, device)
         if cfg.model.name == "mamba":
             # the global raster scan's receptive field is unbounded, so no

@@ -11,6 +11,12 @@ per-sample L2 norm in float32; mean((‖g‖ − 1)²)) and
 critic's lists of patch logits), `ssim_loss` (kornia's mixed MS-SSIM +
 Gaussian-L1 on inputs divided by the target's per-pixel channel max,
 clamped ≥ 1), `tone_mapping_loss` and the `bce_*` extras.
+
+Under data-parallel training (a `group`, `parallel.data`) the GP and the
+RaHinge loss return this rank's share of the global batch's loss (the
+ranks' shares sum to it): the GP draws its interpolation weights for the
+whole global batch and takes this rank's rows, RaHinge's mean logits run
+over every rank's rows.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from pixel_heal_thyself_tpu_torch.ops.msssim import ms_ssim_mix_loss
+from pixel_heal_thyself_tpu_torch.parallel.data import batch_mean, group_rank, group_size, share
 
 
 def l1_loss(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -48,13 +55,17 @@ def gan_loss(pred: torch.Tensor, target_is_real: bool, loss_type: str = "wgan",
     raise NotImplementedError(f"GAN type {loss_type} is not found!")
 
 
-def _interp_alpha(real_data, alpha, generator) -> torch.Tensor:
-    """[B, 1, …] float32 interpolation weights: `alpha`, or drawn uniform
-    from `generator` on the data's device when None."""
-    shape = (real_data.shape[0],) + (1,) * (real_data.dim() - 1)
+def _interp_alpha(real_data, alpha, generator, group=None) -> torch.Tensor:
+    """[B, 1, …] float32 interpolation weights of this rank's B rows: its
+    rows of `alpha`, the global batch's weights, or of one draw for the
+    global batch, uniform from `generator` on the data's device, when
+    None. Every rank holds the same generator, so the draws agree."""
+    b = real_data.shape[0]
+    shape = (b * group_size(group),) + (1,) * (real_data.dim() - 1)
     if alpha is None:
         alpha = torch.rand(shape, generator=generator, device=real_data.device)
-    return alpha.to(device=real_data.device, dtype=torch.float32).reshape(shape)
+    alpha = alpha.to(device=real_data.device, dtype=torch.float32).reshape(shape)
+    return alpha if group is None else alpha[group_rank(group) * b:(group_rank(group) + 1) * b]
 
 
 def _critic_input_grad(d_apply, interp: torch.Tensor) -> torch.Tensor:
@@ -71,13 +82,15 @@ def gradient_penalty(
     fake_data: torch.Tensor,
     alpha: torch.Tensor | None = None,
     generator: torch.Generator | None = None,
+    group=None,
 ) -> torch.Tensor:
     """WGAN-GP. `alpha` [B, 1, 1, 1] float32 interpolation weights, or drawn
-    uniform from `generator` on the data's device when None."""
-    alpha = _interp_alpha(real_data, alpha, generator)
+    uniform from `generator` on the data's device when None (with a
+    data `group`: the global batch's, and the rank's share comes back)."""
+    alpha = _interp_alpha(real_data, alpha, generator, group)
     interp = alpha * fake_data.detach() + (1 - alpha) * real_data
     norm = _critic_input_grad(d_apply, interp).float().norm(dim=1)
-    return torch.mean((norm - 1.0) ** 2)
+    return share(torch.mean((norm - 1.0) ** 2), group)
 
 
 def wdiv_gradient_penalty(
@@ -98,18 +111,19 @@ def wdiv_gradient_penalty(
 
 
 def ra_hinge_gan_loss(real_preds: Sequence[torch.Tensor],
-                      fake_preds: Sequence[torch.Tensor]) -> torch.Tensor:
+                      fake_preds: Sequence[torch.Tensor], group=None) -> torch.Tensor:
     """Relativistic-average hinge over lists of NHWC patch logits; the
     means run over N, H and W, per channel (reference: dims [0, 2, 3] of
-    its NCHW maps)."""
+    its NCHW maps), N over every rank of a data `group`, whose rank gets
+    its share of the loss back."""
     loss = 0.0
     for pr, pf in zip(real_preds, fake_preds):
         pr, pf = pr.float(), pf.float()
-        real_mean = pr.mean(dim=(0, 1, 2), keepdim=True)
-        fake_mean = pf.mean(dim=(0, 1, 2), keepdim=True)
+        real_mean = batch_mean(pr, group)
+        fake_mean = batch_mean(pf, group)
         loss = loss + F.relu(1.0 - (pr - fake_mean)).mean()
         loss = loss + F.relu(1.0 + (pf - real_mean)).mean()
-    return loss * 0.5
+    return share(loss * 0.5, group)
 
 
 def ssim_loss(x: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

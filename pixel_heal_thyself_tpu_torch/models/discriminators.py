@@ -8,7 +8,9 @@ Port of `pixel_heal_thyself_tpu/models/discriminators.py`:
 - `DiscriminatorVGG128` (reference `model.py:128-261`), the fixed-128
   VGG-D classifier;
 - `PatchGANDiscriminator` (reference `pht/models/mamba/model.py:241-293`),
-  a BatchNorm 70×70 PatchGAN;
+  a BatchNorm 70×70 PatchGAN (the three BatchNorm critics take the
+  `data_group` of data-parallel training for their batch statistics,
+  `models.layers.BatchNorm2d`);
 - `SNConv`, `PatchDiscriminator` and `MultiScaleDiscriminator` (reference
   `pht/models/afgsa/discriminators.py:8-63`): spectral-norm PatchGANs over
   x, x/2 and x/4, returning a list of three NHWC float32 logit maps.
@@ -21,7 +23,10 @@ Spectral norm keeps its power-iteration vector `u` as a registered
 buffer (it lands in `state_dict` and in checkpoints) and writes it only
 inside `spectral_norm_update(module)`, as the JAX `SNConv` writes its
 `spectral` collection only when the caller makes it mutable: the train
-step writes it in the D step's fake forward alone.
+step writes it in the D step's fake forward alone. Under data-parallel
+training every rank's `u` starts equal (one seeded draw) and stays equal:
+a power iteration reads only `u` and the weights, which the gradient
+reduction keeps equal.
 """
 
 from __future__ import annotations
@@ -74,7 +79,7 @@ class DiscriminatorVGG(nn.Module):
         self, in_nc: int = 3, base_nf: int = 64, input_size: int = 128,
         norm_type: str = "batch", act_type: str = "leakyrelu",
         dtype: torch.dtype = torch.float32, device=None,
-        generator: torch.Generator | None = None,
+        generator: torch.Generator | None = None, data_group=None,
     ) -> None:
         super().__init__()
         self.dtype = dtype
@@ -86,10 +91,11 @@ class DiscriminatorVGG(nn.Module):
         for i in range(num_downsample):
             next_nf = min(base_nf * 2 ** (i + 1), base_nf * 8)
             blocks.append(ConvBlock(nf, next_nf, 3, stride=1, padding=1, norm_type=norm_type,
-                                    act_type=act_type, dtype=dtype, generator=g))
+                                    act_type=act_type, dtype=dtype, generator=g,
+                                    data_group=data_group))
             blocks.append(ConvBlock(next_nf, next_nf, 4, stride=2, padding=1,
                                     norm_type=norm_type, act_type=act_type, dtype=dtype,
-                                    generator=g))
+                                    generator=g, data_group=data_group))
             nf = next_nf
         self.blocks = nn.ModuleList(blocks)
         side = input_size // 2 ** num_downsample
@@ -113,7 +119,7 @@ class DiscriminatorVGG128(nn.Module):
     def __init__(
         self, in_nc: int = 3, base_nf: int = 64, norm_type: str = "batch",
         act_type: str = "leakyrelu", dtype: torch.dtype = torch.float32, device=None,
-        generator: torch.Generator | None = None,
+        generator: torch.Generator | None = None, data_group=None,
     ) -> None:
         super().__init__()
         self.dtype = dtype
@@ -128,7 +134,7 @@ class DiscriminatorVGG128(nn.Module):
             k, stride = (4, 2) if i % 2 == 0 else (3, 1)
             blocks.append(ConvBlock(nf, next_nf, k, stride=stride, padding=1,
                                     norm_type=norm_type, act_type=act_type, dtype=dtype,
-                                    generator=g))
+                                    generator=g, data_group=data_group))
             nf = next_nf
         self.blocks = nn.ModuleList(blocks)
         # five stride-2 convs take the 128² input to 4²
@@ -150,7 +156,8 @@ class PatchGANDiscriminator(nn.Module):
     unnormed 1-channel 4×4 s1 head; NHWC float32 logit map out."""
 
     def __init__(self, in_nc: int = 3, base_nf: int = 64, dtype: torch.dtype = torch.float32,
-                 device=None, generator: torch.Generator | None = None) -> None:
+                 device=None, generator: torch.Generator | None = None,
+                 data_group=None) -> None:
         super().__init__()
         self.dtype = dtype
         conv = dict(padding=1, dtype=dtype, generator=generator)
@@ -158,7 +165,7 @@ class PatchGANDiscriminator(nn.Module):
         nf = base_nf
         for next_nf, stride in ((base_nf * 2, 2), (base_nf * 4, 2), (base_nf * 8, 1)):
             blocks.append(ConvBlock(nf, next_nf, 4, stride=stride, norm_type="batch",
-                                    act_type="leakyrelu", **conv))
+                                    act_type="leakyrelu", data_group=data_group, **conv))
             nf = next_nf
         blocks.append(ConvBlock(nf, 1, 4, act_type=None, **conv))
         self.blocks = nn.ModuleList(blocks)

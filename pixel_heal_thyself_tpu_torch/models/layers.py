@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pixel_heal_thyself_tpu_torch.ops.padding import pad2d
+from pixel_heal_thyself_tpu_torch.parallel.data import global_sum, group_size
 from pixel_heal_thyself_tpu_torch.utils.init import (
     torch_default_bias_init_,
     torch_default_kernel_init_,
@@ -77,19 +78,30 @@ class Conv(nn.Module):
 class BatchNorm2d(nn.Module):
     """Batch-statistics normalization with affine params (torch train
     mode): f32 mean and biased variance over N, H, W; `scale`/`bias` as
-    the flax names."""
+    the flax names. With a data group (`data_group`, data-parallel
+    training) the statistics run over the global batch, every rank's rows,
+    as GSPMD computes them: the f32 sums of x, then of (x − mean)², summed
+    over the ranks (`parallel.data.global_sum`, twice differentiable for
+    the WGAN-GP double backward). It keeps no running statistics."""
 
-    def __init__(self, ch: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32) -> None:
+    def __init__(self, ch: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32,
+                 data_group=None) -> None:
         super().__init__()
         self.eps = eps
         self.dtype = dtype
+        self.data_group = data_group
         self.scale = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        mean = xf.mean(dim=(0, 1, 2))
-        var = xf.var(dim=(0, 1, 2), unbiased=False)
+        if self.data_group is None:
+            mean = xf.mean(dim=(0, 1, 2))
+            var = xf.var(dim=(0, 1, 2), unbiased=False)
+        else:
+            n = xf.shape[0] * xf.shape[1] * xf.shape[2] * group_size(self.data_group)
+            mean = global_sum(xf.sum(dim=(0, 1, 2)), self.data_group) / n
+            var = global_sum((xf - mean).square().sum(dim=(0, 1, 2)), self.data_group) / n
         y = (xf - mean) / torch.sqrt(var + self.eps)
         return (y * self.scale + self.bias).to(self.dtype)
 
@@ -132,6 +144,7 @@ class ConvBlock(nn.Module):
         padding: int = 0, padding_mode: str = "zeros", norm_type: str | None = None,
         act_type: str | None = "relu", use_bias: bool = True,
         dtype: torch.dtype = torch.float32, generator: torch.Generator | None = None,
+        data_group=None,
     ) -> None:
         super().__init__()
         self.padding = padding
@@ -145,7 +158,7 @@ class ConvBlock(nn.Module):
         if norm_type:
             nt = norm_type.lower()
             if nt == "batch":
-                self.norm = BatchNorm2d(features, dtype=dtype)
+                self.norm = BatchNorm2d(features, dtype=dtype, data_group=data_group)
             elif nt == "instance":
                 self.norm = InstanceNorm2d(dtype=dtype)
             else:

@@ -26,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pixel_heal_thyself_tpu_torch.parallel.data import global_max
+
 # torchvision VGG16 conv layer indices and channels
 _VGG16_CONVS = [
     (0, 64), (2, 64),
@@ -107,12 +109,13 @@ def lpips_distance(params: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tens
     return total
 
 
-def to_lpips_range(x_log: torch.Tensor) -> torch.Tensor:
+def to_lpips_range(x_log: torch.Tensor, group=None) -> torch.Tensor:
     """Log-radiance → [-1, 1] (reference `base_trainer.py:441-444`),
-    normalised by the max over the whole batch. The clip is jnp.clip's
-    max-then-min, whose gradient halves at a bound (an output pixel of
-    exactly 0), where `torch.clamp` would pass it whole."""
+    normalised by the max over the whole batch: over every rank's rows
+    with a data `group` (`parallel.data.global_max`). The clip is
+    jnp.clip's max-then-min, whose gradient halves at a bound (an output
+    pixel of exactly 0), where `torch.clamp` would pass it whole."""
     x_lin = torch.expm1(x_log)
     zero, one = x_lin.new_zeros(()), x_lin.new_ones(())
-    x_rgb = torch.minimum(torch.maximum(x_lin / (x_lin.max() + 1e-6), zero), one)
+    x_rgb = torch.minimum(torch.maximum(x_lin / (global_max(x_lin, group) + 1e-6), zero), one)
     return x_rgb * 2.0 - 1.0

@@ -22,8 +22,34 @@ def _torch_mode(mode: str) -> str:
     return tmode
 
 
+def _edges(x: torch.Tensor, dim: int, lo: int, hi: int, tmode: str) -> torch.Tensor:
+    """`x` padded along `dim` by `lo` and `hi` with copies of its own
+    rows: mirrored without the edge (reflect) or the edge repeated."""
+    if not (lo or hi):
+        return x
+    n = x.shape[dim]
+    if tmode == "reflect":
+        parts = [x.narrow(dim, 1, lo).flip(dim), x, x.narrow(dim, n - 1 - hi, hi).flip(dim)]
+    else:
+        def edge(i: int, k: int) -> torch.Tensor:
+            shape = list(x.shape)
+            shape[dim] = k
+            return x.narrow(dim, i, 1).expand(shape)
+
+        parts = [edge(0, lo), x, edge(n - 1, hi)]
+    return torch.cat(parts, dim)
+
+
 def _pad(x: torch.Tensor, widths: tuple, tmode: str) -> torch.Tensor:
-    """F.pad of an NHWC tensor by (w_lo, w_hi, h_lo, h_hi)."""
+    """F.pad of an NHWC tensor by (w_lo, w_hi, h_lo, h_hi). Where a
+    gradient flows back through reflect or replicate padding, the same
+    values come from slices and concatenations instead: F.pad's CUDA
+    backward for those modes sums the border into the input with atomics,
+    in an order that changes from run to run, and autograd sums the
+    copies' gradients in one fixed order."""
+    if tmode != "constant" and torch.is_grad_enabled() and x.requires_grad:
+        w_lo, w_hi, h_lo, h_hi = widths
+        return _edges(_edges(x, 2, w_lo, w_hi, tmode), 1, h_lo, h_hi, tmode)
     # F.pad pads trailing dims; NHWC → NCHW so it pads H and W
     return F.pad(x.permute(0, 3, 1, 2), widths, mode=tmode).permute(0, 2, 3, 1)
 

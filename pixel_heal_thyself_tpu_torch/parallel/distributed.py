@@ -1,8 +1,9 @@
-"""Process groups of `torch.distributed` and the collectives of sharded serving.
+"""Process groups of `torch.distributed`, per-rank feeds and the collectives.
 
-Port of `pixel_heal_thyself_tpu/parallel/distributed.py` (the serving
-part; `host_batch_bounds` and `put_global` come with multi-GPU training).
-One process per rank; each rank computes on its own device.
+Port of `pixel_heal_thyself_tpu/parallel/distributed.py`. One process per
+rank; each rank computes on its own device. `host_batch_bounds` gives a
+rank its contiguous rows of every global batch and `put_global` places
+them; `barrier` is JAX's `sync_global_devices`.
 
 Bootstrap (any one of):
 - explicit: ``PHT_COORDINATOR=host:port``, ``PHT_NUM_PROCESSES=N``,
@@ -23,8 +24,10 @@ through host memory and back; every computation stays on the rank's
 device.
 
 `neighbour_exchange` (JAX's forward and backward `lax.ppermute`) and
-`all_gather` are the two collectives the sharded paths need; callers
-reach them through `parallel.mesh.RowAxis`.
+`all_gather` are the collectives of sharded serving (callers reach them
+through `parallel.mesh.RowAxis`); `all_reduce`, `broadcast` and
+`all_gather` those of training (`parallel.data`,
+`parallel.mesh.ParamShards`).
 """
 
 from __future__ import annotations
@@ -131,6 +134,41 @@ def is_main_process() -> bool:
     return process_index() == 0
 
 
+def host_batch_bounds(global_batch: int, index: int | None = None,
+                      count: int | None = None) -> tuple[int, int]:
+    """[lo, hi) rows of every global batch that this rank feeds: the
+    `index`-th of `count` contiguous equal slices, by default this process
+    among all of them (JAX's process-major layout). Under a D × M grid the
+    trainer passes the rank's data index and D: the M ranks of one data
+    index feed the same rows. Raises when the batch does not divide."""
+    index = process_index() if index is None else index
+    count = process_count() if count is None else count
+    if global_batch % count:
+        raise ValueError(f"global batch {global_batch} must divide by {count} processes")
+    per = global_batch // count
+    return index * per, (index + 1) * per
+
+
+def put_global(batch: dict, device) -> dict:
+    """This rank's tensors on its device: each is the rank's shard of a
+    global batch (its `host_batch_bounds` rows) or, replicated, the same
+    full tensor on every rank. One rank computes on one device, so there
+    is nothing to assemble (JAX's `make_array_from_process_local_data`
+    builds one array over many devices)."""
+    return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def barrier(group=None) -> None:
+    """Wait until every rank of `group` (default: all) is here; nothing
+    without a process group (JAX's `sync_global_devices`)."""
+    if not dist.is_initialized():
+        return
+    if dist.get_backend(group) == "nccl":
+        dist.barrier(group=group, device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier(group=group)
+
+
 def _staged(t: torch.Tensor, group) -> bool:
     """Whether a payload goes through host memory (gloo and a CUDA tensor)."""
     return t.device.type != "cpu" and dist.get_backend(group) == "gloo"
@@ -169,6 +207,35 @@ def neighbour_exchange(to_next: torch.Tensor | None, to_prev: torch.Tensor | Non
     return back(got.get(1)), back(got.get(-1))
 
 
+def all_reduce(t: torch.Tensor, op, group) -> torch.Tensor:
+    """A new tensor: `t` reduced with `op` (`dist.ReduceOp`) over `group`,
+    on `t`'s device; the payload goes through host memory under gloo."""
+    stage = _staged(t, group)
+    out = t.detach().clone() if not stage else t.detach().cpu()
+    dist.all_reduce(out, op=op, group=group)
+    return out.to(t.device) if stage else out
+
+
+def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """A new tensor: `t` of the rank `src` of `group` (its index there),
+    on every rank, on `t`'s device."""
+    stage = _staged(t, group)
+    out = t.detach().cpu() if stage else t.detach().clone()
+    dist.broadcast(out, src=dist.get_global_rank(group, src), group=group)
+    return out.to(t.device) if stage else out
+
+
+def flattened(tensors: list, collective) -> None:
+    """Run `collective` (a tensor → a tensor of its shape) once over
+    `tensors` flattened into one, and copy its result back into them, in
+    order: one call for many tensors."""
+    flat = collective(torch.cat([t.reshape(-1) for t in tensors]))
+    offset = 0
+    for t in tensors:
+        t.copy_(flat[offset:offset + t.numel()].view_as(t))
+        offset += t.numel()
+
+
 def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     """[ranks of `group`, *t.shape]: every rank's `t`, in rank order, on
     `t`'s device."""
@@ -192,13 +259,25 @@ def _spawned(rank: int, fn, world_size: int, init_method: str, device, threads: 
 
 
 def spawn_world(fn, world_size: int, init_method: str, device="cuda", args: tuple = (),
-                threads: int = 0) -> None:
+                threads: int = 0, deadline: float | None = None) -> None:
     """Run `fn(*args)` in `world_size` fresh processes (`spawn`) joined in
     one process group on `device` (`initialize`), with `threads` torch
     threads each (0: the default). The first child exception is raised
-    here, after the other children are stopped. `fn` is pickled by its
-    import path."""
+    here, after the other children are stopped. With `deadline` (seconds),
+    a world still running then is killed and TimeoutError raised. `fn` is
+    pickled by its import path."""
+    import time
+
     import torch.multiprocessing as mp
 
-    mp.spawn(_spawned, args=(fn, world_size, init_method, device, threads, args),
-             nprocs=world_size, join=True)
+    ctx = mp.spawn(_spawned, args=(fn, world_size, init_method, device, threads, args),
+                   nprocs=world_size, join=False)
+    end = None if deadline is None else time.monotonic() + deadline
+    while not ctx.join(timeout=1.0):
+        if end is not None and time.monotonic() > end:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join()
+            raise TimeoutError(f"a world of {world_size} ranks ran past its deadline of "
+                               f"{deadline} s: killed")

@@ -13,6 +13,15 @@ and overrides to `<run>/.hydra/{config,overrides}.yaml`.
 
 It trains on the card (`--device cuda`, the default) and raises when
 there is none; `--device cpu` trains on the CPU.
+
+Several ranks: `python -m torch.distributed.run --nproc-per-node N -m
+pixel_heal_thyself_tpu_torch.train ... parallel.multihost=true
+[parallel.data_axis=D parallel.model_axis=M]`, or `PHT_COORDINATOR`/
+`PHT_NUM_PROCESSES`/`PHT_PROCESS_ID` in each process. The ranks join one
+process group before any run directory is made (a launcher's WORLD_SIZE
+> 1 without `parallel.multihost` raises); rank 0 resolves the run
+directory and the others take it from rank 0, so only rank 0 makes
+directories and writes files. The group is left when the run ends.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ import itertools
 import sys
 from pathlib import Path
 
+import torch.distributed as dist
 import yaml
 
 from pixel_heal_thyself_tpu_torch.config import ConfigRegistry, compose
@@ -31,6 +41,12 @@ from pixel_heal_thyself_tpu_torch.config.run_dirs import (
     reset_run_dirs_cache,
 )
 from pixel_heal_thyself_tpu_torch.logger import logger
+from pixel_heal_thyself_tpu_torch.parallel.distributed import (
+    is_main_process,
+    maybe_initialize_distributed,
+    process_count,
+    shutdown,
+)
 
 
 def _build_trainer(cfg, device: str):
@@ -54,11 +70,24 @@ def _save_run_metadata(cfg_tree: dict, overrides: list[str]) -> None:
         yaml.safe_dump(cfg_tree, f, sort_keys=False)
 
 
+def _from_rank0(make):
+    """`make()` on rank 0, its value on every rank (`make()` alone without
+    a process group)."""
+    if process_count() == 1:
+        return make()
+    box = [make() if is_main_process() else None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def _run(config_name: str, overrides: list[str], saved_overrides: list[str], device: str):
-    cfg_tree = compose(config_name, overrides)
+    # the run directory is resolved (and made) on rank 0 alone
+    out_dir = _from_rank0(lambda: compose(config_name, overrides)["paths"]["output_dir"])
+    cfg_tree = compose(config_name, overrides + [f"paths.output_dir={out_dir}"])
     cfg = ConfigRegistry.create_config(cfg_tree)
     logger.setup_logger(cfg.logging.level)
-    _save_run_metadata(cfg_tree, saved_overrides)
+    if is_main_process():
+        _save_run_metadata(cfg_tree, saved_overrides)
     trainer = _build_trainer(cfg, device)
     trainer.train()
     return trainer
@@ -86,21 +115,30 @@ def main(argv: list[str] | None = None):
 
     training_device(args.device)  # no card: raise before any run dir is made
     register_run_dirs_resolver()
+    probe = _expand_multirun(args.overrides)[0] if args.multirun else args.overrides
+    multihost = compose(args.config_name, probe,
+                        resolve_interpolations=False)["parallel"]["multihost"]
+    own_group = not dist.is_initialized() and maybe_initialize_distributed(bool(multihost),
+                                                                           args.device)
 
     if not args.multirun:
-        return _run(args.config_name, args.overrides, args.overrides, args.device)
-
-    trainer = None
-    reset_run_dirs_cache()  # all sweep jobs share one trial run
-    for job_overrides in _expand_multirun(args.overrides):
-        subdir = ",".join(job_overrides) or "job"
-        logger.info(f"[multirun] job: {subdir}")
-        # jobs land in outputs/trials/<runNNN>/<subdir>; the dir is passed
-        # as a literal so override values may contain commas
-        out_dir = pht_run_dirs_resolver("outputs", "none", subdir, "-1", "true")
-        trainer = None  # free the last job's models before the next builds its own
-        trainer = _run(args.config_name, job_overrides + [f"paths.output_dir={out_dir}"],
-                       job_overrides, args.device)
+        trainer = _run(args.config_name, args.overrides, args.overrides, args.device)
+    else:
+        trainer = None
+        reset_run_dirs_cache()  # all sweep jobs share one trial run
+        for job_overrides in _expand_multirun(args.overrides):
+            subdir = ",".join(job_overrides) or "job"
+            logger.info(f"[multirun] job: {subdir}")
+            # jobs land in outputs/trials/<runNNN>/<subdir>; the dir is
+            # passed as a literal so override values may contain commas
+            out_dir = _from_rank0(lambda: pht_run_dirs_resolver("outputs", "none", subdir,
+                                                                "-1", "true"))
+            trainer = None  # free the last job's models before the next builds its own
+            trainer = _run(args.config_name, job_overrides + [f"paths.output_dir={out_dir}"],
+                           job_overrides, args.device)
+    # after success only: a failing rank leaves without waiting for the others
+    if own_group:
+        shutdown()
     return trainer
 
 

@@ -10,6 +10,13 @@ state of the generator the GP weights are drawn from, and the epoch. It
 is written under a temporary name and renamed, so a `checkpoint.pt` is
 always whole, and restored to the bit.
 
+Under several ranks (`parallel.mesh`), every rank calls `save_checkpoint`
+and only rank 0 writes: the same file that one process writes. With
+tensor parallelism each Adam moment is first gathered from the ranks'
+shards (`ParamShards.full_optimizer_state`); `restore_checkpoint` reads
+the full file on every rank and cuts each rank's shards from it, so the
+ranks of a resumed run start equal.
+
 The JAX package's Orbax checkpoints reach the port through
 `tools/export_params_npz.py` and `params.py`.
 """
@@ -22,6 +29,7 @@ from pathlib import Path
 
 import torch
 
+from pixel_heal_thyself_tpu_torch.parallel.distributed import is_main_process
 from pixel_heal_thyself_tpu_torch.training.train_step import TrainState
 
 FILE = "checkpoint.pt"
@@ -39,13 +47,22 @@ def _save(obj, path: Path) -> None:
             os.unlink(tmp)
 
 
-def save_checkpoint(path: str | Path, state: TrainState, epoch: int) -> None:
-    """Write `state` and the (0-based) `epoch` it finished to `path/`."""
+def _opt_state(opt, shards) -> dict:
+    return opt.state_dict() if shards is None else shards.full_optimizer_state(opt)
+
+
+def save_checkpoint(path: str | Path | None, state: TrainState, epoch: int) -> None:
+    """Write `state` and the (0-based) `epoch` it finished to `path/`; on
+    rank 0 only, after the gathers every rank takes part in (`path` is
+    not read elsewhere)."""
+    g_opt, d_opt = _opt_state(state.g_opt, state.g_shards), _opt_state(state.d_opt, state.d_shards)
+    if not is_main_process():
+        return
     _save({
         "g": state.g.state_dict(),
         "d": state.d.state_dict(),
-        "g_opt": state.g_opt.state_dict(),
-        "d_opt": state.d_opt.state_dict(),
+        "g_opt": g_opt,
+        "d_opt": d_opt,
         "g_sched": state.g_sched.state_dict(),
         "d_sched": state.d_sched.state_dict(),
         "generator": None if state.generator is None else state.generator.get_state(),
@@ -53,16 +70,27 @@ def save_checkpoint(path: str | Path, state: TrainState, epoch: int) -> None:
     }, Path(path) / FILE)
 
 
+def _load_opt(opt, shards, sd: dict) -> None:
+    if shards is None:
+        opt.load_state_dict(sd)
+    else:
+        shards.load_full_optimizer_state(opt, sd)
+
+
 def restore_checkpoint(path: str | Path, state: TrainState) -> int:
     """Load the checkpoint at `path/` into `state` (built as the saving run
-    built it) in place; returns the epoch it finished. Read onto the CPU:
+    built it) in place, on every rank; returns the epoch it finished. Read
+    onto the CPU:
     `load_state_dict` moves each tensor to its parameter's device and
     keeps Adam's step counts on the CPU, where Adam keeps them."""
     ckpt = torch.load(Path(path) / FILE, map_location="cpu", weights_only=True)
     state.g.load_state_dict(ckpt["g"])
     state.d.load_state_dict(ckpt["d"])
-    state.g_opt.load_state_dict(ckpt["g_opt"])
-    state.d_opt.load_state_dict(ckpt["d_opt"])
+    for shards in (state.g_shards, state.d_shards):
+        if shards is not None:
+            shards.reshard()
+    _load_opt(state.g_opt, state.g_shards, ckpt["g_opt"])
+    _load_opt(state.d_opt, state.d_shards, ckpt["d_opt"])
     state.g_sched.load_state_dict(ckpt["g_sched"])
     state.d_sched.load_state_dict(ckpt["d_sched"])
     if state.generator is not None and ckpt["generator"] is not None:

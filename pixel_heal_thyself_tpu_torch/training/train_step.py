@@ -21,14 +21,30 @@ step returns its losses as 0-dim tensors on the device (no host sync).
 The step carries its Adams and schedules as attributes (`g_opt`,
 `g_sched`, `d_opt`, `d_sched`), which the trainer gathers into a
 `TrainState` to checkpoint and restore.
+
+Over a D × M grid of ranks (`mesh`, `parallel.mesh.Mesh`), what GSPMD does
+for the JAX step is explicit. Data parallelism (D > 1): each rank feeds
+its rows of the global batch; the critic's BatchNorm statistics, the
+RaHinge means and the LPIPS max run over the data group; each loss term is
+the rank's share of the global loss (`parallel.data`), and the G and D
+gradients are summed over the data group in one flattened all-reduce per
+model and optimizer step, so that every rank holds one process's gradient
+for the global batch; the returned losses are the global values, equal
+on every rank. Tensor parallelism (M > 1): each rank's Adam updates its
+shards (`parallel.mesh.ParamShards`; the replicated parameters from the
+model group's first rank's gradient), then one all-gather per model
+assembles the full parameters. No `DistributedDataParallel`: its reducer
+does not follow the GP's `autograd.grad(create_graph=True)`.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from pixel_heal_thyself_tpu_torch.losses import (
     gan_loss,
@@ -38,8 +54,12 @@ from pixel_heal_thyself_tpu_torch.losses import (
     ssim_loss,
 )
 from pixel_heal_thyself_tpu_torch.models.discriminators import spectral_norm_update
+from pixel_heal_thyself_tpu_torch.models.layers import BatchNorm2d
 from pixel_heal_thyself_tpu_torch.models.lpips import lpips_distance, to_lpips_range
 from pixel_heal_thyself_tpu_torch.ops.transforms import prepare_batch
+from pixel_heal_thyself_tpu_torch.parallel.data import reduce_gradients, share
+from pixel_heal_thyself_tpu_torch.parallel.distributed import all_reduce, broadcast
+from pixel_heal_thyself_tpu_torch.parallel.mesh import place_state
 
 
 def multistep_milestone_epochs(epochs: int, lr_milestone: int) -> list[int]:
@@ -100,7 +120,9 @@ class OptimizerSpec:
 class TrainState:
     """Everything a resumed run needs: both networks, both Adams with
     their schedules, and the generator the GP interpolation weights are
-    drawn from (None when the caller supplies them)."""
+    drawn from (None when the caller supplies them); under tensor
+    parallelism, each network's `parallel.mesh.ParamShards`, whose leaves
+    the Adams update."""
 
     g: torch.nn.Module
     d: torch.nn.Module
@@ -109,6 +131,8 @@ class TrainState:
     g_sched: torch.optim.lr_scheduler.LambdaLR
     d_sched: torch.optim.lr_scheduler.LambdaLR
     generator: torch.Generator | None = None
+    g_shards: object | None = None
+    d_shards: object | None = None
 
 
 def make_optimizer(lr: float, milestone_epochs: list[int], gamma: float,
@@ -120,7 +144,7 @@ def make_optimizer(lr: float, milestone_epochs: list[int], gamma: float,
 
 def make_train_step(g_model: torch.nn.Module, d_model: torch.nn.Module, losses_cfg,
                     use_multiscale: bool, g_tx: OptimizerSpec, d_tx: OptimizerSpec,
-                    lpips_params: dict | None = None) -> Callable:
+                    lpips_params: dict | None = None, mesh=None) -> Callable:
     """Build the alternating G/D update: `step(batch, *, alpha=None,
     generator=None) → {g_loss, d_loss, g_gan, g_l1}`, with its optimizers
     and schedules as `step.g_opt`, `step.g_sched`, `step.d_opt` and
@@ -131,9 +155,13 @@ def make_train_step(g_model: torch.nn.Module, d_model: torch.nn.Module, losses_c
     None, as in the JAX step.
 
     `batch` holds NHWC `noisy` [B,H,W,3], `gt` [B,H,W,3] and `aux`
-    [B,H,W,7] on the models' device. `alpha` [B,1,1,1] are the GP
-    interpolation weights, drawn from `generator` when None (WGAN-GP
-    only)."""
+    [B,H,W,7] on the models' device: this rank's rows of the global batch
+    under a `mesh` (`parallel.mesh.make_mesh`; the critic then takes the
+    mesh's data group, `data_group=`). `alpha` [global B,1,1,1] are the GP
+    interpolation weights of the global batch, drawn from `generator` when
+    None (WGAN-GP only). `step.g_shards`/`step.d_shards` are the tensor-
+    parallel layouts (None at model_axis 1); `step.comm_seconds` adds up
+    the host seconds spent in the gradient and parameter collectives."""
     gan_w = float(losses_cfg.gan_loss_w)
     l1_w = float(losses_cfg.l1_loss_w)
     gp_w = float(losses_cfg.gp_loss_w)
@@ -141,9 +169,42 @@ def make_train_step(g_model: torch.nn.Module, d_model: torch.nn.Module, losses_c
     ssim_w = float(losses_cfg.ssim_loss_w)
     use_lpips = bool(losses_cfg.use_lpips_loss) and lpips_params is not None
     lpips_w = float(losses_cfg.lpips_loss_w)
-    g_params = [p for p in g_model.parameters() if p.requires_grad]
-    g_opt, g_sched = g_tx.build(g_params)
-    d_opt, d_sched = d_tx.build(d_model.parameters())
+    group = None if mesh is None else mesh.data_group
+    model_group = None if mesh is None else mesh.model_group
+    if group is not None and any(m.data_group is not group for m in d_model.modules()
+                                 if isinstance(m, BatchNorm2d)):
+        raise ValueError("the critic's BatchNorm layers must take the mesh's data group "
+                         "(data_group=mesh.data_group): per-rank statistics differ from the "
+                         "global batch's")
+    g_named = [(n, p) for n, p in g_model.named_parameters() if p.requires_grad]
+    d_named = list(d_model.named_parameters())
+    g_params, d_params = [p for _, p in g_named], [p for _, p in d_named]
+    g_shards, d_shards = place_state(g_named, mesh), place_state(d_named, mesh)
+    g_opt, g_sched = g_tx.build(g_params if g_shards is None else g_shards.leaves)
+    d_opt, d_sched = d_tx.build(d_params if d_shards is None else d_shards.leaves)
+
+    def update(params, shards, opt, sched) -> None:
+        """Sum the gradients over the data group, step this rank's Adam
+        (its shards under tensor parallelism), assemble the parameters."""
+        if group is not None or shards is not None:
+            if params[0].is_cuda:  # the staged collectives wait for the backward anyway
+                torch.cuda.synchronize(params[0].device)
+            t0 = time.perf_counter()
+            reduce_gradients(params, group)
+            if shards is not None:
+                shards.shard_grads()
+            train_step.comm_seconds += time.perf_counter() - t0
+        opt.step()
+        sched.step()
+        if shards is not None:
+            t0 = time.perf_counter()
+            shards.gather()
+            train_step.comm_seconds += time.perf_counter() - t0
+
+    def zero_grads(params, opt) -> None:
+        opt.zero_grad(set_to_none=True)
+        for p in params:  # the full parameters' under tensor parallelism
+            p.grad = None
 
     def train_step(batch: dict, *, alpha: torch.Tensor | None = None,
                    generator: torch.Generator | None = None) -> dict:
@@ -153,48 +214,59 @@ def make_train_step(g_model: torch.nn.Module, d_model: torch.nn.Module, losses_c
         fake = output.detach()
 
         # ---- discriminator update ---------------------------------------
-        d_opt.zero_grad(set_to_none=True)
+        zero_grads(d_params, d_opt)
         if use_multiscale:
             # the real forward first: both read the old u, and the fake
             # forward alone writes the new one
             pred_real = d_model(gt)
             with spectral_norm_update(d_model):
                 pred_fake = d_model(fake)
-            d_loss = ra_hinge_gan_loss(pred_real, pred_fake)
+            d_loss = ra_hinge_gan_loss(pred_real, pred_fake, group)
         else:
-            loss_real = gan_loss(d_model(gt), True, "wgan")
-            loss_fake = gan_loss(d_model(fake), False, "wgan")
-            gp = gradient_penalty(d_model, gt, fake, alpha=alpha, generator=generator)
+            loss_real = share(gan_loss(d_model(gt), True, "wgan"), group)
+            loss_fake = share(gan_loss(d_model(fake), False, "wgan"), group)
+            gp = gradient_penalty(d_model, gt, fake, alpha=alpha, generator=generator,
+                                  group=group)
             d_loss = (loss_fake + loss_real) / 2.0 + gp_w * gp
         d_loss.backward()
-        d_opt.step()
-        d_sched.step()
+        update(d_params, d_shards, d_opt, d_sched)
 
         # ---- generator update against the updated D ---------------------
-        g_opt.zero_grad(set_to_none=True)
+        zero_grads(g_params, g_opt)
         if use_multiscale:
             pred_g_fake = d_model(output)
             with torch.no_grad():
                 pred_d_real = d_model(gt)
             # reference base_trainer.py:417-420: (fake preds, no-grad real preds)
-            loss_g = ra_hinge_gan_loss(pred_g_fake, pred_d_real)
+            loss_g = ra_hinge_gan_loss(pred_g_fake, pred_d_real, group)
         else:
-            loss_g = gan_loss(d_model(output), True, "wgan")
-        loss_l1 = l1_loss(output, gt)
+            loss_g = share(gan_loss(d_model(output), True, "wgan"), group)
+        loss_l1 = share(l1_loss(output, gt), group)
         g_loss = gan_w * loss_g + l1_w * loss_l1
         if use_ssim:
-            g_loss = g_loss + ssim_w * ssim_loss(output, gt)
+            g_loss = g_loss + ssim_w * share(ssim_loss(output, gt), group)
         if use_lpips:
-            g_loss = g_loss + lpips_w * torch.mean(lpips_distance(
-                lpips_params, to_lpips_range(output), to_lpips_range(gt)))
+            g_loss = g_loss + lpips_w * share(torch.mean(lpips_distance(
+                lpips_params, to_lpips_range(output, group), to_lpips_range(gt, group))), group)
         g_loss.backward(inputs=g_params)  # D's parameters take no gradient
-        g_opt.step()
-        g_sched.step()
-        return {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
-                "g_gan": loss_g.detach(), "g_l1": loss_l1.detach()}
+        update(g_params, g_shards, g_opt, g_sched)
+        losses = {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
+                  "g_gan": loss_g.detach(), "g_l1": loss_l1.detach()}
+        if group is None and model_group is None:
+            return losses
+        # the global values, equal on every rank: the ranks' shares summed,
+        # as the model group's first rank has them
+        out = torch.stack(list(losses.values())).float()
+        if group is not None:
+            out = all_reduce(out, dist.ReduceOp.SUM, group)
+        if model_group is not None:
+            out = broadcast(out, 0, model_group)
+        return dict(zip(losses, out.unbind()))
 
     train_step.g_opt, train_step.g_sched = g_opt, g_sched
     train_step.d_opt, train_step.d_sched = d_opt, d_sched
+    train_step.g_shards, train_step.d_shards = g_shards, d_shards
+    train_step.comm_seconds = 0.0
     return train_step
 
 

@@ -23,11 +23,28 @@ reference `pht/models/base_trainer.py:83-595` and the per-model trainers
   whole train state under `model_epoch<N>/state/`, from which
   `trainer.load_model=true trainer.model_path=...` resumes.
 
-One device: the card unless the caller asks for the CPU. On the card the
-generator runs through the hand kernels when `trainer.use_pallas` (the
-block route for AFGSA, the fused Mamba2 interior for Mamba); on the CPU
-there are none, and it takes the plain route, as the JAX trainer does off
-the TPU. The step syncs with the host only on every 10th iteration.
+Each rank trains on one device: the card unless the caller asks for the
+CPU. On the card the generator runs through the hand kernels when
+`trainer.use_pallas` (the block route for AFGSA, the fused Mamba2
+interior for Mamba); on the CPU there are none, and it takes the plain
+route, as the JAX trainer does off the TPU. The step syncs with the host
+only on every 10th iteration. On the card each epoch logs its hand
+kernels' launches and the peak device memory.
+
+Several ranks (`parallel.multihost` under `python -m
+torch.distributed.run`, or `PHT_COORDINATOR`/`PHT_NUM_PROCESSES`/
+`PHT_PROCESS_ID`) train as the JAX trainer does on its ('data', 'model')
+mesh: the process group is joined before the first device use, the ranks
+form a D × M grid (`parallel.mesh.make_mesh`; `parallel.data_axis=-1`
+resolves over the world size and the batch), each data index reads its
+contiguous rows of every global batch from one shared epoch order
+(`PrefetchLoader(host_bounds=...)`, the ragged last batch dropped), the
+step reduces over the data group and shards Adam over the model group
+(`training/train_step.py`), and validation runs replicated on every rank.
+Only rank 0 builds the patch store (the others wait at a barrier that
+every rank reaches whether or not a store was built) and writes files:
+`train_loss.txt`, `evaluation.txt`, the panels, the checkpoints and the
+profiler trace.
 """
 
 from __future__ import annotations
@@ -51,6 +68,14 @@ from pixel_heal_thyself_tpu_torch.inference import (
 from pixel_heal_thyself_tpu_torch.logger import logger
 from pixel_heal_thyself_tpu_torch.metrics import calculate_psnr, calculate_rmse, calculate_ssim
 from pixel_heal_thyself_tpu_torch.models.afgsa import count_params
+from pixel_heal_thyself_tpu_torch.parallel.distributed import (
+    barrier,
+    host_batch_bounds,
+    is_main_process,
+    maybe_initialize_distributed,
+    process_count,
+)
+from pixel_heal_thyself_tpu_torch.parallel.mesh import Mesh, make_mesh
 from pixel_heal_thyself_tpu_torch.training import checkpoints
 from pixel_heal_thyself_tpu_torch.training.train_step import (
     TrainState,
@@ -86,6 +111,30 @@ def training_device(device: torch.device | str) -> torch.device:
     return device
 
 
+def kernel_launches() -> dict:
+    """The training path's hand kernels' launch counts so far in this
+    process, by wrapper name (each wrapper counts its launches)."""
+    from pixel_heal_thyself_tpu_torch.ops.attention_cuda import (
+        block_halo_attention_bwd_cuda,
+        block_halo_attention_cuda,
+    )
+    from pixel_heal_thyself_tpu_torch.ops.block_cuda import (
+        conv3x3_cuda,
+        conv3x3_dgrad_cuda,
+        pointwise_gemm_cuda,
+        weight_grad_cuda,
+    )
+    from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import (
+        fused_mamba_chain_bwd_cuda,
+        fused_mamba_chain_emit_cuda,
+    )
+
+    return {fn.__name__: fn.launches for fn in (
+        block_halo_attention_cuda, pointwise_gemm_cuda, conv3x3_cuda,
+        block_halo_attention_bwd_cuda, conv3x3_dgrad_cuda, weight_grad_cuda,
+        fused_mamba_chain_emit_cuda, fused_mamba_chain_bwd_cuda)}
+
+
 def _numpy(x) -> np.ndarray:
     return x.detach().float().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
@@ -99,13 +148,11 @@ class BaseTrainer:
         self.deterministic = cfg.trainer.deterministic
         self.model_name = self.__class__.__name__.replace("Trainer", "")
         set_determinism(cfg.seed)
-        par = cfg.parallel
-        if par.model_axis > 1 or par.multihost or par.data_axis > 1:
-            raise NotImplementedError(
-                "multi-GPU training (parallel.data_axis > 1, parallel.model_axis > 1, "
-                "parallel.multihost) is not ported to pixel_heal_thyself_tpu_torch yet "
-                "(ROADMAP.md Queue 1 items 9b and 9c)",
-            )
+        # join the process group before the first device use; a rank's
+        # card is then the current one
+        if maybe_initialize_distributed(cfg.parallel.multihost, self.device) and \
+                self.device.type == "cuda":
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.padding_mode = "replicate" if self.deterministic else "reflect"
         if cfg.trainer.precision not in ("bf16", "fp32"):
             raise ValueError(
@@ -123,6 +170,27 @@ class BaseTrainer:
         self.loader_kind: str | None = None
         self.store_build_seconds: float | None = None
         self.state: TrainState | None = None
+        self.start_epoch = 0
+        self.mesh = self._build_mesh()
+
+    @property
+    def is_main(self) -> bool:
+        """Whether this rank writes the run's files (rank 0, or no process
+        group)."""
+        return is_main_process()
+
+    def _build_mesh(self) -> Mesh:
+        """The D × M grid of ranks from cfg.parallel (JAX `_build_mesh`);
+        one rank with no process group is the 1 × 1 grid."""
+        par, batch = self.cfg.parallel, self.cfg.trainer.batch_size
+        mesh = make_mesh(par.data_axis, par.model_axis, batch)
+        if batch % mesh.data:
+            raise ValueError(f"trainer.batch_size={batch} must be divisible by the "
+                             f"data-parallel degree {mesh.data}")
+        if mesh.size > 1:
+            logger.info(f"Mesh: {mesh.data} data x {mesh.model} model over "
+                        f"{process_count()} ranks")
+        return mesh
 
     # -- factories -------------------------------------------------------
     def create_generator(self) -> torch.nn.Module:
@@ -144,6 +212,7 @@ class BaseTrainer:
         return DiscriminatorVGG(
             in_nc=3, base_nf=64, input_size=self.cfg.data.patches.patch_size,
             dtype=self.compute_dtype, device=self.device, generator=generator,
+            data_group=self.mesh.data_group,
         )
 
     def lpips_params(self) -> dict | None:
@@ -169,7 +238,9 @@ class BaseTrainer:
     def setup_dataloaders(self):
         cfg = self.cfg
         patches_dir = cfg.data.patches.dir
-        if not store_complete(patches_dir):
+        # only rank 0 builds into the (shared) data dir: concurrent writers
+        # would corrupt the store
+        if self.is_main and not store_complete(patches_dir):
             if cfg.data.images.synthesize and not os.path.isdir(cfg.data.images.dir):
                 from pixel_heal_thyself_tpu_torch.data.synthetic import generate_dataset
 
@@ -191,27 +262,37 @@ class BaseTrainer:
             ).construct_store()
             self.store_build_seconds = time.monotonic() - t0
             logger.info(f"Built the patch store in {self.store_build_seconds:.2f} s")
+        if process_count() > 1:
+            # every rank, whether or not a store was built: a rank that
+            # found the store complete and skipped its barrier would leave
+            # rank 0 waiting here (and the step's collectives misaligned)
+            barrier()
 
         train_ds = PatchDataset(os.path.join(patches_dir, "train"))
         val_ds = PatchDataset(os.path.join(patches_dir, "val"))
+        dp = self.mesh.data
+        host_bounds = (host_batch_bounds(cfg.trainer.batch_size, self.mesh.data_index, dp)
+                       if dp > 1 else None)
         loader_kind = cfg.data.loader
         if loader_kind == "auto":
             fits = train_ds.nbytes + val_ds.nbytes <= cfg.data.device_cache_limit_gb * 1e9
-            loader_kind = "device" if fits else "native"
+            loader_kind = "device" if fits and process_count() == 1 else "native"
             logger.info(f"data.loader=auto resolved to {loader_kind!r}")
         self.loader_kind = loader_kind
         seed = cfg.seed if self.deterministic else None
         val_batch = max(1, cfg.trainer.val_batch_size)
         if loader_kind == "device":
             train_loader = DeviceLoader(train_ds, batch_size=cfg.trainer.batch_size,
-                                        shuffle=True, seed=seed, device=self.device)
+                                        shuffle=True, seed=seed, drop_last=dp > 1,
+                                        device=self.device)
             val_loader = DeviceLoader(val_ds, batch_size=val_batch, shuffle=False,
                                       device=self.device)
         elif loader_kind == "native":
+            # a ragged last batch cannot split over the data group
             train_loader = PrefetchLoader(
                 train_ds, batch_size=cfg.trainer.batch_size, shuffle=True, seed=seed,
-                prefetch=cfg.trainer.prefetch_batches, workers=cfg.trainer.num_workers,
-                device=self.device,
+                drop_last=dp > 1, prefetch=cfg.trainer.prefetch_batches,
+                workers=cfg.trainer.num_workers, device=self.device, host_bounds=host_bounds,
             )
             val_loader = PrefetchLoader(val_ds, batch_size=val_batch, shuffle=False,
                                         prefetch=2, device=self.device)
@@ -258,7 +339,12 @@ class BaseTrainer:
         d_model = self.create_discriminator()
 
         batch_size = cfg.trainer.batch_size
-        total_iterations = math.ceil(n_train / batch_size)
+        # as the loader: data parallelism drops the ragged last batch, so the
+        # schedule's steps per epoch floor
+        if self.mesh.data > 1:
+            total_iterations = n_train // batch_size
+        else:
+            total_iterations = math.ceil(n_train / batch_size)
         milestones = multistep_milestone_epochs(cfg.trainer.epochs, cfg.trainer.lr_milestone)
         optim = dict(betas=tuple(cfg.trainer.optim.betas), eps=cfg.trainer.optim.eps)
         g_tx = make_optimizer(cfg.trainer.lr_g, milestones, cfg.trainer.lr_gamma,
@@ -268,31 +354,38 @@ class BaseTrainer:
         step_fn = make_train_step(
             g_model, d_model, cfg.model.losses,
             cfg.model.discriminator.use_multiscale_discriminator, g_tx, d_tx,
-            lpips_params=self.lpips_params(),
+            lpips_params=self.lpips_params(), mesh=self.mesh,
         )
+        # one GP generator, seeded alike on every rank: each rank takes its
+        # rows of the same global draw
         state = TrainState(
             g=g_model, d=d_model, g_opt=step_fn.g_opt, d_opt=step_fn.d_opt,
             g_sched=step_fn.g_sched, d_sched=step_fn.d_sched,
             generator=torch.Generator(device=self.device).manual_seed(cfg.seed),
+            g_shards=step_fn.g_shards, d_shards=step_fn.d_shards,
         )
         self.state = state
 
         start_epoch = 0
         if cfg.trainer.load_model and cfg.trainer.model_path:
+            # every rank reads the same files: the ranks start equal
             start_epoch = checkpoints.restore_checkpoint(cfg.trainer.model_path, state) + 1
             logger.info(f"Resumed from {cfg.trainer.model_path} at epoch {start_epoch}")
+        self.start_epoch = start_epoch
 
         logger.info(f"{self.model_name} G params: {count_params(g_model):,} | "
                     f"D params: {count_params(d_model):,}")
         eval_fn = make_eval_step(g_model)
 
         root_save_path = cfg.paths.output_dir
-        os.makedirs(root_save_path, exist_ok=True)
+        if self.is_main:
+            os.makedirs(root_save_path, exist_ok=True)
         save_img_interval = max(1, n_val // max(1, cfg.trainer.num_saved_imgs))
 
         logger.info("Start training")
         for epoch in range(start_epoch, cfg.trainer.epochs):
             start = time.time()
+            comm_start, launches_start = step_fn.comm_seconds, kernel_launches()
             # losses stay on the device during the epoch: the host syncs
             # only on logging iterations
             epoch_metrics: list[dict] = []
@@ -305,7 +398,8 @@ class BaseTrainer:
                 io_total += io_took
                 # a profiler trace of a steady window of the first epoch;
                 # short epochs clamp the window so the trace always closes
-                if cfg.trainer.profile_dir and epoch == start_epoch and total_iterations >= 2:
+                if (cfg.trainer.profile_dir and self.is_main and epoch == start_epoch
+                        and total_iterations >= 2):
                     prof_start = min(10, max(0, total_iterations - 2))
                     prof_stop = min(15, total_iterations - 1)
                     if i_batch == prof_start:
@@ -330,16 +424,27 @@ class BaseTrainer:
             n_iters = i_batch + 1
             epoch_g = self._loss_sum(epoch_metrics, "g_loss") / batch_size / max(1, n_iters)
             epoch_d = self._loss_sum(epoch_metrics, "d_loss") / batch_size / max(1, n_iters)
-            # io share = time the step loop spent blocked in the loader
+            # io share = time the step loop spent blocked in the loader;
+            # over several ranks, the host seconds in the step's gradient
+            # and parameter collectives
+            comm = (f" collectives {step_fn.comm_seconds - comm_start:.2f}s"
+                    if self.mesh.size > 1 else "")
             logger.info(
                 f"[Train] epoch={epoch + 1} summary: g_loss={epoch_g:.4f} "
                 f"d_loss={epoch_d:.4f} time={int(end - start)}s "
                 f"({n_train / max(1e-9, end - start):.1f} patches/sec, "
                 f"io {io_total:.1f}s = "
-                f"{100 * io_total / max(1e-9, end - start):.0f}%)",
+                f"{100 * io_total / max(1e-9, end - start):.0f}%){comm}",
             )
-            with open(os.path.join(root_save_path, "train_loss.txt"), "a") as f:
-                f.write(f"Epoch: {epoch + 1} \tG loss: {epoch_g:.4f} \tD Loss: {epoch_d:.4f}\n")
+            if self.use_kernels:
+                launched = {k: v - launches_start[k] for k, v in kernel_launches().items()}
+                logger.info(f"[Train] epoch={epoch + 1} kernel launches: "
+                            + ", ".join(f"{k} {v}" for k, v in launched.items() if v)
+                            + f"; peak memory {torch.cuda.max_memory_allocated(self.device)} B")
+            if self.is_main:
+                with open(os.path.join(root_save_path, "train_loss.txt"), "a") as f:
+                    f.write(f"Epoch: {epoch + 1} \tG loss: {epoch_g:.4f} "
+                            f"\tD Loss: {epoch_d:.4f}\n")
 
             if epoch % cfg.trainer.save_interval == 0:
                 self._validate_and_save(epoch, state, eval_fn, val_loader, n_val,
@@ -379,8 +484,14 @@ class BaseTrainer:
         root_save_path: str,
         save_img_interval: int,
     ) -> None:
-        current_save_path = create_folder(os.path.join(root_save_path, f"model_epoch{epoch + 1}"))
-        checkpoints.save_checkpoint(Path(current_save_path) / "state", state, epoch)
+        # every rank runs the (replicated) eval forwards and takes part in
+        # the checkpoint's gathers; only rank 0 touches the run directory
+        current_save_path = None
+        if self.is_main:
+            current_save_path = create_folder(os.path.join(root_save_path,
+                                                           f"model_epoch{epoch + 1}"))
+        checkpoints.save_checkpoint(current_save_path and Path(current_save_path) / "state",
+                                    state, epoch)
 
         avg_psnr = avg_ssim = avg_mrse = 0.0
         start = time.time()
@@ -396,7 +507,7 @@ class BaseTrainer:
             output_255 = tensor2img(output, post_spec=True)
             gt_255 = tensor2img(gt_lin)
 
-            for j in range(output_255.shape[0]):
+            for j in range(output_255.shape[0] if self.is_main else 0):
                 idx = sample_base + j
                 if idx % save_img_interval == 0:
                     save_img_group(current_save_path, idx, noisy_255[j], output_255[j], gt_255[j])
@@ -415,11 +526,12 @@ class BaseTrainer:
             f"avg_psnr={avg_psnr:.4f} avg_1-ssim={1 - avg_ssim:.4f} "
             f"time={int(end - start)}s",
         )
-        with open(os.path.join(root_save_path, "evaluation.txt"), "a") as f:
-            f.write(
-                f"Validation: {epoch + 1} \tAvg MRSE: {avg_mrse:.4f} "
-                f"\tAvg PSNR: {avg_psnr:.4f} \tAvg 1-SSIM: {1 - avg_ssim:.4f}\n",
-            )
+        if self.is_main:
+            with open(os.path.join(root_save_path, "evaluation.txt"), "a") as f:
+                f.write(
+                    f"Validation: {epoch + 1} \tAvg MRSE: {avg_mrse:.4f} "
+                    f"\tAvg PSNR: {avg_psnr:.4f} \tAvg 1-SSIM: {1 - avg_ssim:.4f}\n",
+                )
 
 
 class AFGSATrainer(BaseTrainer):

@@ -49,7 +49,9 @@ from pixel_heal_thyself_tpu_torch.inference import (  # noqa: E402
     tensor2img,
 )
 from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet  # noqa: E402
+from pixel_heal_thyself_tpu_torch.data.exr import read_exr  # noqa: E402
 from pixel_heal_thyself_tpu_torch.params import afgsa_state_from_flax  # noqa: E402
+from pixel_heal_thyself_tpu_torch.training.checkpoints import save_params  # noqa: E402
 from tools.export_params_npz import export_params_npz  # noqa: E402
 
 SMALL = dict(base_ch=16, enc_ch=16, num_sa=1, num_gcp=0, num_heads=2)
@@ -177,15 +179,14 @@ def test_run_inference_end_to_end(tmp_path, tmp_cwd):
 
 
 def test_unported_paths_raise(tmp_path):
-    """Spatial sharding with tensor parallelism (`parallel.model_axis` > 1)
-    is not ported; with an exported artifact spatial sharding is refused as
-    in the JAX package (artifacts serve the tiled path only)."""
+    """With an exported artifact spatial sharding is refused as in the JAX
+    package (artifacts serve the tiled path only). Spatial sharding with
+    `parallel.model_axis` > 1, which once raised here, now serves
+    (`test_spatial_serving_ignores_model_axis`)."""
     for model in ("afgsa", "mamba"):
         cfg = ConfigRegistry.create_config(compose("prod", [f"model={model}",
                                                             "parallel.model_axis=2"],
                                                    resolve_interpolations=False))
-        with pytest.raises(NotImplementedError, match="not ported"):
-            run_inference(cfg, str(tmp_path), str(tmp_path / "o"), device="cpu", spatial=True)
         with pytest.raises(ValueError, match="tiled path only"):
             run_inference(cfg, str(tmp_path), str(tmp_path / "o"), device="cpu", spatial=True,
                           from_export="artifact")
@@ -203,3 +204,28 @@ def test_cli_never_falls_back_to_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="inference.device=cpu"):
         main(["-cn", "prod", "trainer.model_path=absent.npz"])
+
+
+def test_spatial_serving_ignores_model_axis(tmp_path):
+    """`run_inference(spatial=True)` shards rows over every rank whatever
+    `parallel.model_axis` says, as the JAX package's sharded serving builds
+    its mesh with model_axis=1: at model_axis 2 it serves the frame that it
+    serves at 1, to the bit."""
+    _, _, model = _small_models()
+    params = tmp_path / "g.pt"
+    save_params(params, model)
+    images = tmp_path / "images"
+    generate_dataset(images, scenes=["fftle0_0"], height=48, width=40)
+    frames = {}
+    for model_axis in (1, 2):
+        reset_run_dirs_cache()
+        cfg = ConfigRegistry.create_config(compose(
+            "prod", [*SMALL_CFG, f"trainer.model_path={params}",
+                     f"parallel.model_axis={model_axis}"], resolve_interpolations=False))
+        out = tmp_path / f"out{model_axis}"
+        results = run_inference(cfg, str(images), str(out), margin=8, save_exr=True,
+                                 spatial=True, device="cpu")
+        assert [r["scene"] for r in results] == ["fftle0_0"]
+        frames[model_axis] = read_exr(out / "fftle0_0_32_denoised.exr")["default"]
+    assert np.isfinite(frames[1]).all()
+    assert np.array_equal(frames[1], frames[2])

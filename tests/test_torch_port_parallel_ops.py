@@ -19,6 +19,8 @@ virtual CPU devices. Tolerances, as the JAX package's own tests:
 
 from __future__ import annotations
 
+import inspect
+
 import functools
 
 import numpy as np
@@ -194,8 +196,12 @@ def test_auto_data_axis():
 
 def test_row_axis_without_process_group_and_refusals():
     assert mesh.row_axis() == mesh.RowAxis(1, 0, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mesh.row_axis(model_axis=2)
+    # serving's row axis is every rank whatever parallel.model_axis says
+    # (as the JAX package's sharded serving), so it takes no model axis
+    assert "model_axis" not in inspect.signature(mesh.row_axis).parameters
+    assert mesh.make_mesh(-1, 1, 8) == mesh.Mesh()  # one rank: the 1 × 1 grid
+    with pytest.raises(ValueError, match="covers 2 of 1"):
+        mesh.make_mesh(2, 1, 8)
     with pytest.raises(ValueError, match="margin=0"):
         make_sharded_apply_rows(lambda n, a: n, 0)
 

@@ -243,8 +243,8 @@ def test_dispatchers_refuse_autograd_in_grad_mode():
         assert pointwise_gemm(x, w).shape == (2, 4, 4, 8)
 
 
-def test_multiscale_step_is_not_ported():
-    """Once unported, the multiscale step builds and runs now: two steps of
+def test_multiscale_step_runs():
+    """The multiscale step builds and runs: two steps of
     the RaHinge step against `MultiScaleDiscriminator` with MS-SSIM and
     LPIPS(random) give finite losses, train G and D and write every u
     once a step (tests/test_torch_port_multiscale_step.py holds the step
