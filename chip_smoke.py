@@ -187,6 +187,21 @@ exits non-zero. Phases:
    `torch.distributed.run --nproc-per-node 2` (4 synthetic 512² scenes, 16
    patches an image, 1 epoch) and its resume, only rank 0 writing, each
    rank's epoch launching K1–K6 (the trainer's own counts).
+16. The tools (`pixel_heal_thyself_tpu_torch.tools`), each through its
+   `run`, prod widths, bf16, seeded weights (TOOLS): `bench_inference` at
+   720p with the AFGSANet at tile 64 / 96 / 112 (the 128² window; K1 150 /
+   70 / 55, K2 and K3 with them, a frame on the prod bodies; the seam PSNR
+   against tile 64) and its host-synced, pipelined and fused dispatch at
+   tile 64 equal to the bit, and the MambaDenoiserNet at tile 64 (K7 150 a
+   frame); `bench_serving` (the AFGSA artifact against the live model at
+   720p: every `pht::` op of the live forward in the graph, the frames
+   equal to the bit, first-call and steady s/frame, export and load
+   seconds, bytes); `bench_pipeline`'s seven input modes of the AFGSA GAN
+   step (5 steps each: patches/s, finite losses, every step's K1–K6 on the
+   prod bodies); `flops_train_step` for both generators (TFLOP/sample,
+   counted on the plain route, and the share of the dense bf16 peak that
+   phases 5's and 8's step rates imply); `make_synthetic_datasets` at 64²,
+   `data.inspect` and `resize_exrs` on its EXRs. Prints the phase's seconds.
 
 Every kernel row states its bound (the least time the card could take:
 the larger of the bytes its function must move over 3.35 TB/s and its
@@ -201,6 +216,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import logging
 import math
@@ -469,16 +485,17 @@ PROD_BODIES = {"K1": "tc", "K2": "sm90", "K3": "sm90", "K4": "tc", "K5": "sm90",
 PROLOGUE_BODIES = {"K7": "vec", "K7e": "vec", "K8": "vec"}
 
 
-def check_bodies(tag: str, launches: dict) -> None:
+def check_bodies(tag: str, launches: dict, quiet: bool = False) -> None:
     """The launches of each kernel of PROD_BODIES by body, and of each
     prologue of PROLOGUE_BODIES: every one must have taken its prod body,
-    none the general one."""
+    none the general one. `quiet` logs nothing when they all did."""
     fns = counters()
     for attr, want in (("body_launches", PROD_BODIES),
                        ("prologue_body_launches", PROLOGUE_BODIES)):
         for name, body in want.items():
             bodies = dict(getattr(fns[name], attr))
-            log(f"[{tag}] {name} {attr.replace('_', ' ')}: {bodies} (total {launches[name]})")
+            if not quiet:
+                log(f"[{tag}] {name} {attr.replace('_', ' ')}: {bodies} (total {launches[name]})")
             if bodies["general"] or bodies[body] != launches[name]:
                 raise AssertionError(f"[{tag}] {name}: {bodies['general']} prod-shape launches "
                                      f"took the general body ({attr} {bodies})")
@@ -3073,6 +3090,184 @@ def dp_cli(tmp: str) -> None:
         "only rank 0 made run directories")
 
 
+# phase 16: the measurement and data tools of `pixel_heal_thyself_tpu_torch.
+# tools` on the card, each through its `run`: 720p tiled serving of both prod
+# generators (bench_inference), the AFGSA artifact against the live model at
+# 720p (bench_serving), the input-pipeline split of the AFGSA GAN step
+# (bench_pipeline), per-sample FLOP counts (flops_train_step), and the EXR
+# inspection, resize and dataset tools on small synthetic scenes
+TOOLS = dict(height=720, width=1280, iters=2, mamba_iters=1, frames=2, steps=5, exr_size=64)
+# launches per 720p frame: ⌈720/t⌉·⌈1280/t⌉ windows in batches of 8, 5 blocks
+# (AFGSA: K1 once, K2 4 times, K3 twice a block; Mamba: K7 once a layer)
+TOOL_FRAME_LAUNCHES = {
+    ("afgsa", 64): {"K1": 150, "K2": 600, "K3": 300},  # 240 windows, 30 batches
+    ("afgsa", 96): {"K1": 70, "K2": 280, "K3": 140},  # 112 windows, 14 batches
+    ("afgsa", 112): {"K1": 55, "K2": 220, "K3": 110},  # 84 windows, 11 batches (4 pad)
+    ("mamba", 64): {"K7": 150},
+}
+# launches of one prod AFGSA GAN step (phase 5)
+STEP_LAUNCHES = {"K1": 5, "K2": 60, "K3": 10, "K4": 5, "K5": 10, "K6": 30}
+
+
+def tool_frames(model, name: str, geometry: tuple, variant: str, iters: int, device) -> tuple:
+    """`bench_inference.run` of `model` at one geometry and dispatch variant
+    from counts of 0: every frame launched TOOL_FRAME_LAUNCHES on the prod
+    bodies. Returns (the result, the first frame's output)."""
+    from pixel_heal_thyself_tpu_torch.tools import bench_inference
+
+    h, w = TOOLS["height"], TOOLS["width"]
+    tag = f"tools-{name}-{variant}-t{geometry[0]}"
+    reset_counts()
+    (result,), frames = bench_inference.run(model, h, w, iters, variant, geometries=(geometry,),
+                                            device=device, log=lambda s: None)
+    launches = read_counts()
+    per_frame = TOOL_FRAME_LAUNCHES[(name, geometry[0])]
+    want = {k: per_frame.get(k, 0) * (iters + 1) for k in KERNEL_NAMES}
+    if launches != want:
+        raise AssertionError(f"[{tag}] {iters + 1} frames launched {launches}, expected {want}")
+    check_bodies(tag, launches, quiet=True)
+    out = frames[geometry]
+    if out.shape != (h, w, 3) or not np.isfinite(out).all():
+        raise AssertionError(f"[{tag}] bad frame {out.shape}, finite={np.isfinite(out).all()}")
+    return result, out
+
+
+def phase_tools(device, step_rates: dict, smi: str) -> None:
+    """Phase 16: each tool of `pixel_heal_thyself_tpu_torch.tools` through
+    its `run` on the card (TOOLS; prod widths, bf16, seeded weights):
+    bench_inference's three geometries with the AFGSANet (K1/K2/K3 per frame
+    and bodies, the seam PSNR against tile 64) and its sync, pipelined and
+    fused dispatch at tile 64 equal to the bit, the MambaDenoiserNet at tile
+    64 (K7); bench_serving's artifact (every `pht::` op of the live forward
+    in its graph) equal to the live model to the bit at 720p;
+    bench_pipeline's seven modes (finite losses, every step's K1–K6 on the
+    prod bodies); flops_train_step for both generators with the FLOP share
+    that phases 5's and 8's step rates imply; inspect, resize_exrs and
+    make_synthetic_datasets on small synthetic scenes."""
+    from pixel_heal_thyself_tpu_torch.data import inspect
+    from pixel_heal_thyself_tpu_torch.data.exr import read_exr_header
+    from pixel_heal_thyself_tpu_torch.models.discriminators import DiscriminatorVGG
+    from pixel_heal_thyself_tpu_torch.tools import (
+        bench_inference,
+        bench_pipeline,
+        bench_serving,
+        flops_train_step,
+        make_synthetic_datasets,
+        prod_generator,
+        resize_exrs,
+        seeded,
+    )
+
+    t_phase = time.perf_counter()
+    h, w, iters = TOOLS["height"], TOOLS["width"], TOOLS["iters"]
+    afgsa = prod_generator("afgsa", device).eval()
+    first = bench_inference.GEOMETRIES[0]
+    ref = None
+    for geometry in bench_inference.GEOMETRIES:
+        res, out = tool_frames(afgsa, "afgsa", geometry, "pipelined", iters, device)
+        ref = out if ref is None else ref
+        seam = None if geometry == first else bench_inference.psnr(out, ref)
+        log(f"[tools-inference] afgsa {h}×{w} tile {geometry[0]} margin {geometry[1]}: "
+            f"{res['sec_per_frame']:.4f} s/frame ({iters} frames), {res['mpix_per_sec']:.4f} "
+            f"Mpix/s, seam PSNR vs tile 64 {seam}; launches a frame "
+            f"{TOOL_FRAME_LAUNCHES[('afgsa', geometry[0])]} on the prod bodies; {smi}")
+    for variant in ("sync", "fused"):
+        res, out = tool_frames(afgsa, "afgsa", first, variant, iters, device)
+        if not np.array_equal(out, ref):
+            raise AssertionError(f"[tools-inference] the {variant} frame differs from the "
+                                 f"pipelined one: max abs {np.abs(out - ref).max()}")
+        log(f"[tools-inference] afgsa {h}×{w} tile 64 {variant}: {res['sec_per_frame']:.4f} "
+            f"s/frame, {res['mpix_per_sec']:.4f} Mpix/s; frame equal to the pipelined one "
+            f"to the bit; {smi}")
+    mamba = prod_generator("mamba", device).eval()
+    res, _ = tool_frames(mamba, "mamba", first, "pipelined", TOOLS["mamba_iters"], device)
+    log(f"[tools-inference] mamba {h}×{w} tile 64: {res['sec_per_frame']:.4f} s/frame "
+        f"({TOOLS['mamba_iters']} frame), {res['mpix_per_sec']:.4f} Mpix/s; K7 150 a frame "
+        f"on the prod bodies; {smi}")
+    del mamba
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        result, frames = bench_serving.run(afgsa, str(Path(tmp, "art")), TOOLS["frames"], h, w,
+                                           device, log=lambda s: None)
+        check_bodies("tools-serving", read_counts(), quiet=True)
+    if not result["pht_ops_in_live_forward"] or not result["live_ops_all_in_artifact"]:
+        raise AssertionError(f"[tools-serving] live forward ops {result['pht_ops_in_live_forward']}"
+                             f", artifact {result['pht_ops_in_artifact']}")
+    if not np.array_equal(frames["exported"], frames["live"]):
+        raise AssertionError(f"[tools-serving] exported frame differs from the live one: "
+                             f"max_abs_delta {result['max_abs_delta']}")
+    log(f"[tools-serving] {json.dumps(result)}; exported frame equal to the live one to the "
+        f"bit; {smi}")
+    del afgsa
+    torch.cuda.empty_cache()
+
+    g = prod_generator("afgsa", device).train()
+    d = seeded(DiscriminatorVGG, dict(in_nc=3, base_nf=64, input_size=TRAIN["patch"],
+                                      dtype=torch.bfloat16), device, seed=1).train()
+    steps = TOOLS["steps"]
+
+    @contextlib.contextmanager
+    def probe(mode):
+        reset_counts()
+        yield
+        launches = read_counts()
+        want = {k: STEP_LAUNCHES.get(k, 0) * steps for k in KERNEL_NAMES}
+        if launches != want:
+            raise AssertionError(f"[tools-pipeline] {mode}: {steps} steps launched {launches}, "
+                                 f"expected {want}")
+        check_bodies(f"tools-pipeline-{mode}", launches, quiet=True)
+
+    runs = bench_pipeline.run(g, d, bench_pipeline.host_batches(steps, TRAIN["batch"],
+                                                                TRAIN["patch"]),
+                              device, probe=probe, log=lambda s: None)
+    for mode, r in runs.items():
+        if not np.isfinite(r["losses"]).all():
+            raise AssertionError(f"[tools-pipeline] {mode}: losses {r['losses']}")
+    log(f"[tools-pipeline] patches/s over {steps} steps a mode, every step K1–K6 "
+        f"{STEP_LAUNCHES} on the prod bodies, finite losses: "
+        f"{ {m: round(r['patches_per_sec'], 4) for m, r in runs.items()} }; {smi}")
+    del g, d
+    torch.cuda.empty_cache()
+
+    for name, rate in step_rates.items():
+        g, d = flops_train_step.models(name, device, use_kernels=False)
+        out = flops_train_step.run(g, d, flops_train_step.BATCH[name], device=device)
+        share = flops_train_step.flop_share(out["full_step_tflop_per_sample"], rate)
+        log(f"[tools-flops] {name} (plain route counted, batch {out['batch']} × 128²): full "
+            f"step {out['full_step_tflop_per_sample']:.6f} TFLOP/sample, G forward "
+            f"{out['g_fwd_tflop_per_sample']:.6f}, G forward + backward "
+            f"{out['g_fwd_bwd_tflop_per_sample']:.6f}; at the step rate {rate:.4f} patches/s "
+            f"(phase {5 if name == 'afgsa' else 8}) the full step's share of the dense bf16 "
+            f"peak (mfu) {share:.6f}; {smi}")
+        del g, d
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        size = TOOLS["exr_size"]
+        make_synthetic_datasets.run(tmp, size=size)
+        files = sorted(Path(tmp).rglob("*.exr"))
+        exr = Path(tmp, "images_heldout_synth", "32spp", "heldout0_0_32.exr")
+        if len(files) != 48 or exr not in files:
+            raise AssertionError(f"[tools-data] make_synthetic_datasets wrote {len(files)} EXRs")
+        text = inspect.describe_exr(str(exr))
+        disp = inspect.show_exr_channel(str(exr), "normal", save_path=str(Path(tmp, "n.png")))
+        png = decode_png(Path(tmp, "n.png"))
+        if png.shape != (size, size, 3) or not np.array_equal(png,
+                                                              inspect.display_image(disp)):
+            raise AssertionError(f"[tools-data] the normal display PNG {png.shape}")
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            resize_exrs.run(Path(tmp, "images_heldout_synth"))
+        hdr = read_exr_header(exr)
+        if (hdr["width"], hdr["height"]) != (size // 2, size // 2) or "Failed" in printed.getvalue():
+            raise AssertionError(f"[tools-data] resize_exrs: {hdr}, {printed.getvalue()}")
+        log(f"[tools-data] make_synthetic_datasets: {len(files)} EXRs at {size}²; inspect: "
+            f"{text.splitlines()[:3]}, the normal display PNG decodes to the display image; "
+            f"resize_exrs: the held-out tree at {hdr['width']}×{hdr['height']}")
+    log(f"[tools] phase 16 {time.perf_counter() - t_phase:.2f} s; {smi}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -3113,6 +3308,7 @@ def main() -> None:
     phase_export(device, frames, smi)
     phase_sharded(device, frames[0], smi)
     phase_dp_training(device, smi)
+    phase_tools(device, {"afgsa": afgsa_rate, "mamba": mamba_rate}, smi)
     # each kernel's count from the path it was ported for
     path = {"K1": serving, "K2": serving, "K3": serving, "K4": training, "K5": training,
             "K6": training, "K7": mamba, "K7e": mamba_training, "K8": mamba_training,

@@ -200,6 +200,31 @@ def _parse_header(buf: memoryview) -> dict:
     }
 
 
+def read_exr_header(path: str | Path) -> dict:
+    """Parse just the EXR header: channels, geometry, compression.
+
+    Returns {"channels": [(name, pixel_type_id)], "data_window": (x0,y0,x1,y1),
+    "width", "height", "compression", "header_end" (byte offset past the
+    header terminator)}. Backs the inspection helpers (`data/inspect.py`).
+
+    Reads a bounded, doubling prefix of the file rather than the whole
+    payload — describing a multi-hundred-MB frame should not pay its full
+    I/O cost (headers are a few KB).
+    """
+    size = 1 << 16
+    with open(path, "rb") as f:
+        buf = f.read(size)
+        while True:
+            try:
+                return _parse_header(memoryview(buf))
+            except (struct.error, IndexError, ValueError):
+                more = f.read(size)
+                if not more:  # truly truncated/corrupt: surface the error
+                    return _parse_header(memoryview(buf))
+                buf += more
+                size *= 2
+
+
 def read_exr_channels(path: str | Path) -> dict[str, np.ndarray]:
     """Read a scanline EXR into {channel name: HxW float32}."""
     buf = memoryview(Path(path).read_bytes())
