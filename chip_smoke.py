@@ -202,6 +202,19 @@ exits non-zero. Phases:
    counted on the plain route, and the share of the dense bf16 peak that
    phases 5's and 8's step rates imply); `make_synthetic_datasets` at 64²,
    `data.inspect` and `resize_exrs` on its EXRs. Prints the phase's seconds.
+17. The quality campaign (`tools.quality_campaign.run`, the port of the JAX
+   package's `tools/r5_quality_campaign.sh`) in a temporary directory, cut
+   to 2 scenes of 256² a dataset directory, 100 patches an image and 1
+   epoch (CAMPAIGN): legs 1,
+   2a and 4 (`-cn prod`, AFGSA), then legs 1, 2b and 4 (`-cn stag
+   model=mamba`); every train step launched K1–K6 (AFGSA) or K7-emit and
+   K8 (Mamba) for every block and every validation forward K1–K3 or K7, on
+   their prod bodies (as phase 11); leg 4 wrote one evaluation file a
+   scene (2 training, 2 held-out) with finite metrics and launched K1–K3
+   or K7; the summary line parses and holds both legs. Prints each leg's
+   epoch rate, validation seconds, peak memory, launches a step and a
+   validation batch, and the phase's seconds. The full campaign (12
+   epochs, 10 scenes of 512²) is its own command, not a phase.
 
 Every kernel row states its bound (the least time the card could take:
 the larger of the bytes its function must move over 3.35 TB/s and its
@@ -3268,6 +3281,82 @@ def phase_tools(device, step_rates: dict, smi: str) -> None:
     log(f"[tools] phase 16 {time.perf_counter() - t_phase:.2f} s; {smi}")
 
 
+# phase 17: the quality campaign's legs 1, 2a/2b and 4 through its `run`,
+# cut to 2 scenes of 256² a dataset directory, 100 patches an image and 1
+# epoch (the validation split is a whole scene: at the configs' 400 / 200
+# patches an image it took 22 s of the AFGSA leg's 50)
+CAMPAIGN = dict(size=256, scenes=2, patches=100, epochs=1)
+SCENE_FILE = re.compile(r"RMSE: (\S+)\nPSNR: (\S+)\n1-SSIM: (\S+)\n")
+
+
+def phase_campaign(smi: str) -> None:
+    """Phase 17: `tools.quality_campaign.run` on the card for legs 1, 2a
+    and 4, then 1, 2b and 4 (CAMPAIGN): each train step and validation
+    forward through its kernels on their prod bodies (`trainer_probe`, as
+    phase 11), leg 4's evaluation files one a scene with finite metrics,
+    leg 4's launches, and the summary line."""
+    from pixel_heal_thyself_tpu_torch.tools import quality_campaign
+
+    t_phase = time.perf_counter()
+    served = quality_campaign.TRAIN_SCENES[:CAMPAIGN["scenes"]] + quality_campaign.HELDOUT_SCENES
+    with tempfile.TemporaryDirectory() as tmp:
+        for leg in (leg for leg in quality_campaign.TRAINING if leg.name in ("2a", "2b")):
+            tag = f"campaign-{leg.name}"
+            kernels = TRAINER_KERNELS[leg.model]
+            lines: list[str] = []
+            reset_counts()
+            with trainer_probe(*kernels) as rec, trainer_log():
+                result = quality_campaign.run(
+                    tmp, legs=("1", leg.name, "4"), device="cuda", size=CAMPAIGN["size"],
+                    n_scenes=CAMPAIGN["scenes"],
+                    overrides=[f"trainer.epochs={CAMPAIGN['epochs']}",
+                               f"data.patches.num_patches={CAMPAIGN['patches']}"],
+                    log=lines.append)
+            launches = read_counts()
+            layers = 5
+            for kind in ("train", "eval"):
+                short = [(i, d) for i, d in enumerate(rec[kind])
+                         if any(v < layers for v in d.values())]
+                if short or not rec[kind]:
+                    raise AssertionError(f"[{tag}] {kind} calls with fewer than {layers} launches "
+                                         f"of a kernel: {short[:3]} ({len(rec[kind])} calls)")
+            check_bodies(tag, launches, quiet=True)
+            summary = json.loads(lines[-1])
+            if summary != json.loads(json.dumps(result)) or leg.name not in summary["legs"]:
+                raise AssertionError(f"[{tag}] the summary line {lines[-1][:200]!r}")
+            got = summary["legs"][leg.name]
+            folder = Path(tmp, "reports", "port_r5_quality", leg.model)
+            files = sorted(f.name for f in folder.glob("*_evaluation.txt"))
+            if files != sorted(f"{s}_32_evaluation.txt" for s in served):
+                raise AssertionError(f"[{tag}] leg 4 wrote {files}")
+            for f in folder.glob("*_evaluation.txt"):
+                m = SCENE_FILE.fullmatch(f.read_text())
+                if not m or not all(math.isfinite(float(v)) for v in m.groups()):
+                    raise AssertionError(f"[{tag}] {f.name}: {f.read_text()!r}")
+            serve_kernels = {"K1", "K2", "K3"} if leg.model == "afgsa" else {"K7"}
+            by_name = {counters()[k].__name__: k for k in KERNEL_NAMES}
+            served_k = {by_name[k] for k, v in got["serve_launches"].items() if v}
+            if served_k != serve_kernels:
+                raise AssertionError(f"[{tag}] leg 4 launched {got['serve_launches']}")
+            if not all(math.isfinite(got[k]) for k in ("val_psnr", "val_1_ssim", "full_frame_psnr")):
+                raise AssertionError(f"[{tag}] non-finite metrics {got}")
+            log(f"[{tag}] {len(rec['train'])} train steps each launched ≥ {layers} of "
+                f"{', '.join(kernels[0])}; {len(rec['eval'])} validation forwards each ≥ {layers} "
+                f"of {', '.join(kernels[1])}, on the prod bodies; leg 4: {len(files)} scenes, "
+                f"launches {got['serve_launches']}")
+            log(f"[{tag}] val PSNR {got['val_psnr']} 1-SSIM {got['val_1_ssim']}, full-frame mean "
+                f"PSNR {got['full_frame_psnr']:.4f}, held-out {got['heldout_psnr']}; epoch "
+                f"{got['epoch_patches_per_sec']} patches/s, io {got['epoch_io_percent']}%, "
+                f"validation {got['val_seconds']} s, peak memory {got['peak_memory_bytes']} B, "
+                f"launches a step {got['launches_per_step']}, a validation batch "
+                f"{got['launches_per_val_batch']}; leg {got['seconds']:.2f} s, leg 4 "
+                f"{got['serve_seconds']:.2f} s; {smi}")
+            torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main set them
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[campaign] phase 17 {time.perf_counter() - t_phase:.2f} s; {smi}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -3309,6 +3398,7 @@ def main() -> None:
     phase_sharded(device, frames[0], smi)
     phase_dp_training(device, smi)
     phase_tools(device, {"afgsa": afgsa_rate, "mamba": mamba_rate}, smi)
+    phase_campaign(smi)
     # each kernel's count from the path it was ported for
     path = {"K1": serving, "K2": serving, "K3": serving, "K4": training, "K5": training,
             "K6": training, "K7": mamba, "K7e": mamba_training, "K8": mamba_training,

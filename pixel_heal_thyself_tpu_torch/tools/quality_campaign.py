@@ -1,0 +1,450 @@
+"""The round-5 quality campaign on the port: train both denoisers for 12
+epochs through the hand kernels, serve them over every scene, and hold the
+results against round 5's.
+
+Port of the JAX package's `tools/r5_quality_campaign.sh`, with its legs:
+
+  1   the synthetic datasets (`data/synthetic.generate_dataset`, the
+      script's scenes, 512² frames, noise_scale and seeds): the clean05
+      channel (noise_scale 0.5) and the clean channel (0.75), each a
+      training directory of 10 scenes and a held-out one of 2; a directory
+      that exists is kept
+  2a  `train -cn prod model.num_gradient_checkpoints=0` (AFGSA) on clean05
+  2b  `train -cn stag model=mamba` on clean05
+  3   `train -cn stag model=mamba` on the 0.75 channel
+  4   `inference` with the last checkpoint of 2a (`-cn prod`) and of 2b
+      (`-cn stag model=mamba`) over clean05's training and held-out scenes,
+      one `<scene>_32_evaluation.txt` each
+  5   the analysis tools (`tools/runs_analysis.py`,
+      `tools/runs_inference_analysis.py`: pandas and matplotlib, which the
+      card's machine lacks) over the text files of legs 2–4 against a
+      baseline campaign's, on the CPU
+
+Each leg runs in this process through the port's `train.main` and
+`inference.main`, on the card unless `--device cpu` is given (`cuda`
+never falls back to the CPU). Datasets and run directories go under
+`--root` (`data/`, `outputs/runs/`), the reports under `--out`: each
+training leg's `train_loss.txt` and `evaluation.txt` as
+`<run tag>_{train_loss,evaluation}.txt`, leg 4's per-scene files in
+`<out>/<model>/`, and `legs/<leg>.json`, one record a leg. The text files
+are also printed. The last line printed is one JSON object: for each leg
+in `--out`, its final validation PSNR and 1-SSIM, leg 4's full-frame mean
+PSNR over the served scenes and the held-out pair, the round-5 numbers
+each is held against with their bands, the epoch rates, io shares,
+validation seconds, peak memory and kernel launches a step and a
+validation batch; and the card (`nvidia-smi` name and power limit).
+
+    python -m pixel_heal_thyself_tpu_torch.tools.quality_campaign \
+        [--legs 1,2a,2b,3,4] [--root .] [--out reports/port_r5_quality] \
+        [--device cuda|cpu] [override ...]
+    python -m pixel_heal_thyself_tpu_torch.tools.quality_campaign --legs 5 \
+        [--out reports/port_r5_quality] [--baseline reports/r5_quality] [--header TEXT]
+
+An override is appended to every leg's command line, training and
+serving.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import logging
+import math
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from pixel_heal_thyself_tpu_torch.tools import card_line, resolve_device
+from pixel_heal_thyself_tpu_torch.tools.make_synthetic_datasets import (
+    HELDOUT_SCENES,
+    TRAIN_SCENES,
+)
+
+TRAIN_SEED, HELDOUT_SEED = 990819, 77
+# channel → noise_scale of its synthetic renders
+CHANNELS = {"clean05": 0.5, "clean": 0.75}
+
+
+@dataclass(frozen=True)
+class Leg:
+    name: str
+    model: str  # afgsa | mamba
+    config: str  # the env config, -cn
+    channel: str  # the channel trained on
+    overrides: tuple[str, ...]
+
+
+TRAINING = (
+    Leg("2a", "afgsa", "prod", "clean05", ("model.num_gradient_checkpoints=0",)),
+    Leg("2b", "mamba", "stag", "clean05", ("model=mamba",)),
+    Leg("3", "mamba", "stag", "clean", ("model=mamba",)),
+)
+SERVED = ("2a", "2b")  # leg 4 serves these legs' last checkpoints
+LEGS = ("1", "2a", "2b", "3", "4")  # the card's legs; 5 runs on the CPU
+
+# Round 5 (the JAX package on a TPU, reports/r5_quality/, BASELINE.md's
+# round-5 campaign): what each leg is held against. val_psnr: the final
+# validation PSNR, full_frame: the mean PSNR over leg 4's 12 scenes (both
+# runs for 2a: the XLA route and the megakernel, the same data and seed);
+# the bands are ±0.3 dB around them. The held-out pair is reported with no
+# band.
+REFERENCE = {
+    "2a": {"val_psnr": [37.1709, 37.0968], "val_band": [36.80, 37.47],
+           "full_frame_psnr": [37.6693, 37.6039], "full_frame_band": [37.30, 37.97],
+           "heldout_psnr": {"heldout0_0": 38.3622, "heldout1_0": 36.8507}},
+    "2b": {"val_psnr": [38.9675], "val_band": [38.67, 39.27],
+           "full_frame_psnr": [38.3803], "full_frame_band": [38.08, 38.68],
+           "heldout_psnr": {"heldout0_0": 39.1132, "heldout1_0": 37.5182}},
+    "3": {"val_psnr": [36.6909], "val_band": [36.39, 36.99]},
+}
+# the round-5 run of each leg, as the JAX script named its text files
+R5_RUNS = {"2a": "afgsa_p128_n400_r1.0_run000", "2b": "mamba_p64_n200_r0.5_run000",
+           "3": "mamba_p64_n200_r0.5_run001"}
+
+EPOCH_SUMMARY = re.compile(r"\[Train\] epoch=(\d+) summary: .*\(([\d.]+) patches/sec, "
+                           r"io ([\d.]+)s = (\d+)%\)")
+EPOCH_LAUNCHES = re.compile(r"\[Train\] epoch=(\d+) kernel launches: (.*); peak memory (\d+) B")
+VAL_SUMMARY = re.compile(r"\[Val\] epoch=(\d+) summary: .* time=(\d+)s")
+VALIDATION = re.compile(r"Validation: (\d+) \tAvg MRSE: (\S+) \tAvg PSNR: (\S+) "
+                        r"\tAvg 1-SSIM: (\S+)")
+SCENE_PSNR = re.compile(r"PSNR:\s*([\d.eE+-]+)")
+SCENE_1_SSIM = re.compile(r"1-SSIM:\s*([\d.eE+-]+)")
+
+
+def channel_dirs(root: str | Path, channel: str) -> tuple[Path, Path]:
+    """The channel's training and held-out dataset directories."""
+    data = Path(root) / "data"
+    return data / f"images_prod_synth_{channel}", data / f"images_heldout_synth_{channel}"
+
+
+def make_datasets(root: str | Path, channels=tuple(CHANNELS), size: int = 512,
+                  n_scenes: int | None = None, log=print) -> None:
+    """Leg 1: each channel's two directories under `root/data`, as the JAX
+    script's `generate_dataset` calls (a smaller `size` and the first
+    `n_scenes` scenes of each list for a quick check); existing
+    directories are kept."""
+    from pixel_heal_thyself_tpu_torch.data.synthetic import generate_dataset
+
+    for channel in channels:
+        train_dir, heldout_dir = channel_dirs(root, channel)
+        for d, scenes, seed in ((train_dir, TRAIN_SCENES, TRAIN_SEED),
+                                (heldout_dir, HELDOUT_SCENES, HELDOUT_SEED)):
+            if d.is_dir():
+                continue
+            log(f"generating {d}")
+            generate_dataset(d, scenes=scenes[:n_scenes], height=size, width=size,
+                             noise_scale=CHANNELS[channel], seed=seed)
+
+
+def train_argv(leg: Leg, root: str | Path, overrides=(), device: str = "cuda") -> list[str]:
+    """The leg's `train.main` command line."""
+    train_dir, _ = channel_dirs(root, leg.channel)
+    return (["-cn", leg.config, *leg.overrides, f"data.images.dir={train_dir.resolve()}",
+             *overrides, "--device", device])
+
+
+def infer_argv(leg: Leg, ckpt: str | Path, images_dir: str | Path, out_dir: str | Path,
+               overrides=(), device: str = "cuda") -> list[str]:
+    """Leg 4's `inference.main` command line for one directory of scenes."""
+    model = ["model=mamba"] if leg.model == "mamba" else []
+    return (["-cn", leg.config, *model, f"trainer.model_path={Path(ckpt).resolve()}",
+             f"inference.images_dir={Path(images_dir).resolve()}",
+             f"inference.out_dir={Path(out_dir).resolve()}", f"inference.device={device}",
+             *overrides])
+
+
+@contextlib.contextmanager
+def log_lines():
+    """The port logger's messages while the block runs (still printed)."""
+    lg = logging.getLogger("pht_tpu")
+    lines: list[str] = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            lines.append(record.getMessage())
+
+    keep = Keep(logging.INFO)
+    lg.addHandler(keep)
+    try:
+        yield lines
+    finally:
+        lg.removeHandler(keep)
+
+
+def last_validation(path: str | Path) -> dict:
+    """The last line of an `evaluation.txt`: epoch, PSNR, 1-SSIM."""
+    rows = VALIDATION.findall(Path(path).read_text())
+    epoch, _, psnr, one_minus_ssim = rows[-1]
+    return {"epoch": int(epoch), "val_psnr": float(psnr), "val_1_ssim": float(one_minus_ssim)}
+
+
+def scene_metrics(folder: str | Path) -> dict:
+    """{scene: (PSNR, 1-SSIM)} of the `<scene>_32_evaluation.txt` files in
+    `folder`."""
+    out = {}
+    for f in sorted(Path(folder).glob("*_evaluation.txt")):
+        text = f.read_text()
+        scene = f.name.rsplit("_", 2)[0]
+        out[scene] = (float(SCENE_PSNR.search(text)[1]), float(SCENE_1_SSIM.search(text)[1]))
+    return out
+
+
+def full_frame_mean(folder: str | Path) -> float:
+    """The plain mean of the per-scene PSNRs in `folder`, as round 5's
+    37.67 dB is taken."""
+    psnrs = [p for p, _ in scene_metrics(folder).values()]
+    return float(np.mean(psnrs))
+
+
+def show(path: Path, log=print) -> None:
+    log(f"==> {path} <==")
+    log(path.read_text().rstrip("\n"))
+
+
+def _per_call(total: dict, calls: int) -> dict:
+    return {k: v / calls for k, v in total.items() if v} if calls else {}
+
+
+def run_training(leg: Leg, root: Path, out: Path, overrides=(), device: str = "cuda",
+                 log=print) -> tuple[dict, Path]:
+    """One training leg: `train.main`, then its text files copied to `out`
+    and printed. Returns (the leg's record, its run directory)."""
+    from pixel_heal_thyself_tpu_torch import train
+    from pixel_heal_thyself_tpu_torch.config.run_dirs import reset_run_dirs_cache
+    from pixel_heal_thyself_tpu_torch.training.trainer import kernel_launches
+
+    argv = train_argv(leg, root, overrides, device)
+    log(f"[campaign] leg {leg.name}: train {' '.join(argv)}")
+    reset_run_dirs_cache()
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    with log_lines() as lines:
+        trainer = train.main(argv)
+    seconds = time.perf_counter() - t0
+    total = {k: v - before[k] for k, v in kernel_launches().items()}
+    cfg = trainer.cfg
+    run = Path(cfg.paths.output_dir)
+    tag = f"{run.parent.name}_{run.name}"
+    for name in ("train_loss.txt", "evaluation.txt"):
+        shutil.copyfile(run / name, out / f"{tag}_{name}")
+        show(out / f"{tag}_{name}", log)
+
+    patches = Path(cfg.data.patches.dir)
+    n_train = len(np.load(patches / "train" / "aux.npy", mmap_mode="r"))
+    n_val = len(np.load(patches / "val" / "aux.npy", mmap_mode="r"))
+    epochs = cfg.trainer.epochs - trainer.start_epoch
+    steps = epochs * math.ceil(n_train / cfg.trainer.batch_size)
+    val_batches = epochs * math.ceil(n_val / max(1, cfg.trainer.val_batch_size))
+    step_launches = dict.fromkeys(total, 0)
+    peaks = []
+    for m in filter(None, map(EPOCH_LAUNCHES.search, lines)):
+        peaks.append(int(m[3]))
+        for part in filter(None, m[2].split(", ")):
+            name, n = part.rsplit(" ", 1)
+            step_launches[name] += int(n)
+    val_launches = {k: v - step_launches[k] for k, v in total.items()}
+    rates = [m for m in map(EPOCH_SUMMARY.search, lines) if m]
+    record = {
+        "leg": leg.name, "model": leg.model, "config": leg.config, "channel": leg.channel,
+        "overrides": list(overrides), "run": tag, "epochs": epochs,
+        "train_patches": n_train, "val_patches": n_val, **last_validation(run / "evaluation.txt"),
+        "epoch_patches_per_sec": [float(m[2]) for m in rates],
+        "epoch_io_percent": [int(m[4]) for m in rates],
+        "val_seconds": [int(m[2]) for m in map(VAL_SUMMARY.search, lines) if m],
+        "store_build_seconds": trainer.store_build_seconds,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+        "launches_per_step": _per_call(step_launches, steps),
+        "launches_per_val_batch": _per_call(val_launches, val_batches),
+        "seconds": seconds,
+    }
+    if peaks:
+        record["epoch_peak_memory_bytes"] = peaks
+    ckpt = run / f"model_epoch{cfg.trainer.epochs}" / "state"
+    del trainer
+    if cuda:
+        torch.cuda.empty_cache()
+    return record, ckpt
+
+
+def run_serving(leg: Leg, ckpt: Path, root: Path, out: Path, overrides=(),
+                device: str = "cuda", log=print) -> dict:
+    """Leg 4 for one training leg: its checkpoint over the channel's
+    training and held-out scenes, the per-scene files printed."""
+    from pixel_heal_thyself_tpu_torch import inference
+    from pixel_heal_thyself_tpu_torch.training.trainer import kernel_launches
+
+    folder = out / leg.model
+    folder.mkdir(parents=True, exist_ok=True)
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    for images in channel_dirs(root, leg.channel):
+        argv = infer_argv(leg, ckpt, images, folder, overrides, device)
+        log(f"[campaign] leg 4 ({leg.name}): inference {' '.join(argv)}")
+        inference.main(argv)
+    seconds = time.perf_counter() - t0
+    scenes = scene_metrics(folder)
+    for f in sorted(folder.glob("*_evaluation.txt")):
+        show(f, log)
+    heldout = {s: scenes[s][0] for s in HELDOUT_SCENES if s in scenes}
+    return {
+        "served_scenes": len(scenes),
+        "full_frame_psnr": full_frame_mean(folder),
+        "full_frame_1_ssim": float(np.mean([v for _, v in scenes.values()])),
+        "heldout_psnr": heldout,
+        "serve_launches": {k: v - before[k] for k, v in kernel_launches().items()
+                           if v - before[k]},
+        "serve_seconds": seconds,
+    }
+
+
+def in_band(value: float | None, band) -> bool | None:
+    return None if value is None else band[0] <= value <= band[1]
+
+
+def summary(out: str | Path, card: str | None = None, device: str | None = None) -> dict:
+    """Every leg recorded in `out/legs/`, beside its round-5 numbers and
+    whether each banded number lies in its band."""
+    legs = {}
+    for f in sorted(Path(out, "legs").glob("*.json")):
+        rec = json.loads(f.read_text())
+        ref = REFERENCE[rec["leg"]]
+        rec["reference"] = ref
+        rec["val_psnr_in_band"] = in_band(rec["val_psnr"], ref["val_band"])
+        if "full_frame_band" in ref:
+            rec["full_frame_in_band"] = in_band(rec.get("full_frame_psnr"), ref["full_frame_band"])
+        legs[rec["leg"]] = rec
+    return {"campaign": "r5_quality", "device": device, "card": card, "legs": legs}
+
+
+def run(root: str | Path = ".", out: str | Path = "reports/port_r5_quality", legs=LEGS,
+        overrides=(), device: str = "cuda", size: int = 512, n_scenes: int | None = None,
+        log=print) -> dict:
+    """Legs `legs` (of LEGS) under `root` (relative paths: the working
+    directory's), reports in `out` (relative: under `root`). `size` and
+    `n_scenes` cut leg 1's datasets for a quick check. Leg 4 serves the
+    legs of SERVED trained in this call. Returns the summary, which is
+    also printed as the last line."""
+    unknown = set(legs) - set(LEGS)
+    if unknown:
+        raise ValueError(f"unknown legs {sorted(unknown)}: the card's legs are {LEGS} "
+                         "(leg 5 runs alone, on the CPU)")
+    resolve_device(device, "quality_campaign")
+    root = Path(root).resolve()
+    root.mkdir(parents=True, exist_ok=True)
+    out = root / out
+    (out / "legs").mkdir(parents=True, exist_ok=True)
+    card = card_line(device)
+    if card:
+        log(f"[campaign] {card}")
+    training = [leg for leg in TRAINING if leg.name in legs]
+    with contextlib.chdir(root):  # run directories go to root/outputs/runs
+        if "1" in legs:
+            make_datasets(root, sorted({leg.channel for leg in training} or CHANNELS),
+                          size=size, n_scenes=n_scenes, log=log)
+        for leg in training:
+            record, ckpt = run_training(leg, root, out, overrides, device, log)
+            if "4" in legs and leg.name in SERVED:
+                record.update(run_serving(leg, ckpt, root, out, overrides, device, log))
+            record["card"] = card
+            (out / "legs" / f"{leg.name}.json").write_text(json.dumps(record, indent=1) + "\n")
+            log(f"[campaign] leg {leg.name} done in {record['seconds']:.1f} s; {card}")
+    result = summary(out, card, device)
+    log(json.dumps(result))
+    return result
+
+
+def analyse(out: str | Path = "reports/port_r5_quality",
+            baseline: str | Path = "reports/r5_quality", header: str | None = None,
+            log=print) -> None:
+    """Leg 5 on the CPU: `tools/runs_inference_analysis.py` with the
+    baseline campaign's AFGSA as its baseline and the baseline's Mamba and
+    this campaign's two served generators as variants (`out/comparison/`),
+    and `tools/runs_analysis.py` over the six training runs, each in a
+    run directory of its own named `<source>_leg<leg>`
+    (`out/training_analysis/`); then `out/report.md`: `header`, and each
+    leg's banded numbers against the baseline's."""
+    out, baseline = Path(out), Path(baseline)
+    tools = Path(__file__).resolve().parents[2] / "tools"
+    comparison = [sys.executable, str(tools / "runs_inference_analysis.py"),
+                  "--baseline-dirs", str(baseline / "afgsa")]
+    for name, folder in (("port_afgsa", out / "afgsa"), ("mamba", baseline / "mamba"),
+                         ("port_mamba", out / "mamba")):
+        if folder.is_dir():
+            comparison += ["--variant", f"{name}={folder}"]
+    subprocess.run(comparison + ["--output-dir", str(out / "comparison")], check=True)
+    result = summary(out)
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [("r5", leg, baseline / tag) for leg, tag in R5_RUNS.items()]
+        runs += [("port", name, out / rec["run"]) for name, rec in result["legs"].items()]
+        for source, leg, prefix in runs:
+            run_dir = Path(tmp, f"{source}_leg{leg}", "run000")
+            run_dir.mkdir(parents=True)
+            for name in ("train_loss.txt", "evaluation.txt"):
+                shutil.copyfile(f"{prefix}_{name}", run_dir / name)
+        # from inside the tree, so that the CSV names each run by its own dirs
+        subprocess.run([sys.executable, str(tools / "runs_analysis.py"), ".", "--output-dir",
+                        str((out / "training_analysis").resolve()), "--tail-epochs", "5"],
+                       check=True, cwd=tmp)
+    lines = [f"# The port's round-5 quality campaign against `{baseline}`", ""]
+    if header:
+        lines += [header, ""]
+    lines += ["| leg | model, config, channel | final val PSNR | round 5 | band | in band "
+              "| full-frame mean PSNR | round 5 | band | in band | held-out PSNR | round 5 |",
+              "|---|---|---|---|---|---|---|---|---|---|---|---|"]
+    for name, rec in result["legs"].items():
+        ref = rec["reference"]
+        cells = [name, f"{rec['model']} {rec['config']} {rec['channel']}",
+                 f"{rec['val_psnr']:.4f}", " / ".join(map(str, ref["val_psnr"])),
+                 "–".join(map(str, ref["val_band"])), str(rec["val_psnr_in_band"])]
+        if "full_frame_band" in ref and "full_frame_psnr" in rec:
+            cells += [f"{rec['full_frame_psnr']:.4f}",
+                      " / ".join(map(str, ref["full_frame_psnr"])),
+                      "–".join(map(str, ref["full_frame_band"])), str(rec["full_frame_in_band"]),
+                      " / ".join(f"{rec['heldout_psnr'][s]:.4f}" for s in HELDOUT_SCENES),
+                      " / ".join(str(ref["heldout_psnr"][s]) for s in HELDOUT_SCENES)]
+        else:
+            cells += ["—"] * 6
+        lines.append("| " + " | ".join(cells) + " |")
+    lines += ["", "Per-scene comparison: `comparison/report.md`, `comparison/summary.txt`; "
+              "training curves: `training_analysis/metrics_report.txt`, "
+              "`training_analysis/runs_data.csv`; each leg's record: `legs/<leg>.json`."]
+    (out / "report.md").write_text("\n".join(lines) + "\n")
+    log(f"Wrote {out / 'report.md'}")
+
+
+def main(argv=None) -> dict | None:
+    parser = argparse.ArgumentParser(prog="pixel_heal_thyself_tpu_torch.tools.quality_campaign",
+                                     description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--legs", default=",".join(LEGS),
+                        help="comma-separated legs: of 1,2a,2b,3,4 (the card's), or 5 alone")
+    parser.add_argument("--root", default=".", help="where data/ and outputs/ go")
+    parser.add_argument("--out", default="reports/port_r5_quality",
+                        help="the reports' directory (relative: under --root)")
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    parser.add_argument("--baseline", default="reports/r5_quality",
+                        help="leg 5: the campaign to compare with")
+    parser.add_argument("--header", default=None, help="leg 5: report.md's header line")
+    parser.add_argument("overrides", nargs="*", help="key=value appended to every leg")
+    args = parser.parse_intermixed_args(argv)
+    legs = tuple(args.legs.split(","))
+    if legs == ("5",):
+        analyse(Path(args.root, args.out), args.baseline, args.header)
+        return None
+    return run(args.root, args.out, legs, args.overrides, args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -113,7 +113,8 @@ def training_device(device: torch.device | str) -> torch.device:
 
 def kernel_launches() -> dict:
     """The training path's hand kernels' launch counts so far in this
-    process, by wrapper name (each wrapper counts its launches)."""
+    process, by wrapper name (each wrapper counts its launches): the train
+    step's, and K7, which the Mamba validation forward launches."""
     from pixel_heal_thyself_tpu_torch.ops.attention_cuda import (
         block_halo_attention_bwd_cuda,
         block_halo_attention_cuda,
@@ -126,13 +127,14 @@ def kernel_launches() -> dict:
     )
     from pixel_heal_thyself_tpu_torch.ops.ssd_mega_cuda import (
         fused_mamba_chain_bwd_cuda,
+        fused_mamba_chain_cuda,
         fused_mamba_chain_emit_cuda,
     )
 
     return {fn.__name__: fn.launches for fn in (
         block_halo_attention_cuda, pointwise_gemm_cuda, conv3x3_cuda,
         block_halo_attention_bwd_cuda, conv3x3_dgrad_cuda, weight_grad_cuda,
-        fused_mamba_chain_emit_cuda, fused_mamba_chain_bwd_cuda)}
+        fused_mamba_chain_cuda, fused_mamba_chain_emit_cuda, fused_mamba_chain_bwd_cuda)}
 
 
 def _numpy(x) -> np.ndarray:

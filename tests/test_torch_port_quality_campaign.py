@@ -1,0 +1,240 @@
+"""The port's quality campaign (`tools/quality_campaign.py`) against the JAX
+package's `tools/r5_quality_campaign.sh`, on the CPU.
+
+- Leg 1: the script's own `generate_dataset` calls (its Python block run
+  with the JAX function recording them) are the port's, argument for
+  argument; at 2 scenes of 64² a directory the port's four directories
+  equal the JAX function's byte for byte.
+- Legs 2a, 2b and 3: the port's composed config of each training leg
+  equals the JAX `compose` of the script's command line, up to `paths`.
+- The campaign end to end through its CLI with `--device cpu`, legs 1, 2a
+  and 4 then 1, 2b, 3 and 4 (the summary holds all three legs) at
+  narrow widths (the `-cn ci` run's, as tests/test_torch_port_trainer.py's
+  TINY), 1 epoch, 8 patches an image, on 64² datasets that leg 1 keeps;
+  then leg 5, whose analysis tools (`tools/runs_analysis.py`,
+  `tools/runs_inference_analysis.py`) parse every file it wrote with their
+  own regexes.
+- The summary's full-frame mean over round 5's per-scene files gives
+  BASELINE.md's numbers.
+
+Torch is held to 2 threads, as in test_torch_port_trainer_cli.py.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import math
+import re
+import shlex
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("jax")
+import torch  # noqa: E402
+
+import pixel_heal_thyself_tpu.data.synthetic as jsynthetic  # noqa: E402
+import pixel_heal_thyself_tpu_torch.data.synthetic as psynthetic  # noqa: E402
+from pixel_heal_thyself_tpu.config import compose as jcompose  # noqa: E402
+from pixel_heal_thyself_tpu.config.run_dirs import (  # noqa: E402
+    register_run_dirs_resolver as jregister,
+)
+from pixel_heal_thyself_tpu_torch.config import compose as pcompose  # noqa: E402
+from pixel_heal_thyself_tpu_torch.config.run_dirs import (  # noqa: E402
+    register_run_dirs_resolver as pregister,
+)
+from pixel_heal_thyself_tpu_torch.config.run_dirs import reset_run_dirs_cache  # noqa: E402
+from pixel_heal_thyself_tpu_torch.tools import quality_campaign as qc  # noqa: E402
+
+REPO = Path(__file__).resolve().parent.parent
+SCRIPT = REPO / "tools" / "r5_quality_campaign.sh"
+R5 = REPO / "reports" / "r5_quality"
+# narrow widths for the CPU, one list a generator's legs
+NARROW = ["trainer.epochs=1", "data.patches.num_patches=8", "data.patches.patch_size=16",
+          "trainer.batch_size=2", "trainer.precision=fp32", "model.feature_map_channels=16",
+          "+model.enc_channels=16"]
+NARROW_AFGSA = [*NARROW, "model.afgsa.self_attention.num_layers=1"]
+NARROW_MAMBA = [*NARROW, "model.mamba.num_layers=1", "model.mamba.expansion=2",
+                "model.mamba.headdim=8", "model.mamba.d_state=8"]
+
+
+@pytest.fixture(autouse=True)
+def _two_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _port_run_dirs():
+    reset_run_dirs_cache()
+    yield
+    reset_run_dirs_cache()
+
+
+def _script_python() -> str:
+    text = SCRIPT.read_text()
+    return text.split("python - <<'EOF'\n", 1)[1].split("\nEOF\n", 1)[0]
+
+
+def _script_commands(module: str) -> list[list[str]]:
+    """The script's `python -m <module>` command lines, continuations
+    joined and split as the shell would ($ROOT kept)."""
+    text = SCRIPT.read_text().replace("\\\n", " ")
+    return [shlex.split(line.strip())[3:] for line in text.splitlines()
+            if line.strip().startswith(f"python -m {module} ")]
+
+
+def _record(monkeypatch, module) -> list[tuple]:
+    calls = []
+    monkeypatch.setattr(module, "generate_dataset",
+                        lambda d, **kw: calls.append((str(d), kw)))
+    return calls
+
+
+def _files(root: Path) -> dict:
+    return {str(p.relative_to(root)): p.read_bytes() for p in sorted(root.rglob("*"))
+            if p.is_file()}
+
+
+def test_leg1_calls_are_the_scripts(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    jcalls = _record(monkeypatch, jsynthetic)
+    exec(compile(_script_python(), str(SCRIPT), "exec"), {})
+    pcalls = _record(monkeypatch, psynthetic)
+    qc.make_datasets(".", log=lambda s: None)
+    assert len(jcalls) == 4
+    assert pcalls == [(str(Path(".", d)), kw) for d, kw in jcalls]
+
+
+@pytest.mark.parametrize("channel", list(qc.CHANNELS))
+def test_leg1_datasets_equal_jax(tmp_path, monkeypatch, channel):
+    monkeypatch.chdir(tmp_path)
+    jcalls = _record(monkeypatch, jsynthetic)
+    exec(compile(_script_python(), str(SCRIPT), "exec"), {})
+    monkeypatch.undo()
+    wanted = [str(d) for d in qc.channel_dirs("", channel)]
+    for d, kw in jcalls:
+        if d in wanted:
+            jsynthetic.generate_dataset(tmp_path / "jax" / d, **dict(
+                kw, scenes=kw["scenes"][:2], height=64, width=64))
+    qc.make_datasets(tmp_path / "port", channels=(channel,), size=64, n_scenes=2,
+                     log=lambda s: None)
+    jfiles, pfiles = _files(tmp_path / "jax"), _files(tmp_path / "port")
+    assert len(pfiles) == 8  # 2 directories × 2 scenes × (32 spp, 1024 spp)
+    assert jfiles.keys() == pfiles.keys()
+    assert all(jfiles[k] == pfiles[k] for k in jfiles)
+
+
+def _tree_without_paths(tree: dict) -> dict:
+    return {k: v for k, v in tree.items() if k != "paths"}
+
+
+@pytest.mark.parametrize("leg", qc.TRAINING, ids=lambda leg: leg.name)
+def test_training_leg_config_equals_jax_compose(tmp_path, monkeypatch, leg):
+    monkeypatch.chdir(tmp_path)
+    jregister()
+    pregister()
+    script = [argv for argv in _script_commands("pixel_heal_thyself_tpu.train")
+              if argv[1] == leg.config and argv[-1].endswith(f"/images_prod_synth_{leg.channel}")]
+    assert len(script) == 1
+    jargv = [a.replace("$ROOT", str(tmp_path)) for a in script[0]]
+    assert jargv[0] == "-cn"
+    want = jcompose(jargv[1], jargv[2:])
+    pargv = qc.train_argv(leg, tmp_path, device="cpu")
+    assert pargv[:2] == ["-cn", leg.config] and pargv[-2:] == ["--device", "cpu"]
+    got = pcompose(pargv[1], pargv[2:-2])
+    assert got["data"]["images"]["dir"] == want["data"]["images"]["dir"]
+    assert _tree_without_paths(got) == _tree_without_paths(want)
+
+
+@pytest.mark.parametrize("val,full,want", [(37.47, 37.30, (True, True)),
+                                            (37.4701, 37.97, (False, True)),
+                                            (36.80, 37.2999, (True, False))])
+def test_summary_bands(tmp_path, val, full, want):
+    (tmp_path / "legs").mkdir()
+    rec = {"leg": "2a", "val_psnr": val, "full_frame_psnr": full}
+    (tmp_path / "legs" / "2a.json").write_text(json.dumps(rec))
+    got = qc.summary(tmp_path, card="c", device="cuda")
+    assert (got["card"], got["device"]) == ("c", "cuda")
+    leg = got["legs"]["2a"]
+    assert (leg["val_psnr_in_band"], leg["full_frame_in_band"]) == want
+    assert leg["reference"] == qc.REFERENCE["2a"]
+
+
+def test_unknown_legs_and_missing_card_raise(tmp_path):
+    with pytest.raises(ValueError, match="leg 5 runs alone"):
+        qc.run(tmp_path, legs=("1", "5"), device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            qc.run(tmp_path, legs=("1",))
+        assert not (tmp_path / "data").exists()
+
+
+def _tool(name: str):
+    spec = importlib.util.spec_from_file_location(name, REPO / "tools" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_campaign_end_to_end_and_leg5_parse(tmp_path, capsys):
+    pytest.importorskip("pandas")
+    pytest.importorskip("matplotlib")
+    pytest.importorskip("cv2")
+    root = tmp_path / "campaign"
+    qc.make_datasets(root, size=64, n_scenes=2, log=lambda s: None)  # leg 1 keeps them
+    qc.main(["--legs", "1,2a,4", "--root", str(root), "--device", "cpu", *NARROW_AFGSA])
+    summary = qc.main(["--legs", "1,2b,3,4", "--root", str(root), "--device", "cpu",
+                       *NARROW_MAMBA])
+    printed = capsys.readouterr().out.splitlines()
+    assert json.loads(printed[-1]) == json.loads(json.dumps(summary))
+    assert summary["device"] == "cpu" and summary["card"] is None
+    assert set(summary["legs"]) == {"2a", "2b", "3"}
+    out = root / "reports" / "port_r5_quality"
+    served = [*qc.TRAIN_SCENES[:2], *qc.HELDOUT_SCENES]
+    for name, rec in summary["legs"].items():
+        assert rec["epochs"] == 1 and math.isfinite(rec["val_psnr"])
+        assert rec["reference"] == qc.REFERENCE[name]
+        assert rec["val_psnr_in_band"] is False  # 1 epoch of a narrow model
+        for suffix in ("train_loss.txt", "evaluation.txt"):
+            text = (out / f"{rec['run']}_{suffix}").read_text()
+            assert f"==> {out / rec['run']}_{suffix} <==" in printed
+            assert text.splitlines()[-1] in printed
+        if name in qc.SERVED:
+            assert rec["served_scenes"] == 4 and set(rec["heldout_psnr"]) == set(qc.HELDOUT_SCENES)
+            folder = out / rec["model"]
+            assert sorted(p.name for p in folder.iterdir()) == sorted(
+                f"{s}_32_evaluation.txt" for s in served)
+            assert rec["full_frame_psnr"] == pytest.approx(qc.full_frame_mean(folder))
+    # round 5's names: the Mamba re-run on the 0.75 channel is the second run
+    assert [summary["legs"][n]["run"] for n in ("2a", "2b", "3")] == [
+        "afgsa_p16_n8_r1.0_run000", "mamba_p16_n8_r0.5_run000", "mamba_p16_n8_r0.5_run001"]
+
+    qc.main(["--legs", "5", "--root", str(root), "--baseline", str(R5), "--header", "H"])
+    ra, ria = _tool("runs_analysis"), _tool("runs_inference_analysis")
+    for rec in summary["legs"].values():
+        assert [m[1] for m in ra.EVAL_RE.finditer(
+            (out / f"{rec['run']}_evaluation.txt").read_text())] == ["1"]
+        assert [m[1] for m in ra.LOSS_RE.finditer(
+            (out / f"{rec['run']}_train_loss.txt").read_text())] == ["1"]
+    scene_files = sorted(out.glob("*/*_32_evaluation.txt"))
+    assert len(scene_files) == 8
+    assert all(ria.process_evaluation_file(str(f)) for f in scene_files)
+    rows = (out / "comparison" / "inference_data.csv").read_text().splitlines()
+    assert len(rows) == 1 + 12 + 4 + 12 + 4  # r5 AFGSA, port AFGSA, r5 Mamba, port Mamba
+    runs = (out / "training_analysis" / "runs_data.csv").read_text()
+    for exp in ("r5_leg2a", "r5_leg2b", "r5_leg3", "port_leg2a", "port_leg2b", "port_leg3"):
+        assert exp in runs
+    report = (out / "report.md").read_text().splitlines()
+    assert report[2] == "H"
+    assert sum(bool(re.match(r"\| (2a|2b|3) \|", line)) for line in report) == 3
+
+
+@pytest.mark.parametrize("folder,want", [("afgsa", 37.6693), ("afgsa_mega", 37.6039),
+                                         ("mamba", 38.3803)])
+def test_full_frame_mean_of_round5(folder, want):
+    assert round(qc.full_frame_mean(R5 / folder), 4) == want
+    assert len(qc.scene_metrics(R5 / folder)) == 12
