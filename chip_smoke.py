@@ -39,10 +39,12 @@ exits non-zero. Phases:
    path on the card.
 5. Training: the prod GAN step (`training.train_step.make_train_step`,
    WGAN-GP + L1, Adam with the MultiStep schedule) on the prod-width
-   AFGSANet in train mode and DiscriminatorVGG(128, 64, bf16), seeded
-   random weights, batch 8 of 128² numpy patches: 2 warm-up and 5 timed
-   steps. Checks finite losses, that every block of every step ran its
-   backward through K4, K5 and K6 (launch counters), that every K1 and K4
+   AFGSANet in train mode and the prod critic as training builds it
+   (DiscriminatorVGG(128, 64) in `models.discriminators.GP_CRITIC_DTYPE`,
+   float32), seeded random weights, batch 8 of 128² numpy patches: 2
+   warm-up and 5 timed steps, TF32 on as the trainer sets it at bf16.
+   Checks finite losses, that every block of every step ran its backward
+   through K4, K5 and K6 (launch counters), that every K1 and K4
    launch took its tensor-core body and every K2, K3, K5 and K6 launch its
    Hopper body (per-body counters), prints patches/s and
    peak memory, then one step from identical state (with a float32
@@ -108,7 +110,8 @@ exits non-zero. Phases:
    the folded run took its tensor-core body.
 11. Trainer: the training CLI, `train.main`, for `-cn prod` and `-cn prod
    model=mamba` in a temporary working directory (synthetic 512² scenes,
-   `trainer.epochs=2`, batch 8 × 128², bf16, the kernels on; the patch
+   `trainer.epochs=2`, num_patches 100, batch 8 × 128², bf16, the
+   kernels on; the patch
    store built on the first run): `data.loader=auto` resolved to
    `device`, `train_loss.txt` and `evaluation.txt` one finite line per
    epoch, the PNG panels decode, `model_epoch{1,2}/state/` written; every
@@ -125,7 +128,8 @@ exits non-zero. Phases:
    the store build's seconds and peak memory.
 12. The trainer's GAN options at prod width (batch 8 × 128², bf16, the
    kernels on; 1 warm-up + 3 steps each): (a) the AFGSANet with FiLM, which
-   takes the literal route, WGAN-GP against DiscriminatorVGG: every step
+   takes the literal route, WGAN-GP against the prod critic (float32, TF32
+   on, as phase 5): every step
    launches K1 and K4 five times (the tensor-core bodies) and no block
    kernel; one step through the kernel and plain routes (STEP_LOSS_TOL,
    STEP_GRAD_TOL) beside the plain route repeated; one 512² FiLM frame
@@ -177,7 +181,8 @@ exits non-zero. Phases:
    one card, prod widths, global batch 8 × 128²: 2 gloo ranks sharing the
    card train the AFGSA (K1–K6) and Mamba (K7e/K8) steps data-parallel (4
    rows a rank) and the AFGSA step with Adam sharded over the 2 ranks (D=1
-   × M=2): 4 timed bf16 steps each (s/step, host seconds in the gradient
+   × M=2): 4 timed bf16 steps each against the prod critic (float32, TF32
+   on, as phase 5) (s/step, host seconds in the gradient
    and parameter collectives, peak memory and launches per rank, every
    launch on its prod body, the global losses equal on every rank), then
    one step with a float32 critic under deterministic cuDNN against one
@@ -215,6 +220,17 @@ exits non-zero. Phases:
    epoch rate, validation seconds, peak memory, launches a step and a
    validation batch, and the phase's seconds. The full campaign (12
    epochs, 10 scenes of 512²) is its own command, not a phase.
+18. The WGAN-GP critic's numerics (`tools.critic_numerics`) at the prod
+   shapes under the trainer's bf16 arithmetic: the critic the trainer
+   builds (`create_discriminator` of the `-cn prod` AFGSATrainer: float32,
+   TF32 products, its seeded init) on 8 tiles of the campaign's first
+   scene, `fake` from the seeded prod AFGSANet through its kernels. The
+   trainer's critic and a bf16 copy each against the true-float32 critic:
+   the trainer's GP norms' mean relative deviation within 3× its own
+   reading (CRITIC_TRAINER_GP, which the bf16 copy fails), the bf16 copy's
+   GP norms and D gradient within 2× the JAX package's own bf16 deviation
+   for the same critic and inputs (CRITIC_JAX, measured on the CPU).
+   Prints what it read and the phase's seconds.
 
 Every kernel row states its bound (the least time the card could take:
 the larger of the bytes its function must move over 3.35 TB/s and its
@@ -1231,6 +1247,19 @@ def _train_state(device, d_dtype, g_kwargs, patch, batch, seed, net=None, multis
 
 
 @contextlib.contextmanager
+def trainer_tf32():
+    """TF32 on while the block runs, as the trainer sets it for a bf16 run
+    (its float32 critic's products): a timed prod step runs what training
+    runs."""
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+@contextlib.contextmanager
 def deterministic_cudnn():
     """cuDNN's deterministic algorithms, so that two routes differ only
     where the generator's kernels differ from their plain versions."""
@@ -1302,22 +1331,26 @@ def train_and_compare(device, net, kwargs, route, names: tuple, layers: int, lit
     from pixel_heal_thyself_tpu_torch.models.afgsa import count_params
 
     patch, batch, warmup, timed = (TRAIN[k] for k in ("patch", "batch", "warmup", "timed"))
-    g, d, data = _train_state(device, torch.bfloat16, kwargs, patch, batch, seed=0, net=net)
+    from pixel_heal_thyself_tpu_torch.models.discriminators import GP_CRITIC_DTYPE
+
+    g, d, data = _train_state(device, GP_CRITIC_DTYPE, kwargs, patch, batch, seed=0, net=net)
     assert route(g), f"the prod {net.__name__} step must take its kernel route"
     step = make_step(g, d)
     gen = torch.Generator(device=device).manual_seed(7)
     log(f"[{tag}] prod step: G {net.__name__} {count_params(g)} params (bf16, {layers} blocks, "
-        f"kernel route), D {count_params(d)} params; batch {batch} × {patch}², WGAN-GP + L1")
+        f"kernel route), D {count_params(d)} params ({d.dtype}, TF32 on); batch {batch} × "
+        f"{patch}², WGAN-GP + L1")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     secs, history = [], []
-    for i in range(warmup + timed):
-        t0 = time.perf_counter()
-        metrics = step(data, generator=gen)
-        history.append({key: val.item() for key, val in metrics.items()})  # syncs
-        secs.append(time.perf_counter() - t0)
+    with trainer_tf32():
+        for i in range(warmup + timed):
+            t0 = time.perf_counter()
+            metrics = step(data, generator=gen)
+            history.append({key: val.item() for key, val in metrics.items()})  # syncs
+            secs.append(time.perf_counter() - t0)
     launches = read_counts()
     check_bodies(tag, launches)
     peak = torch.cuda.max_memory_allocated()
@@ -1803,11 +1836,13 @@ def phase_fold_qkv(device) -> dict:
 # phase 11: `train.main` at `-cn prod` (AFGSA and Mamba) on synthetic scenes.
 # The default synthetic_size 128 leaves no room for 128² patches
 # (`importance_sampling` raises "too small" in both packages), so the
-# scenes are 512²; the rest is prod: 4 scene pairs, num_patches 400, batch
-# 8 × 128², bf16, the kernels on, val batch 8. Cut: 2 epochs (prod 12).
+# scenes are 512²; the rest is prod: 4 scene pairs, batch 8 × 128², bf16,
+# the kernels on, val batch 8. Cut: 2 epochs (prod 12), num_patches 100
+# (prod 400, at which this phase's four runs took 520 s of the script's
+# 1186 s on an NVIDIA H100 80GB HBM3 at 700.00 W).
 TRAINER_CONFIG = "prod"
 TRAINER_ARGS = ["data.images.synthesize=true", "data.images.synthetic_size=512",
-                "trainer.epochs=2", "--device", "cuda"]
+                "data.patches.num_patches=100", "trainer.epochs=2", "--device", "cuda"]
 # per model: the kernels every train step and every validation forward run
 TRAINER_KERNELS = {"afgsa": (("K1", "K2", "K3", "K4", "K5", "K6"), ("K1", "K2", "K3")),
                    "mamba": (("K7e", "K8"), ("K7",))}
@@ -2196,7 +2231,11 @@ def gan_step(device, net, kwargs, lpips, route, expect: dict, grad_tol: tuple, t
 
     patch, batch = TRAIN["patch"], TRAIN["batch"]
     warmup, steps = GAN_STEPS["warmup"], GAN_STEPS["warmup"] + GAN_STEPS["timed"]
-    g, d, data = _train_state(device, torch.bfloat16, kwargs, patch, batch, seed=0, net=net,
+    from pixel_heal_thyself_tpu_torch.models.discriminators import GP_CRITIC_DTYPE
+
+    # the critic's dtype as training's: the multiscale critic keeps the run's
+    g, d, data = _train_state(device, torch.bfloat16 if lpips is not None else GP_CRITIC_DTYPE,
+                              kwargs, patch, batch, seed=0, net=net,
                               multiscale=lpips is not None)
     if not route(g):
         raise AssertionError(f"[{tag}] the prod {net.__name__} step left its route")
@@ -2216,8 +2255,9 @@ def gan_step(device, net, kwargs, lpips, route, expect: dict, grad_tol: tuple, t
     for i in range(steps):
         c0 = read_counts()
         t0 = time.perf_counter()
-        metrics = step(data, generator=gen)
-        history.append({key: val.item() for key, val in metrics.items()})  # syncs
+        with contextlib.nullcontext() if sn else trainer_tf32():
+            metrics = step(data, generator=gen)
+            history.append({key: val.item() for key, val in metrics.items()})  # syncs
         secs.append(time.perf_counter() - t0)
         counts.append({k: n - c0[k] for k, n in read_counts().items()})
         if i == 0 and sn:
@@ -2802,10 +2842,11 @@ def phase_sharded(device, frame: dict, smi: str) -> None:
 # phase 15: multi-GPU training on the one card. nccl refuses two ranks on
 # one GPU, so 2 gloo ranks share it (their collectives staged through host
 # memory), as in phase 14: correctness and overhead, not a speed-up. Each
-# job trains the prod generator against DiscriminatorVGG(128, 64) on the
-# global batch 8 × 128² (4 rows a rank at D = 2): DP["steps"] timed bf16
-# steps, then one step with a float32 critic under deterministic cuDNN
-# against one process (STEP_LOSS_TOL; STEP_GRAD_TOL, Mamba
+# job trains the prod generator against the prod critic (DiscriminatorVGG(128,
+# 64) in GP_CRITIC_DTYPE) on the global batch 8 × 128² (4 rows a rank at
+# D = 2): DP["steps"] timed bf16 steps (TF32 on, as the trainer sets it),
+# then one step with a float32 critic under deterministic cuDNN against
+# one process (STEP_LOSS_TOL; STEP_GRAD_TOL, Mamba
 # MAMBA_STEP_GRAD_TOL). The D = 1 × M = 2 job shards Adam over the two
 # ranks: its step must equal one process to the bit.
 DP = dict(ranks=2, steps=4)
@@ -2863,6 +2904,7 @@ def dp_rank(tmp: str, device_type: str, alpha) -> None:
     import torch.distributed as dist
 
     from pixel_heal_thyself_tpu_torch import _build
+    from pixel_heal_thyself_tpu_torch.models.discriminators import GP_CRITIC_DTYPE
     from pixel_heal_thyself_tpu_torch.parallel.mesh import make_mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2875,7 +2917,7 @@ def dp_rank(tmp: str, device_type: str, alpha) -> None:
     for name, grid in DP_JOBS:
         mesh = make_mesh(*grid)
         net, kwargs = _prod_net(name)
-        g, d, data = _train_state(device, torch.bfloat16, kwargs, patch, batch, seed=0, net=net,
+        g, d, data = _train_state(device, GP_CRITIC_DTYPE, kwargs, patch, batch, seed=0, net=net,
                                   data_group=mesh.data_group)
         step = make_step(g, d, mesh=mesh)
         local = _rows(data, mesh)
@@ -2886,8 +2928,9 @@ def dp_rank(tmp: str, device_type: str, alpha) -> None:
         reset_counts()
         for _ in range(DP["steps"]):
             t0, c0 = time.perf_counter(), step.comm_seconds
-            metrics = step(local, generator=gen)
-            rec["losses"].append({k: v.item() for k, v in metrics.items()})  # syncs
+            with trainer_tf32():
+                metrics = step(local, generator=gen)
+                rec["losses"].append({k: v.item() for k, v in metrics.items()})  # syncs
             rec["secs"].append(time.perf_counter() - t0)
             rec["comm"].append(step.comm_seconds - c0)
         rec["launches"] = read_counts()
@@ -3159,16 +3202,15 @@ def phase_tools(device, step_rates: dict, smi: str) -> None:
     make_synthetic_datasets on small synthetic scenes."""
     from pixel_heal_thyself_tpu_torch.data import inspect
     from pixel_heal_thyself_tpu_torch.data.exr import read_exr_header
-    from pixel_heal_thyself_tpu_torch.models.discriminators import DiscriminatorVGG
     from pixel_heal_thyself_tpu_torch.tools import (
         bench_inference,
         bench_pipeline,
         bench_serving,
         flops_train_step,
         make_synthetic_datasets,
+        prod_critic,
         prod_generator,
         resize_exrs,
-        seeded,
     )
 
     t_phase = time.perf_counter()
@@ -3217,8 +3259,7 @@ def phase_tools(device, step_rates: dict, smi: str) -> None:
     torch.cuda.empty_cache()
 
     g = prod_generator("afgsa", device).train()
-    d = seeded(DiscriminatorVGG, dict(in_nc=3, base_nf=64, input_size=TRAIN["patch"],
-                                      dtype=torch.bfloat16), device, seed=1).train()
+    d = prod_critic(device).train()
     steps = TOOLS["steps"]
 
     @contextlib.contextmanager
@@ -3357,6 +3398,74 @@ def phase_campaign(smi: str) -> None:
     log(f"[campaign] phase 17 {time.perf_counter() - t_phase:.2f} s; {smi}")
 
 
+# phase 18: the WGAN-GP critic's numerics on the card (`tools.critic_numerics`,
+# under the trainer's bf16 arithmetic): the prod critic DiscriminatorVGG(128,
+# 64) at the trainer's seeded init (parameter sum CRITIC_CHECKSUM), on 8 tiles
+# of 128² of the campaign's first scene (`critic_numerics.scene_batch`), fake
+# = the prod AFGSANet at its seeded init through its kernels, alpha from
+# seed 990819. CRITIC_JAX is the JAX package's own bf16-vs-f32 deviation of
+# the same D step on the CPU for the same critic and inputs (the inputs as
+# `critic_numerics --save-inputs` wrote them on an NVIDIA H100 80GB HBM3 at
+# 700.00 W; `python tests/torch_port_critic_yardstick.py INPUTS.npz`): the
+# GP's input-gradient norms, mean relative error, and D's parameter
+# gradient, rms relative error over all leaves.
+CRITIC_JAX = {"gp_norm": 1.1378375407094e-02, "d_grad": 1.7238e-01}
+CRITIC_CHECKSUM = 3836.401164807634
+# the trainer's own critic (float32, TF32 products) read a GP-norm deviation
+# of 1.1635e-3 in this phase on an NVIDIA H100 80GB HBM3 at 700.00 W, the
+# bf16 critic 8.1129e-3: the trainer's critic is held within 3× its own
+# reading, which the bf16 critic fails
+CRITIC_TRAINER_GP = 3 * 1.1635e-03
+
+
+def phase_critic(smi: str) -> None:
+    """Phase 18: `critic_numerics.run` at the prod shapes on the critic
+    the trainer builds (`AFGSATrainer.create_discriminator` at `-cn
+    prod`), which must be float32 and keep the GP norms' mean relative
+    deviation from the true-float32 critic within CRITIC_TRAINER_GP; the
+    bf16 critic (the JAX package's choice) must keep its GP norms and D
+    gradient within 2× CRITIC_JAX's."""
+    from pixel_heal_thyself_tpu_torch.config import ConfigRegistry, compose
+    from pixel_heal_thyself_tpu_torch.config.run_dirs import register_run_dirs_resolver
+    from pixel_heal_thyself_tpu_torch.tools import critic_numerics
+    from pixel_heal_thyself_tpu_torch.training.trainer import AFGSATrainer
+
+    t_phase = time.perf_counter()
+    register_run_dirs_resolver()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        cfg = ConfigRegistry.create_config(compose(TRAINER_CONFIG, [f"paths.output_dir={tmp}"]))
+        critic = AFGSATrainer(cfg, device="cuda").create_discriminator()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main set them
+    torch.backends.cudnn.allow_tf32 = False
+    if critic.dtype != torch.float32:
+        raise AssertionError(f"[critic] the trainer builds its critic in {critic.dtype}")
+    result = critic_numerics.run(critic=critic, device="cuda", names=("trainer",),
+                                 seed=cfg.seed, log=lambda _: None)
+    checksum = result["critic"]["checksum"]
+    if abs(checksum - CRITIC_CHECKSUM) > 1e-9 * abs(CRITIC_CHECKSUM):
+        raise AssertionError(f"[critic] the seeded critic's parameter sum {checksum!r} is not "
+                             f"the one CRITIC_JAX was measured for ({CRITIC_CHECKSUM!r})")
+    rows = result["rows"]
+    for name, row in (("trainer_critic", rows["trainer_critic"]), ("bf16", rows["trainer"])):
+        gp, dg = row["gp_norm"]["mean_rel_err"], row["d_grad"]["overall"]
+        log(f"[critic] {name}: GP norms mean rel {gp:.4e} (max {row['gp_norm']['max_rel_err']:.4e})"
+            f", D grad rms rel {dg:.4e}, G grad rms rel {row['g_grad']:.4e}, d_loss rel "
+            f"{row['losses']['d_loss']['rel_err']:.4e}; JAX bf16 on the CPU: GP norms "
+            f"{CRITIC_JAX['gp_norm']:.4e}, D grad {CRITIC_JAX['d_grad']:.4e}")
+    gp = rows["trainer_critic"]["gp_norm"]["mean_rel_err"]
+    if not gp <= CRITIC_TRAINER_GP:
+        raise AssertionError(f"[critic] the trainer's critic: GP norms {gp:.4e} beyond "
+                             f"{CRITIC_TRAINER_GP:.4e}")
+    gp, dg = rows["trainer"]["gp_norm"]["mean_rel_err"], rows["trainer"]["d_grad"]["overall"]
+    if not (gp <= 2 * CRITIC_JAX["gp_norm"] and dg <= 2 * CRITIC_JAX["d_grad"]):
+        raise AssertionError(f"[critic] bf16: GP norms {gp:.4e} or D grad {dg:.4e} beyond 2x "
+                             "the JAX package's")
+    log(f"[critic] the trainer's critic: {critic.dtype}, GP norms within "
+        f"{CRITIC_TRAINER_GP:.4e}; repeat of the bf16 critic: D grad "
+        f"{rows['repeat']['d_grad']['overall']:.4e}; phase 18 "
+        f"{time.perf_counter() - t_phase:.2f} s; {smi}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -3399,6 +3508,7 @@ def main() -> None:
     phase_dp_training(device, smi)
     phase_tools(device, {"afgsa": afgsa_rate, "mamba": mamba_rate}, smi)
     phase_campaign(smi)
+    phase_critic(smi)
     # each kernel's count from the path it was ported for
     path = {"K1": serving, "K2": serving, "K3": serving, "K4": training, "K5": training,
             "K6": training, "K7": mamba, "K7e": mamba_training, "K8": mamba_training,

@@ -76,6 +76,22 @@ def _critic_input_grad(d_apply, interp: torch.Tensor) -> torch.Tensor:
     return grads.reshape(grads.shape[0], -1)
 
 
+def gp_norms(
+    d_apply: Callable[[torch.Tensor], torch.Tensor],
+    real_data: torch.Tensor,
+    fake_data: torch.Tensor,
+    alpha: torch.Tensor | None = None,
+    generator: torch.Generator | None = None,
+    group=None,
+) -> torch.Tensor:
+    """[B] float32 per-sample L2 norms of the critic's input gradient at
+    the WGAN-GP interpolation of real and detached fake (differentiable:
+    `gradient_penalty` penalises them)."""
+    alpha = _interp_alpha(real_data, alpha, generator, group)
+    interp = alpha * fake_data.detach() + (1 - alpha) * real_data
+    return _critic_input_grad(d_apply, interp).float().norm(dim=1)
+
+
 def gradient_penalty(
     d_apply: Callable[[torch.Tensor], torch.Tensor],
     real_data: torch.Tensor,
@@ -87,9 +103,7 @@ def gradient_penalty(
     """WGAN-GP. `alpha` [B, 1, 1, 1] float32 interpolation weights, or drawn
     uniform from `generator` on the data's device when None (with a
     data `group`: the global batch's, and the rank's share comes back)."""
-    alpha = _interp_alpha(real_data, alpha, generator, group)
-    interp = alpha * fake_data.detach() + (1 - alpha) * real_data
-    norm = _critic_input_grad(d_apply, interp).float().norm(dim=1)
+    norm = gp_norms(d_apply, real_data, fake_data, alpha, generator, group)
     return share(torch.mean((norm - 1.0) ** 2), group)
 
 

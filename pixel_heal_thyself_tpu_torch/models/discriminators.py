@@ -19,6 +19,10 @@ The flattens run in NHWC order, as flax's do, so the Dense kernels map by
 a plain transpose (`params.py`). Convs and Dense layers compute in
 `dtype`; BatchNorm normalises in float32.
 
+`DiscriminatorVGG`, which the WGAN-GP differentiates twice, runs its convs
+as `layers.TwiceDifferentiableConv`: their gradients differentiate
+precisely again in bf16. Training builds it in `GP_CRITIC_DTYPE`.
+
 Spectral norm keeps its power-iteration vector `u` as a registered
 buffer (it lands in `state_dict` and in checkpoints) and writes it only
 inside `spectral_norm_update(module)`, as the JAX `SNConv` writes its
@@ -38,11 +42,29 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pixel_heal_thyself_tpu_torch.models.layers import ConvBlock, apply_act
+from pixel_heal_thyself_tpu_torch.models.layers import (
+    ConvBlock,
+    TwiceDifferentiableConv,
+    apply_act,
+)
 from pixel_heal_thyself_tpu_torch.utils.init import (
     torch_default_bias_init_,
     torch_default_kernel_init_,
 )
+
+
+# The dtype training builds the WGAN-GP critic (`DiscriminatorVGG`, its
+# GP's double backward and its loss terms) in, at every precision, with
+# TF32 products on the card under bf16: a numerics difference from the JAX
+# package, whose critic takes the run's dtype. At bf16 the port's critic
+# stayed weak (D loss positive at epoch 2, G held at its L1 optimum,
+# validation rising past round 5's band) where the JAX package's on the TPU
+# turned its D loss negative at epoch 2; with the critic alone in float32 (G
+# in bf16 through the kernels) the AFGSA run follows round 5's course. It
+# also moves the Mamba run's served frames up by about 0.1 dB against a
+# bf16 critic, past round 5's band (PERF.md §6, ROADMAP Queue 3 item 4).
+# The multiscale critic (RaHinge, no GP) keeps the run's dtype.
+GP_CRITIC_DTYPE = torch.float32
 
 
 class Dense(nn.Module):
@@ -84,18 +106,19 @@ class DiscriminatorVGG(nn.Module):
         super().__init__()
         self.dtype = dtype
         g = generator
+        conv = TwiceDifferentiableConv
         blocks = [ConvBlock(in_nc, base_nf, 3, padding=1, act_type=act_type, dtype=dtype,
-                            generator=g)]
+                            generator=g, conv=conv)]
         nf = base_nf
         num_downsample = int(math.log2(input_size / 4))
         for i in range(num_downsample):
             next_nf = min(base_nf * 2 ** (i + 1), base_nf * 8)
             blocks.append(ConvBlock(nf, next_nf, 3, stride=1, padding=1, norm_type=norm_type,
                                     act_type=act_type, dtype=dtype, generator=g,
-                                    data_group=data_group))
+                                    data_group=data_group, conv=conv))
             blocks.append(ConvBlock(next_nf, next_nf, 4, stride=2, padding=1,
                                     norm_type=norm_type, act_type=act_type, dtype=dtype,
-                                    generator=g, data_group=data_group))
+                                    generator=g, data_group=data_group, conv=conv))
             nf = next_nf
         self.blocks = nn.ModuleList(blocks)
         side = input_size // 2 ** num_downsample

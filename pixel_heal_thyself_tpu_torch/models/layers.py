@@ -34,6 +34,39 @@ def apply_act(x: torch.Tensor, act_type: str | None, neg_slope: float = 0.2) -> 
     raise NotImplementedError(f"Activation layer [{act_type}] is not found")
 
 
+class Conv2dFn(torch.autograd.Function):
+    """`x`'s path through `y = F.conv2d(x, w, stride=stride)` (NCHW, no
+    padding, no bias; `y` computed by the caller from `x.detach()`, so that
+    autograd's own convolution node takes the weight gradient, only when it
+    is needed): the forward passes `y` through, the backward returns the
+    input gradient as a transposed convolution of the output gradient. A
+    WGAN-GP's double backward through the critic then differentiates a
+    transposed convolution, whose weight term is the library's
+    weight-gradient kernel, where PyTorch's own
+    `aten::_convolution_double_backward` forms that term as one
+    convolution with the output gradient as its kernel: in bf16, oneDNN's
+    convolution of that shape loses the stride-1 convs' weight terms (a
+    32² critic's D gradient 0.33 rms from float32, where XLA's bf16 step
+    stays at 0.14; tests/test_torch_port_critic_bf16.py)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, y: torch.Tensor,
+                stride: int) -> torch.Tensor:
+        ctx.save_for_backward(w)
+        ctx.x_size, ctx.stride = x.shape[2:], stride
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, gy: torch.Tensor):
+        (w,) = ctx.saved_tensors
+        gx = None
+        if ctx.needs_input_grad[0]:
+            s = ctx.stride
+            pad = [ctx.x_size[i] - (gy.shape[2 + i] - 1) * s - w.shape[2 + i] for i in (0, 1)]
+            gx = F.conv_transpose2d(gy, w, stride=s, output_padding=pad)
+        return gx, None, gy, None
+
+
 def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
               stride: int = 1) -> torch.Tensor:
     """VALID convolution of NHWC `x` with an OIHW `weight` in `dtype`. A
@@ -70,6 +103,21 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = conv_nhwc(x, self.weight, self.dtype, self.stride)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+class TwiceDifferentiableConv(Conv):
+    """`Conv` (kernels wider than 1×1) whose input gradient is `Conv2dFn`'s:
+    for the critic a WGAN-GP differentiates twice
+    (`discriminators.DiscriminatorVGG`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight.to(self.dtype)
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        y = Conv2dFn.apply(x, w, F.conv2d(x.detach(), w, stride=self.stride), self.stride)
+        y = y.permute(0, 2, 3, 1)
         if self.bias is not None:
             y = y + self.bias.to(self.dtype)
         return y
@@ -137,20 +185,20 @@ class ConvBlock(nn.Module):
     (reference conv_block). `forward(x, pad_fn)` pads with `pad_fn(x, pad,
     mode)` in place of `pad2d`: the sequence-sharded Mamba path passes the
     row-halo exchange (`ops/padding.make_row_halo_pad`), so every rank's
-    convolution sees its true neighbour rows."""
+    convolution sees its true neighbour rows. `conv`: the conv's class."""
 
     def __init__(
         self, in_ch: int, features: int, kernel_size: int, *, stride: int = 1,
         padding: int = 0, padding_mode: str = "zeros", norm_type: str | None = None,
         act_type: str | None = "relu", use_bias: bool = True,
         dtype: torch.dtype = torch.float32, generator: torch.Generator | None = None,
-        data_group=None,
+        data_group=None, conv: type[Conv] = Conv,
     ) -> None:
         super().__init__()
         self.padding = padding
         self.padding_mode = padding_mode
         self.act_type = act_type
-        self.conv = Conv(
+        self.conv = conv(
             in_ch, features, kernel_size, stride=stride, use_bias=use_bias, dtype=dtype,
             generator=generator,
         )

@@ -7,8 +7,9 @@ Runs on one CUDA card (no JAX). Builds chip_smoke's phase 5 / phase 8 step
 (`training.train_step.make_train_step`, WGAN-GP + L1, Adam with the
 MultiStep schedule): the prod-width generator (`-cn prod`, `model=afgsa`
 or `model=mamba`; seeded random weights, bf16, replicate padding) in train
-mode against DiscriminatorVGG(128, 64, bf16), batch 8 of 128² numpy
-patches; or phase 12's: `--film` the AFGSA generator with FiLM (the
+mode against the prod critic (`tools.prod_critic`: DiscriminatorVGG(128,
+64) in `models.discriminators.GP_CRITIC_DTYPE`, TF32 on as the trainer
+sets it at bf16), batch 8 of 128² numpy patches; or phase 12's: `--film` the AFGSA generator with FiLM (the
 literal route), `--multiscale` the multiscale spectral-norm critic (bf16)
 with RaHinge, MS-SSIM and LPIPS on random weights. Times 8 steps unprofiled (the first 2 are warm-up), then profiles
 2 more with `torch.profiler` and prints: the unprofiled steady s/step and
@@ -68,11 +69,11 @@ def main() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
     device = torch.device("cuda")
-    from pixel_heal_thyself_tpu_torch.models.discriminators import (
-        DiscriminatorVGG,
-        MultiScaleDiscriminator,
-    )
+    torch.backends.cuda.matmul.allow_tf32 = True  # as the trainer sets them at bf16
+    torch.backends.cudnn.allow_tf32 = True
+    from pixel_heal_thyself_tpu_torch.models.discriminators import MultiScaleDiscriminator
     from pixel_heal_thyself_tpu_torch.models.lpips import random_lpips_params
+    from pixel_heal_thyself_tpu_torch.tools import prod_critic
     from pixel_heal_thyself_tpu_torch.training.train_step import (
         LossesConfig,
         make_optimizer,
@@ -92,8 +93,7 @@ def main() -> None:
         d = MultiScaleDiscriminator(in_nc=3, patch_size=PATCH, dtype=torch.bfloat16,
                                     device=device, generator=d_gen).train()
     else:
-        d = DiscriminatorVGG(in_nc=3, base_nf=64, input_size=PATCH, dtype=torch.bfloat16,
-                             device=device, generator=d_gen).train()
+        d = prod_critic(device, seed=1).train()
     rng = np.random.default_rng(0)
     data = {key: torch.from_numpy(val.astype(np.float32)).to(device) for key, val in {
         "noisy": np.abs(rng.standard_normal((BATCH, PATCH, PATCH, 3))),

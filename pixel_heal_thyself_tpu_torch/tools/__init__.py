@@ -46,3 +46,15 @@ def prod_generator(model: str, device, **overrides) -> torch.nn.Module:
     from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet, afgsa_prod_kwargs
 
     return seeded(AFGSANet, dict(afgsa_prod_kwargs(), **overrides), device)
+
+
+def prod_critic(device, seed: int = 1) -> torch.nn.Module:
+    """The prod WGAN-GP critic as training builds it, DiscriminatorVGG(128,
+    64) in `models.discriminators.GP_CRITIC_DTYPE`, with seeded weights."""
+    from pixel_heal_thyself_tpu_torch.models.discriminators import (
+        GP_CRITIC_DTYPE,
+        DiscriminatorVGG,
+    )
+
+    return seeded(DiscriminatorVGG, dict(in_nc=3, base_nf=64, input_size=128,
+                                         dtype=GP_CRITIC_DTYPE), device, seed)

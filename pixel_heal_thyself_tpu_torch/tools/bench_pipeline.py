@@ -2,7 +2,8 @@
 
 Port of the JAX package's `tools/bench_pipeline.py`. The prod AFGSA step
 (`training.train_step.make_train_step`, WGAN-GP + L1 against
-DiscriminatorVGG, bf16, batch 8 × 128²) is fed its batches seven ways:
+the prod critic, `tools.prod_critic`; G in bf16, batch 8 × 128²) is fed its
+batches seven ways:
 
   resident        every batch already on the device (no input traffic:
                   the upper bound)
@@ -216,8 +217,12 @@ def run(g, d, batches: list[dict[str, np.ndarray]], device="cuda", probe=None,
 
 
 def main(argv=None) -> dict:
-    from pixel_heal_thyself_tpu_torch.models.discriminators import DiscriminatorVGG
-    from pixel_heal_thyself_tpu_torch.tools import card_line, prod_generator, resolve_device, seeded
+    from pixel_heal_thyself_tpu_torch.tools import (
+        card_line,
+        prod_critic,
+        prod_generator,
+        resolve_device,
+    )
 
     ap = argparse.ArgumentParser(prog="pixel_heal_thyself_tpu_torch.tools.bench_pipeline")
     ap.add_argument("--iters", type=int, default=20)
@@ -230,8 +235,7 @@ def main(argv=None) -> dict:
         print(card, flush=True)
     p = 128
     g = prod_generator("afgsa", device).train()
-    d = seeded(DiscriminatorVGG, dict(in_nc=3, base_nf=64, input_size=p, dtype=torch.bfloat16),
-               device, seed=1).train()
+    d = prod_critic(device).train()
     batches = host_batches(args.iters, args.batch, p)
     res = run(g, d, batches, device, log=lambda s: print(s, flush=True))
     out = {mode: r["patches_per_sec"] for mode, r in res.items()}

@@ -128,17 +128,14 @@ def step_rate(g, d, batch: int, patch: int, device, steps: int, warmup: int = 2)
 
 
 def models(model: str, device, use_kernels: bool):
-    """The prod generator (`use_kernels` selects its kernel route) and
-    DiscriminatorVGG(128, bf16), seeded, in train mode."""
-    from pixel_heal_thyself_tpu_torch.models.discriminators import DiscriminatorVGG
-    from pixel_heal_thyself_tpu_torch.tools import prod_generator, seeded
+    """The prod generator (`use_kernels` selects its kernel route) and the
+    prod critic (`tools.prod_critic`), seeded, in train mode."""
+    from pixel_heal_thyself_tpu_torch.tools import prod_critic, prod_generator
 
     route = (dict(use_kernels=use_kernels, use_megakernel=use_kernels) if model == "mamba"
              else dict(use_kernels=use_kernels, use_block_kernel=use_kernels))
     g = prod_generator(model, device, **route).train()
-    d = seeded(DiscriminatorVGG, dict(in_nc=3, base_nf=64, input_size=PATCH,
-                                      dtype=torch.bfloat16), device, seed=1).train()
-    return g, d
+    return g, prod_critic(device).train()
 
 
 def main(argv=None) -> dict:

@@ -15,6 +15,14 @@ Port of the JAX package's `tools/r5_quality_campaign.sh`, with its legs:
   4   `inference` with the last checkpoint of 2a (`-cn prod`) and of 2b
       (`-cn stag model=mamba`) over clean05's training and held-out scenes,
       one `<scene>_32_evaluation.txt` each
+  2a-d32, 2a-d16, 2a-abc, 2b-d16
+      diagnostic variants of 2a and 2b (`DIAGNOSTIC`, each held against
+      its base leg's numbers and served by leg 4 as its base would be;
+      none is in the default legs): the critic in float32 (as the trainer
+      builds it) or in bf16 (as the JAX package does) with G in bf16
+      through the kernels, or the card's three arithmetic switches moved
+      toward true float32 over the trainer's ((a) no bf16 split-K sums,
+      (b) cuDNN's deterministic algorithms, (c) no TF32)
   5   the analysis tools (`tools/runs_analysis.py`,
       `tools/runs_inference_analysis.py`: pandas and matplotlib, which the
       card's machine lacks) over the text files of legs 2–4 against a
@@ -81,6 +89,12 @@ class Leg:
     config: str  # the env config, -cn
     channel: str  # the channel trained on
     overrides: tuple[str, ...]
+    # a diagnostic variant: the leg it is held against, its critic's
+    # dtype and the arithmetic switches (`critic_numerics.set_switches`)
+    # it sets over the trainer's
+    base: str | None = None
+    critic_dtype: torch.dtype | None = None
+    arithmetic: tuple[tuple[str, bool], ...] = ()
 
 
 TRAINING = (
@@ -88,6 +102,24 @@ TRAINING = (
     Leg("2b", "mamba", "stag", "clean05", ("model=mamba",)),
     Leg("3", "mamba", "stag", "clean", ("model=mamba",)),
 )
+# one-factor variants of legs 2a and 2b, each changing one thing of the run
+# (no config key has it; the trainer takes it as an argument): the critic in
+# float32 (the trainer's own choice, `models.discriminators.GP_CRITIC_DTYPE`)
+# or in bf16 (the JAX package's) with G in bf16 through the kernels, and
+# the card's arithmetic switches moved toward true float32 together: (a) no
+# bf16 split-K sums in cuBLAS, (b) cuDNN's deterministic algorithms, (c) no
+# TF32
+_BASE = {leg.name: leg for leg in TRAINING}
+DIAGNOSTIC = tuple(
+    Leg(name, _BASE[base].model, _BASE[base].config, _BASE[base].channel,
+        _BASE[base].overrides, base, dtype, switches)
+    for name, base, dtype, switches in (
+        ("2a-d32", "2a", torch.float32, ()),
+        ("2a-d16", "2a", torch.bfloat16, ()),
+        ("2a-abc", "2a", None, (("bf16_reduced_reduction", False),
+                                ("cudnn_deterministic", True), ("tf32", False))),
+        ("2b-d16", "2b", torch.bfloat16, ()),
+    ))
 SERVED = ("2a", "2b")  # leg 4 serves these legs' last checkpoints
 LEGS = ("1", "2a", "2b", "3", "4")  # the card's legs; 5 runs on the CPU
 
@@ -220,9 +252,11 @@ def run_training(leg: Leg, root: Path, out: Path, overrides=(), device: str = "c
     and printed. Returns (the leg's record, its run directory)."""
     from pixel_heal_thyself_tpu_torch import train
     from pixel_heal_thyself_tpu_torch.config.run_dirs import reset_run_dirs_cache
+    from pixel_heal_thyself_tpu_torch.tools.critic_numerics import arithmetic, switches_now
     from pixel_heal_thyself_tpu_torch.training.trainer import kernel_launches
 
     argv = train_argv(leg, root, overrides, device)
+    switches = dict(leg.arithmetic)
     log(f"[campaign] leg {leg.name}: train {' '.join(argv)}")
     reset_run_dirs_cache()
     cuda = torch.device(device).type == "cuda"
@@ -230,8 +264,9 @@ def run_training(leg: Leg, root: Path, out: Path, overrides=(), device: str = "c
         torch.cuda.reset_peak_memory_stats()
     before = kernel_launches()
     t0 = time.perf_counter()
-    with log_lines() as lines:
-        trainer = train.main(argv)
+    with log_lines() as lines, arithmetic({**switches_now(), **switches}):  # all restored
+        trainer = train.main(argv, critic_dtype=leg.critic_dtype, tf32=switches.get("tf32"))
+        trained_under = switches_now()
     seconds = time.perf_counter() - t0
     total = {k: v - before[k] for k, v in kernel_launches().items()}
     cfg = trainer.cfg
@@ -258,7 +293,10 @@ def run_training(leg: Leg, root: Path, out: Path, overrides=(), device: str = "c
     rates = [m for m in map(EPOCH_SUMMARY.search, lines) if m]
     record = {
         "leg": leg.name, "model": leg.model, "config": leg.config, "channel": leg.channel,
-        "overrides": list(overrides), "run": tag, "epochs": epochs,
+        "overrides": list(overrides), "run": tag, "epochs": epochs, "base": leg.base,
+        "critic_dtype": str(getattr(trainer.state.d, "dtype", trainer.compute_dtype))
+        .removeprefix("torch."),
+        "arithmetic": trained_under,
         "train_patches": n_train, "val_patches": n_val, **last_validation(run / "evaluation.txt"),
         "epoch_patches_per_sec": [float(m[2]) for m in rates],
         "epoch_io_percent": [int(m[4]) for m in rates],
@@ -319,7 +357,7 @@ def summary(out: str | Path, card: str | None = None, device: str | None = None)
     legs = {}
     for f in sorted(Path(out, "legs").glob("*.json")):
         rec = json.loads(f.read_text())
-        ref = REFERENCE[rec["leg"]]
+        ref = REFERENCE[rec.get("base") or rec["leg"]]
         rec["reference"] = ref
         rec["val_psnr_in_band"] = in_band(rec["val_psnr"], ref["val_band"])
         if "full_frame_band" in ref:
@@ -334,11 +372,12 @@ def run(root: str | Path = ".", out: str | Path = "reports/port_r5_quality", leg
     """Legs `legs` (of LEGS) under `root` (relative paths: the working
     directory's), reports in `out` (relative: under `root`). `size` and
     `n_scenes` cut leg 1's datasets for a quick check. Leg 4 serves the
-    legs of SERVED trained in this call. Returns the summary, which is
-    also printed as the last line."""
-    unknown = set(legs) - set(LEGS)
+    legs of SERVED trained in this call, and their diagnostic variants.
+    Returns the summary, which is also printed as the last line."""
+    unknown = set(legs) - set(LEGS) - {leg.name for leg in DIAGNOSTIC}
     if unknown:
-        raise ValueError(f"unknown legs {sorted(unknown)}: the card's legs are {LEGS} "
+        raise ValueError(f"unknown legs {sorted(unknown)}: the card's legs are {LEGS} and the "
+                         f"diagnostic {[leg.name for leg in DIAGNOSTIC]} "
                          "(leg 5 runs alone, on the CPU)")
     resolve_device(device, "quality_campaign")
     root = Path(root).resolve()
@@ -348,14 +387,14 @@ def run(root: str | Path = ".", out: str | Path = "reports/port_r5_quality", leg
     card = card_line(device)
     if card:
         log(f"[campaign] {card}")
-    training = [leg for leg in TRAINING if leg.name in legs]
+    training = [leg for leg in TRAINING + DIAGNOSTIC if leg.name in legs]
     with contextlib.chdir(root):  # run directories go to root/outputs/runs
         if "1" in legs:
             make_datasets(root, sorted({leg.channel for leg in training} or CHANNELS),
                           size=size, n_scenes=n_scenes, log=log)
         for leg in training:
             record, ckpt = run_training(leg, root, out, overrides, device, log)
-            if "4" in legs and leg.name in SERVED:
+            if "4" in legs and (leg.base or leg.name) in SERVED:
                 record.update(run_serving(leg, ckpt, root, out, overrides, device, log))
             record["card"] = card
             (out / "legs" / f"{leg.name}.json").write_text(json.dumps(record, indent=1) + "\n")
@@ -429,7 +468,8 @@ def main(argv=None) -> dict | None:
                                      description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--legs", default=",".join(LEGS),
-                        help="comma-separated legs: of 1,2a,2b,3,4 (the card's), or 5 alone")
+                        help="comma-separated legs: of 1,2a,2b,3,4 (the card's) and the "
+                             "diagnostic 2a-d32,2a-d16,2a-abc,2b-d16, or 5 alone")
     parser.add_argument("--root", default=".", help="where data/ and outputs/ go")
     parser.add_argument("--out", default="reports/port_r5_quality",
                         help="the reports' directory (relative: under --root)")

@@ -49,13 +49,13 @@ from pixel_heal_thyself_tpu_torch.parallel.distributed import (
 )
 
 
-def _build_trainer(cfg, device: str):
+def _build_trainer(cfg, device: str, **trainer_args):
     from pixel_heal_thyself_tpu_torch.training.trainer import AFGSATrainer, MambaTrainer
 
     if cfg.model.name == "afgsa":
-        return AFGSATrainer(cfg, device=device)
+        return AFGSATrainer(cfg, device=device, **trainer_args)
     if cfg.model.name == "mamba":
-        return MambaTrainer(cfg, device=device)
+        return MambaTrainer(cfg, device=device, **trainer_args)
     raise ValueError(f"Unsupported model: {cfg.model.name}")
 
 
@@ -80,7 +80,8 @@ def _from_rank0(make):
     return box[0]
 
 
-def _run(config_name: str, overrides: list[str], saved_overrides: list[str], device: str):
+def _run(config_name: str, overrides: list[str], saved_overrides: list[str], device: str,
+         trainer_args: dict):
     # the run directory is resolved (and made) on rank 0 alone
     out_dir = _from_rank0(lambda: compose(config_name, overrides)["paths"]["output_dir"])
     cfg_tree = compose(config_name, overrides + [f"paths.output_dir={out_dir}"])
@@ -88,7 +89,7 @@ def _run(config_name: str, overrides: list[str], saved_overrides: list[str], dev
     logger.setup_logger(cfg.logging.level)
     if is_main_process():
         _save_run_metadata(cfg_tree, saved_overrides)
-    trainer = _build_trainer(cfg, device)
+    trainer = _build_trainer(cfg, device, **trainer_args)
     trainer.train()
     return trainer
 
@@ -103,8 +104,10 @@ def _expand_multirun(overrides: list[str]) -> list[list[str]]:
     return [list(combo) for combo in itertools.product(*choices)]
 
 
-def main(argv: list[str] | None = None):
-    """Run the CLI; returns the trainer of the last (or only) job."""
+def main(argv: list[str] | None = None, **trainer_args):
+    """Run the CLI; returns the trainer of the last (or only) job.
+    `trainer_args`: keyword arguments of every job's trainer (a diagnostic
+    run's `critic_dtype`, `tf32`: `training.trainer.BaseTrainer`)."""
     parser = argparse.ArgumentParser(prog="pixel_heal_thyself_tpu_torch.train")
     parser.add_argument("-cn", "--config-name", default="default")
     parser.add_argument("-m", "--multirun", action="store_true")
@@ -122,7 +125,8 @@ def main(argv: list[str] | None = None):
                                                                            args.device)
 
     if not args.multirun:
-        trainer = _run(args.config_name, args.overrides, args.overrides, args.device)
+        trainer = _run(args.config_name, args.overrides, args.overrides, args.device,
+                       trainer_args)
     else:
         trainer = None
         reset_run_dirs_cache()  # all sweep jobs share one trial run
@@ -135,7 +139,7 @@ def main(argv: list[str] | None = None):
                                                                 "-1", "true"))
             trainer = None  # free the last job's models before the next builds its own
             trainer = _run(args.config_name, job_overrides + [f"paths.output_dir={out_dir}"],
-                           job_overrides, args.device)
+                           job_overrides, args.device, trainer_args)
     # after success only: a failing rank leaves without waiting for the others
     if own_group:
         shutdown()

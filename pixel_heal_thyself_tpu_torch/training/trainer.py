@@ -144,7 +144,12 @@ def _numpy(x) -> np.ndarray:
 class BaseTrainer:
     """Model-agnostic GAN trainer; subclasses provide the generator."""
 
-    def __init__(self, cfg, device: torch.device | str = "cuda") -> None:
+    def __init__(self, cfg, device: torch.device | str = "cuda",
+                 critic_dtype: torch.dtype | None = None, tf32: bool | None = None) -> None:
+        """`critic_dtype` and `tf32` replace, for a diagnostic run (the
+        quality campaign's diagnostic legs), the WGAN-GP critic's dtype
+        (`models.discriminators.GP_CRITIC_DTYPE`) and the TF32 switch (on
+        at bf16); no config key has them."""
         self.cfg = cfg
         self.device = training_device(device)
         self.deterministic = cfg.trainer.deterministic
@@ -164,9 +169,10 @@ class BaseTrainer:
         # fp32 is true float32 (the JAX trainer's HIGHEST matmul
         # precision); set both ways so that an in-process sweep over
         # precision does not leak one job's setting into the next
-        tf32 = cfg.trainer.precision == "bf16"
+        tf32 = cfg.trainer.precision == "bf16" if tf32 is None else tf32
         torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.backends.cudnn.allow_tf32 = tf32
+        self.critic_dtype = critic_dtype
         # the hand kernels exist on the card only
         self.use_kernels = bool(cfg.trainer.use_pallas) and self.device.type == "cuda"
         self.loader_kind: str | None = None
@@ -200,6 +206,7 @@ class BaseTrainer:
 
     def create_discriminator(self) -> torch.nn.Module:
         from pixel_heal_thyself_tpu_torch.models.discriminators import (
+            GP_CRITIC_DTYPE,
             DiscriminatorVGG,
             MultiScaleDiscriminator,
         )
@@ -213,7 +220,7 @@ class BaseTrainer:
             )
         return DiscriminatorVGG(
             in_nc=3, base_nf=64, input_size=self.cfg.data.patches.patch_size,
-            dtype=self.compute_dtype, device=self.device, generator=generator,
+            dtype=self.critic_dtype or GP_CRITIC_DTYPE, device=self.device, generator=generator,
             data_group=self.mesh.data_group,
         )
 

@@ -16,6 +16,9 @@ package's `tools/r5_quality_campaign.sh`, on the CPU.
   own regexes.
 - The summary's full-frame mean over round 5's per-scene files gives
   BASELINE.md's numbers.
+- The diagnostic legs (`2a-d16`: the critic in bf16; `2a-abc`: the three
+  arithmetic switches) each change their one thing, are held against
+  2a's numbers, and leave the switches as they found them.
 
 Torch is held to 2 threads, as in test_torch_port_trainer_cli.py.
 """
@@ -238,3 +241,31 @@ def test_campaign_end_to_end_and_leg5_parse(tmp_path, capsys):
 def test_full_frame_mean_of_round5(folder, want):
     assert round(qc.full_frame_mean(R5 / folder), 4) == want
     assert len(qc.scene_metrics(R5 / folder)) == 12
+
+
+def test_diagnostic_legs_change_one_thing_and_restore(tmp_path):
+    from pixel_heal_thyself_tpu_torch.tools.critic_numerics import switches_now
+
+    bf16 = [o for o in NARROW_AFGSA if not o.startswith("trainer.precision")]
+    before = switches_now()
+    summary = qc.run(tmp_path, legs=("1", "2a-d16", "2a-abc"), overrides=bf16, device="cpu",
+                     size=64, n_scenes=2, log=lambda s: None)
+    assert switches_now() == before
+    legs = summary["legs"]
+    assert set(legs) == {"2a-d16", "2a-abc"}
+    for rec in legs.values():
+        assert rec["base"] == "2a" and rec["reference"] == qc.REFERENCE["2a"]
+        assert rec["epochs"] == 1 and math.isfinite(rec["val_psnr"])
+    trainer_bf16 = {**before, "tf32": True}
+    assert legs["2a-d16"]["critic_dtype"] == "bfloat16"
+    assert legs["2a-d16"]["arithmetic"] == trainer_bf16
+    assert legs["2a-abc"]["critic_dtype"] == "float32"  # the trainer's critic
+    assert legs["2a-abc"]["arithmetic"] == {"tf32": False, "bf16_reduced_reduction": False,
+                                            "cudnn_deterministic": True}
+    (d16,) = [leg for leg in qc.DIAGNOSTIC if leg.name == "2b-d16"]
+    assert (d16.base, d16.critic_dtype, d16.arithmetic) == ("2b", torch.bfloat16, ())
+    assert (d16.model, d16.config, d16.channel, d16.overrides) == \
+        (qc.TRAINING[1].model, qc.TRAINING[1].config, qc.TRAINING[1].channel,
+         qc.TRAINING[1].overrides)
+    with pytest.raises(ValueError, match="diagnostic"):
+        qc.run(tmp_path, legs=("2a-x",), device="cpu")
