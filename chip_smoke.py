@@ -14,15 +14,17 @@ exits non-zero. Phases:
 3. Kernels against their plain PyTorch versions at the prod shapes
    (8 × 128² × 256, 4 heads, halo 3), with TF32 off: attention K1 in bf16
    (its tensor-core body, checked by its body counter, beside its general
-   body and SDPA over pre-gathered windows) and fp32 (the general body),
-   and at halo 8 (the tensor-core body's two passes, the general body's
+   body and SDPA over pre-gathered windows) and fp32 (the general body,
+   its bound by operations at the f32 rate, beside SDPA over pre-gathered
+   fp32 windows), and at halo 8 (the tensor-core body's two passes, the general body's
    key-chunked path), the pointwise GEMM K2
    (n_aux's two operands; one operand, k = n·Wk; two operands with the
    backward's f32 residual, also equal to the bit across two calls), the
    3×3 conv K3, the whole TransformerBlock forward in the three padding
    modes; the attention backward K4 (bf16: the tensor-core body, equal to
    the bit across two calls, its device time per launch, beside the general
-   body and SDPA's autograd backward; fp32: the general body), the conv
+   body and SDPA's autograd backward; fp32: the general body, beside
+   SDPA's autograd backward on the fp32 windows), the conv
    input gradient K5 (also equal to the bit across two calls), the weight
    gradient K6 (9
    taps and 1 tap, each also equal to the bit across two calls) and the whole
@@ -231,6 +233,14 @@ exits non-zero. Phases:
    GP norms and D gradient within 2× the JAX package's own bf16 deviation
    for the same critic and inputs (CRITIC_JAX, measured on the CPU).
    Prints what it read and the phase's seconds.
+19. The replay of the TPU kernel #5's forward with one-pass bf16 products
+   (`tools.tpu_rounding`) on phase 17's 2b checkpoint, over 2 scenes of
+   256²: the checkpoint served and validated through K7 and then with the
+   replay in K7's place, in one process under the same switches (cuDNN
+   deterministic). The K7 pass launched K7 and called no replay, the
+   replay pass the reverse; every PSNR finite; the replay's frames lie
+   above 0 and within REPLAY_RMS_REL (rms relative) of K7's. Prints the
+   deltas and the phase's seconds.
 
 Every kernel row states its bound (the least time the card could take:
 the larger of the bytes its function must move over 3.35 TB/s and its
@@ -704,11 +714,18 @@ def phase_kernels(device) -> dict:
         TOL["bf16"], work=(nbytes(q, k, v, *rels, q), attn_flops, bf),
     )
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    # fp32: bound by the operations at the f32 rate outside the tensor cores;
+    # library SDPA on fp32 windows gathered the same way
+    qwf = sdpa_windows(qf, BS, HALO, HEADS)
+    kwf = sdpa_windows(kf, BS, HALO, HEADS, keys=True, rel=rels)
+    vwf = sdpa_windows(vf, BS, HALO, HEADS, keys=True)
+    f32 = torch.float32
     expect_body("K1", "general", lambda: compare(
-        "K1 attention fp32 (general body)",
+        "K1 attention fp32 (general body; library: SDPA on pre-gathered fp32 windows)",
         lambda: block_halo_attention_cuda(qf, kf, vf, *rels, **att),
         lambda: block_halo_attention_torch(qf, kf, vf, *rels, **att),
-        TOL["fp32"],
+        TOL["fp32"], work=(nbytes(qf, kf, vf, *rels, qf), attn_flops, f32),
+        library=lambda: F.scaled_dot_product_attention(qwf, kwf, vwf),
     ))
     # halo 8 at head_ch 64: 36 key tiles, which the tensor-core body walks in
     # two passes; the general body's one-stage plan exceeds 227 KB in both
@@ -804,12 +821,19 @@ def phase_kernels(device) -> dict:
     )
     log_per_launch("K4 attention backward bf16 (general body)",
                    lambda: attention_body_launch("general", q, k, v, *ab, do, **att), K4_LAUNCHES)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (qwf, kwf, vwf))
+    og = F.scaled_dot_product_attention(qg, kg, vg)
+    dow = sdpa_windows(dof, BS, HALO, HEADS)
     expect_body("K4", "general", lambda: compare(
-        "K4 attention backward fp32 (general body)",
+        "K4 attention backward fp32 (general body; library: SDPA's backward on pre-gathered "
+        "fp32 windows)",
         lambda: block_halo_attention_bwd_cuda(qf, kf, vf, *ab, dof, **att),
         lambda: block_halo_attention_bwd_torch(qf, kf, vf, *ab, dof, **att),
         TOL["fp32"], iters=5, plain_iters=2,
+        work=(nbytes(qf, kf, vf, dof, *ab) + nbytes(qf, kf, vf, *ab), attn_flops * 5 // 2, f32),
+        library=lambda: torch.autograd.grad(og, (qg, kg, vg), dow, retain_graph=True),
     ))
+    del qg, kg, vg, og, dow, qwf, kwf, vwf
     dg = (do, a, wts["w2"], "replicate", x)
     res["K5"] = compare(
         "K5 conv3x3 input gradient (replicate, ReLU mask, residual)",
@@ -3327,72 +3351,71 @@ def phase_tools(device, step_rates: dict, smi: str) -> None:
 # epoch (the validation split is a whole scene: at the configs' 400 / 200
 # patches an image it took 22 s of the AFGSA leg's 50)
 CAMPAIGN = dict(size=256, scenes=2, patches=100, epochs=1)
+CAMPAIGN_OVERRIDES = [f"trainer.epochs={CAMPAIGN['epochs']}",
+                      f"data.patches.num_patches={CAMPAIGN['patches']}"]
 SCENE_FILE = re.compile(r"RMSE: (\S+)\nPSNR: (\S+)\n1-SSIM: (\S+)\n")
 
 
-def phase_campaign(smi: str) -> None:
-    """Phase 17: `tools.quality_campaign.run` on the card for legs 1, 2a
-    and 4, then 1, 2b and 4 (CAMPAIGN): each train step and validation
-    forward through its kernels on their prod bodies (`trainer_probe`, as
-    phase 11), leg 4's evaluation files one a scene with finite metrics,
-    leg 4's launches, and the summary line."""
+def phase_campaign(smi: str, tmp: str) -> None:
+    """Phase 17: `tools.quality_campaign.run` on the card, under `tmp`,
+    for legs 1, 2a and 4, then 1, 2b and 4 (CAMPAIGN): each train step and
+    validation forward through its kernels on their prod bodies
+    (`trainer_probe`, as phase 11), leg 4's evaluation files one a scene
+    with finite metrics, leg 4's launches, and the summary line."""
     from pixel_heal_thyself_tpu_torch.tools import quality_campaign
 
     t_phase = time.perf_counter()
     served = quality_campaign.TRAIN_SCENES[:CAMPAIGN["scenes"]] + quality_campaign.HELDOUT_SCENES
-    with tempfile.TemporaryDirectory() as tmp:
-        for leg in (leg for leg in quality_campaign.TRAINING if leg.name in ("2a", "2b")):
-            tag = f"campaign-{leg.name}"
-            kernels = TRAINER_KERNELS[leg.model]
-            lines: list[str] = []
-            reset_counts()
-            with trainer_probe(*kernels) as rec, trainer_log():
-                result = quality_campaign.run(
-                    tmp, legs=("1", leg.name, "4"), device="cuda", size=CAMPAIGN["size"],
-                    n_scenes=CAMPAIGN["scenes"],
-                    overrides=[f"trainer.epochs={CAMPAIGN['epochs']}",
-                               f"data.patches.num_patches={CAMPAIGN['patches']}"],
-                    log=lines.append)
-            launches = read_counts()
-            layers = 5
-            for kind in ("train", "eval"):
-                short = [(i, d) for i, d in enumerate(rec[kind])
-                         if any(v < layers for v in d.values())]
-                if short or not rec[kind]:
-                    raise AssertionError(f"[{tag}] {kind} calls with fewer than {layers} launches "
-                                         f"of a kernel: {short[:3]} ({len(rec[kind])} calls)")
-            check_bodies(tag, launches, quiet=True)
-            summary = json.loads(lines[-1])
-            if summary != json.loads(json.dumps(result)) or leg.name not in summary["legs"]:
-                raise AssertionError(f"[{tag}] the summary line {lines[-1][:200]!r}")
-            got = summary["legs"][leg.name]
-            folder = Path(tmp, "reports", "port_r5_quality", leg.model)
-            files = sorted(f.name for f in folder.glob("*_evaluation.txt"))
-            if files != sorted(f"{s}_32_evaluation.txt" for s in served):
-                raise AssertionError(f"[{tag}] leg 4 wrote {files}")
-            for f in folder.glob("*_evaluation.txt"):
-                m = SCENE_FILE.fullmatch(f.read_text())
-                if not m or not all(math.isfinite(float(v)) for v in m.groups()):
-                    raise AssertionError(f"[{tag}] {f.name}: {f.read_text()!r}")
-            serve_kernels = {"K1", "K2", "K3"} if leg.model == "afgsa" else {"K7"}
-            by_name = {counters()[k].__name__: k for k in KERNEL_NAMES}
-            served_k = {by_name[k] for k, v in got["serve_launches"].items() if v}
-            if served_k != serve_kernels:
-                raise AssertionError(f"[{tag}] leg 4 launched {got['serve_launches']}")
-            if not all(math.isfinite(got[k]) for k in ("val_psnr", "val_1_ssim", "full_frame_psnr")):
-                raise AssertionError(f"[{tag}] non-finite metrics {got}")
-            log(f"[{tag}] {len(rec['train'])} train steps each launched ≥ {layers} of "
-                f"{', '.join(kernels[0])}; {len(rec['eval'])} validation forwards each ≥ {layers} "
-                f"of {', '.join(kernels[1])}, on the prod bodies; leg 4: {len(files)} scenes, "
-                f"launches {got['serve_launches']}")
-            log(f"[{tag}] val PSNR {got['val_psnr']} 1-SSIM {got['val_1_ssim']}, full-frame mean "
-                f"PSNR {got['full_frame_psnr']:.4f}, held-out {got['heldout_psnr']}; epoch "
-                f"{got['epoch_patches_per_sec']} patches/s, io {got['epoch_io_percent']}%, "
-                f"validation {got['val_seconds']} s, peak memory {got['peak_memory_bytes']} B, "
-                f"launches a step {got['launches_per_step']}, a validation batch "
-                f"{got['launches_per_val_batch']}; leg {got['seconds']:.2f} s, leg 4 "
-                f"{got['serve_seconds']:.2f} s; {smi}")
-            torch.cuda.empty_cache()
+    for leg in (leg for leg in quality_campaign.TRAINING if leg.name in ("2a", "2b")):
+        tag = f"campaign-{leg.name}"
+        kernels = TRAINER_KERNELS[leg.model]
+        lines: list[str] = []
+        reset_counts()
+        with trainer_probe(*kernels) as rec, trainer_log():
+            result = quality_campaign.run(
+                tmp, legs=("1", leg.name, "4"), device="cuda", size=CAMPAIGN["size"],
+                n_scenes=CAMPAIGN["scenes"],
+                overrides=CAMPAIGN_OVERRIDES, log=lines.append)
+        launches = read_counts()
+        layers = 5
+        for kind in ("train", "eval"):
+            short = [(i, d) for i, d in enumerate(rec[kind])
+                     if any(v < layers for v in d.values())]
+            if short or not rec[kind]:
+                raise AssertionError(f"[{tag}] {kind} calls with fewer than {layers} launches "
+                                     f"of a kernel: {short[:3]} ({len(rec[kind])} calls)")
+        check_bodies(tag, launches, quiet=True)
+        summary = json.loads(lines[-1])
+        if summary != json.loads(json.dumps(result)) or leg.name not in summary["legs"]:
+            raise AssertionError(f"[{tag}] the summary line {lines[-1][:200]!r}")
+        got = summary["legs"][leg.name]
+        folder = Path(tmp, "reports", "port_r5_quality", leg.model)
+        files = sorted(f.name for f in folder.glob("*_evaluation.txt"))
+        if files != sorted(f"{s}_32_evaluation.txt" for s in served):
+            raise AssertionError(f"[{tag}] leg 4 wrote {files}")
+        for f in folder.glob("*_evaluation.txt"):
+            m = SCENE_FILE.fullmatch(f.read_text())
+            if not m or not all(math.isfinite(float(v)) for v in m.groups()):
+                raise AssertionError(f"[{tag}] {f.name}: {f.read_text()!r}")
+        serve_kernels = {"K1", "K2", "K3"} if leg.model == "afgsa" else {"K7"}
+        by_name = {counters()[k].__name__: k for k in KERNEL_NAMES}
+        served_k = {by_name[k] for k, v in got["serve_launches"].items() if v}
+        if served_k != serve_kernels:
+            raise AssertionError(f"[{tag}] leg 4 launched {got['serve_launches']}")
+        if not all(math.isfinite(got[k]) for k in ("val_psnr", "val_1_ssim", "full_frame_psnr")):
+            raise AssertionError(f"[{tag}] non-finite metrics {got}")
+        log(f"[{tag}] {len(rec['train'])} train steps each launched ≥ {layers} of "
+            f"{', '.join(kernels[0])}; {len(rec['eval'])} validation forwards each ≥ {layers} "
+            f"of {', '.join(kernels[1])}, on the prod bodies; leg 4: {len(files)} scenes, "
+            f"launches {got['serve_launches']}")
+        log(f"[{tag}] val PSNR {got['val_psnr']} 1-SSIM {got['val_1_ssim']}, full-frame mean "
+            f"PSNR {got['full_frame_psnr']:.4f}, held-out {got['heldout_psnr']}; epoch "
+            f"{got['epoch_patches_per_sec']} patches/s, io {got['epoch_io_percent']}%, "
+            f"validation {got['val_seconds']} s, peak memory {got['peak_memory_bytes']} B, "
+            f"launches a step {got['launches_per_step']}, a validation batch "
+            f"{got['launches_per_val_batch']}; leg {got['seconds']:.2f} s, leg 4 "
+            f"{got['serve_seconds']:.2f} s; {smi}")
+        torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False  # as main set them
     torch.backends.cudnn.allow_tf32 = False
     log(f"[campaign] phase 17 {time.perf_counter() - t_phase:.2f} s; {smi}")
@@ -3466,6 +3489,51 @@ def phase_critic(smi: str) -> None:
         f"{time.perf_counter() - t_phase:.2f} s; {smi}")
 
 
+# phase 19: `tools.tpu_rounding` on phase 17's 2b checkpoint at its 2 scenes
+# of 256². The replay rounds every product of the interior once to bf16,
+# where K7 keeps them to 3×TF32 and rounds only its output to bf16: its
+# frames must differ from K7's, and by no more than REPLAY_RMS_REL of their
+# rms (5× the 4e-3 rms that phase 7 holds K7's frames to against the plain
+# route).
+REPLAY_RMS_REL = 2e-2
+
+
+def phase_replay(smi: str, tmp: str) -> None:
+    """Phase 19: the replay of the TPU kernel #5's bf16 products
+    (`tpu_rounding.run`) on phase 17's 2b checkpoint under `tmp`, served
+    over CAMPAIGN's 2 training scenes and validated both ways."""
+    from pixel_heal_thyself_tpu_torch.tools import tpu_rounding
+
+    t_phase = time.perf_counter()
+    leg = json.loads(Path(tmp, "reports", "port_r5_quality", "legs", "2b.json").read_text())
+    rec = tpu_rounding.run(Path(tmp, leg["checkpoint"]), "2b", tmp, CAMPAIGN_OVERRIDES, "cuda",
+                           scenes=CAMPAIGN["scenes"], log=lambda _: None)
+    k7, replay = rec["k7"], rec["replay"]
+    name = counters()["K7"].__name__
+    if not (k7["launches"].get(name, 0) > 0 and k7["replay_calls"] == 0):
+        raise AssertionError(f"[replay] the K7 pass: launches {k7['launches']}, "
+                             f"{k7['replay_calls']} replay calls")
+    if not (name not in replay["launches"] and replay["replay_calls"] > 0):
+        raise AssertionError(f"[replay] the replay pass: launches {replay['launches']}, "
+                             f"{replay['replay_calls']} replay calls")
+    psnrs = [*k7["scenes"].values(), *replay["scenes"].values(), k7["val_psnr"],
+             replay["val_psnr"]]
+    if len(k7["scenes"]) != CAMPAIGN["scenes"] or not all(map(math.isfinite, psnrs)):
+        raise AssertionError(f"[replay] scenes or PSNRs: {k7['scenes']}, {replay['scenes']}")
+    if not 0 < rec["frames_rms_rel"] <= REPLAY_RMS_REL:
+        raise AssertionError(f"[replay] frames {rec['frames_rms_rel']:.4e} rms relative from "
+                             f"K7's, not in (0, {REPLAY_RMS_REL}]")
+    log(f"[replay] {CAMPAIGN['scenes']} scenes: K7 {k7['launches'][name]} launches, the replay "
+        f"{replay['replay_calls']} calls; frames {rec['frames_rms_rel']:.4e} rms relative from "
+        f"K7's (bound {REPLAY_RMS_REL}); served mean {k7['full_frame_psnr']:.4f} → "
+        f"{replay['full_frame_psnr']:.4f} ({rec['delta']['full_frame_psnr']:+.4f} dB), "
+        f"validation {k7['val_psnr']:.4f} → {replay['val_psnr']:.4f} "
+        f"({rec['delta']['val_psnr']:+.4f} dB); phase 19 "
+        f"{time.perf_counter() - t_phase:.2f} s; {smi}")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the trainer set them; as main did
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -3507,8 +3575,10 @@ def main() -> None:
     phase_sharded(device, frames[0], smi)
     phase_dp_training(device, smi)
     phase_tools(device, {"afgsa": afgsa_rate, "mamba": mamba_rate}, smi)
-    phase_campaign(smi)
-    phase_critic(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_campaign(smi, tmp)
+        phase_critic(smi)
+        phase_replay(smi, tmp)
     # each kernel's count from the path it was ported for
     path = {"K1": serving, "K2": serving, "K3": serving, "K4": training, "K5": training,
             "K6": training, "K7": mamba, "K7e": mamba_training, "K8": mamba_training,

@@ -382,6 +382,20 @@ def load_generator(cfg, device: torch.device | str = "cuda", kernels: bool = Tru
     return model.eval()
 
 
+def score_frame(out_lin: np.ndarray, gt: np.ndarray) -> tuple[float, float, float]:
+    """A denoised linear frame against its reference: (RMSE, PSNR, SSIM)."""
+    from pixel_heal_thyself_tpu_torch.metrics import (
+        calculate_psnr,
+        calculate_rmse,
+        calculate_ssim,
+    )
+
+    gt_lin = gt.astype(np.float64)
+    out_255, gt_255 = tensor2img(out_lin), tensor2img(gt_lin)
+    return (calculate_rmse(out_lin.astype(np.float64), gt_lin), calculate_psnr(out_255, gt_255),
+            calculate_ssim(out_255, gt_255))
+
+
 def run_inference(
     cfg,
     images_dir: str,
@@ -406,11 +420,6 @@ def run_inference(
     call this; rank 0 scores and writes, and returns the results, the
     others return []. Several ranks without `spatial` raise."""
     from pixel_heal_thyself_tpu_torch.data.exr import write_exr_groups
-    from pixel_heal_thyself_tpu_torch.metrics import (
-        calculate_psnr,
-        calculate_rmse,
-        calculate_ssim,
-    )
     from pixel_heal_thyself_tpu_torch.parallel import is_main_process, process_count
 
     if from_export:
@@ -501,13 +510,7 @@ def run_inference(
             )
         if not main_process:
             continue
-        gt_lin = data["gt"].astype(np.float64)
-
-        rmse = calculate_rmse(out_lin.astype(np.float64), gt_lin)
-        out_255 = tensor2img(out_lin)
-        gt_255 = tensor2img(gt_lin)
-        psnr = calculate_psnr(out_255, gt_255)
-        ssim = calculate_ssim(out_255, gt_255)
+        rmse, psnr, ssim = score_frame(out_lin, data["gt"])
 
         eval_path = Path(out_dir) / f"{stem}_{noisy_spp}_evaluation.txt"
         with open(eval_path, "w") as f:

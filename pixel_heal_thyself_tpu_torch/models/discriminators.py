@@ -56,14 +56,15 @@ from pixel_heal_thyself_tpu_torch.utils.init import (
 # The dtype training builds the WGAN-GP critic (`DiscriminatorVGG`, its
 # GP's double backward and its loss terms) in, at every precision, with
 # TF32 products on the card under bf16: a numerics difference from the JAX
-# package, whose critic takes the run's dtype. At bf16 the port's critic
-# stayed weak (D loss positive at epoch 2, G held at its L1 optimum,
-# validation rising past round 5's band) where the JAX package's on the TPU
-# turned its D loss negative at epoch 2; with the critic alone in float32 (G
-# in bf16 through the kernels) the AFGSA run follows round 5's course. It
-# also moves the Mamba run's served frames up by about 0.1 dB against a
-# bf16 critic, past round 5's band (PERF.md §6, ROADMAP Queue 3 item 4).
-# The multiscale critic (RaHinge, no GP) keeps the run's dtype.
+# package, whose critic takes the run's dtype. At bf16 and the configs'
+# seed the port's AFGSA critic stayed weak (D loss positive at epoch 2, G
+# held at its L1 optimum, validation rising past round 5's band) where the
+# JAX package's on the TPU turned its D loss negative at epoch 2; with the
+# critic alone in float32 (G in bf16 through the kernels) the AFGSA run
+# follows round 5's course. At two other seeds the bf16 critic turned too,
+# and over four seeds the critic's precision does not move the Mamba run's
+# result (PERF.md §6, ROADMAP Queue 3 item 4): one constant serves both
+# generators. The multiscale critic (RaHinge, no GP) keeps the run's dtype.
 GP_CRITIC_DTYPE = torch.float32
 
 

@@ -23,6 +23,12 @@ Port of the JAX package's `tools/r5_quality_campaign.sh`, with its legs:
       through the kernels, or the card's three arithmetic switches moved
       toward true float32 over the trainer's ((a) no bf16 split-K sums,
       (b) cuDNN's deterministic algorithms, (c) no TF32)
+  2b-s<seed>-d16, 2b-s<seed>-d32, 2a-s<seed>-d16, 2a-s<seed>-d32
+      seed legs (`SEED_LEGS`, diagnostic too): 2b and 2a at another
+      top-level `seed` (SEEDS), each with the bf16 and the float32 critic;
+      2a's are run for 3 epochs (`trainer.epochs=3`) and read by their
+      critic's course (`critic_class`). `--replay` also runs each served
+      2b leg's checkpoint through `tools.tpu_rounding`
   5   the analysis tools (`tools/runs_analysis.py`,
       `tools/runs_inference_analysis.py`: pandas and matplotlib, which the
       card's machine lacks) over the text files of legs 2–4 against a
@@ -44,9 +50,11 @@ validation batch; and the card (`nvidia-smi` name and power limit).
 
     python -m pixel_heal_thyself_tpu_torch.tools.quality_campaign \
         [--legs 1,2a,2b,3,4] [--root .] [--out reports/port_r5_quality] \
-        [--device cuda|cpu] [override ...]
+        [--device cuda|cpu] [--replay] [override ...]
     python -m pixel_heal_thyself_tpu_torch.tools.quality_campaign --legs 5 \
         [--out reports/port_r5_quality] [--baseline reports/r5_quality] [--header TEXT]
+    python -m pixel_heal_thyself_tpu_torch.tools.quality_campaign --legs spread \
+        --out reports/port_r5_quality/seeds
 
 An override is appended to every leg's command line, training and
 serving.
@@ -59,6 +67,7 @@ import contextlib
 import json
 import logging
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -120,6 +129,23 @@ DIAGNOSTIC = tuple(
                                 ("cudnn_deterministic", True), ("tf32", False))),
         ("2b-d16", "2b", torch.bfloat16, ()),
     ))
+# The seed legs, fixed before any of them ran: legs 2b and 2a again at
+# another top-level `seed` (the configs' 990819 seeds the initial weights,
+# patch sampling, the shuffle and the GP draws), each with the bf16 critic
+# and the float32 one; the datasets' seeds (TRAIN_SEED, HELDOUT_SEED) stay,
+# so every leg trains and serves on the same scenes. Seed 990819 itself is
+# legs 2b, 2b-d16, 2a-d32 and 2a-d16.
+SEEDS = (990820, 990821, 990822)
+CRITICS = (("d16", torch.bfloat16), ("d32", torch.float32))
+SEED_LEGS = tuple(
+    Leg(f"{base}-s{seed}-{tag}", _BASE[base].model, _BASE[base].config, _BASE[base].channel,
+        _BASE[base].overrides + (f"seed={seed}",), base, dtype)
+    for base, seeds in (("2b", SEEDS), ("2a", SEEDS[:2]))
+    for seed in seeds for tag, dtype in CRITICS)
+# the store of a leg that sets its seed: the store's directory does not name
+# the seed, and a complete store is reused, so without this every seed would
+# train on the patches of the seed that built the store first
+SEED_STORE = "data.patches.dir=${data.images.dir}/patches_${_base_pattern}_seed${seed}"
 SERVED = ("2a", "2b")  # leg 4 serves these legs' last checkpoints
 LEGS = ("1", "2a", "2b", "3", "4")  # the card's legs; 5 runs on the CPU
 
@@ -141,6 +167,8 @@ REFERENCE = {
 # the round-5 run of each leg, as the JAX script named its text files
 R5_RUNS = {"2a": "afgsa_p128_n400_r1.0_run000", "2b": "mamba_p64_n200_r0.5_run000",
            "3": "mamba_p64_n200_r0.5_run001"}
+# round 5's leg-4 files, one a scene (`<model>/<scene>_32_evaluation.txt`)
+R5_DIR = Path(__file__).resolve().parents[2] / "reports" / "r5_quality"
 
 EPOCH_SUMMARY = re.compile(r"\[Train\] epoch=(\d+) summary: .*\(([\d.]+) patches/sec, "
                            r"io ([\d.]+)s = (\d+)%\)")
@@ -148,6 +176,7 @@ EPOCH_LAUNCHES = re.compile(r"\[Train\] epoch=(\d+) kernel launches: (.*); peak 
 VAL_SUMMARY = re.compile(r"\[Val\] epoch=(\d+) summary: .* time=(\d+)s")
 VALIDATION = re.compile(r"Validation: (\d+) \tAvg MRSE: (\S+) \tAvg PSNR: (\S+) "
                         r"\tAvg 1-SSIM: (\S+)")
+TRAIN_LOSS = re.compile(r"Epoch: (\d+) \tG loss: (\S+) \tD Loss: (\S+)")
 SCENE_PSNR = re.compile(r"PSNR:\s*([\d.eE+-]+)")
 SCENE_1_SSIM = re.compile(r"1-SSIM:\s*([\d.eE+-]+)")
 
@@ -180,8 +209,9 @@ def make_datasets(root: str | Path, channels=tuple(CHANNELS), size: int = 512,
 def train_argv(leg: Leg, root: str | Path, overrides=(), device: str = "cuda") -> list[str]:
     """The leg's `train.main` command line."""
     train_dir, _ = channel_dirs(root, leg.channel)
+    store = [SEED_STORE] if any(o.startswith("seed=") for o in leg.overrides) else []
     return (["-cn", leg.config, *leg.overrides, f"data.images.dir={train_dir.resolve()}",
-             *overrides, "--device", device])
+             *store, *overrides, "--device", device])
 
 
 def infer_argv(leg: Leg, ckpt: str | Path, images_dir: str | Path, out_dir: str | Path,
@@ -219,6 +249,27 @@ def last_validation(path: str | Path) -> dict:
     return {"epoch": int(epoch), "val_psnr": float(psnr), "val_1_ssim": float(one_minus_ssim)}
 
 
+def course(train_loss: str | Path, evaluation: str | Path) -> dict:
+    """A run's D loss and validation PSNR by epoch, from its
+    `train_loss.txt` and `evaluation.txt`."""
+    losses = TRAIN_LOSS.findall(Path(train_loss).read_text())
+    vals = VALIDATION.findall(Path(evaluation).read_text())
+    return {"d_loss": [float(d) for _, _, d in losses],
+            "val_psnr_by_epoch": [float(psnr) for _, _, psnr, _ in vals]}
+
+
+def critic_class(d_loss, val_psnr) -> str:
+    """A 3-epoch leg 2a read by its epochs 2 and 3: a "weak critic" keeps
+    D's loss ≥ 0 at both; a "reference-like" one, as round 5's run, has
+    D < 0 at epoch 2 and validation falling by epoch 3; anything else is
+    "neither"."""
+    if d_loss[1] >= 0 and d_loss[2] >= 0:
+        return "weak critic"
+    if d_loss[1] < 0 and val_psnr[2] < val_psnr[1]:
+        return "reference-like"
+    return "neither"
+
+
 def scene_metrics(folder: str | Path) -> dict:
     """{scene: (PSNR, 1-SSIM)} of the `<scene>_32_evaluation.txt` files in
     `folder`."""
@@ -228,6 +279,14 @@ def scene_metrics(folder: str | Path) -> dict:
         scene = f.name.rsplit("_", 2)[0]
         out[scene] = (float(SCENE_PSNR.search(text)[1]), float(SCENE_1_SSIM.search(text)[1]))
     return out
+
+
+def scene_deltas(scenes: dict, reference: str | Path) -> dict:
+    """{scene: [PSNR, the reference folder's PSNR for the scene, the
+    difference]} of `scene_metrics`' scenes that the reference folder
+    also holds."""
+    ref = scene_metrics(reference) if Path(reference).is_dir() else {}
+    return {s: [p, ref[s][0], p - ref[s][0]] for s, (p, _) in scenes.items() if s in ref}
 
 
 def full_frame_mean(folder: str | Path) -> float:
@@ -272,9 +331,11 @@ def run_training(leg: Leg, root: Path, out: Path, overrides=(), device: str = "c
     cfg = trainer.cfg
     run = Path(cfg.paths.output_dir)
     tag = f"{run.parent.name}_{run.name}"
+    # seed legs trained in several calls share run numbers: named by leg
+    prefix = leg.name if leg in SEED_LEGS else tag
     for name in ("train_loss.txt", "evaluation.txt"):
-        shutil.copyfile(run / name, out / f"{tag}_{name}")
-        show(out / f"{tag}_{name}", log)
+        shutil.copyfile(run / name, out / f"{prefix}_{name}")
+        show(out / f"{prefix}_{name}", log)
 
     patches = Path(cfg.data.patches.dir)
     n_train = len(np.load(patches / "train" / "aux.npy", mmap_mode="r"))
@@ -294,10 +355,13 @@ def run_training(leg: Leg, root: Path, out: Path, overrides=(), device: str = "c
     record = {
         "leg": leg.name, "model": leg.model, "config": leg.config, "channel": leg.channel,
         "overrides": list(overrides), "run": tag, "epochs": epochs, "base": leg.base,
+        "seed": cfg.seed, "checkpoint": os.path.relpath(run / f"model_epoch{cfg.trainer.epochs}"
+                                                        / "state", root),
         "critic_dtype": str(getattr(trainer.state.d, "dtype", trainer.compute_dtype))
         .removeprefix("torch."),
         "arithmetic": trained_under,
         "train_patches": n_train, "val_patches": n_val, **last_validation(run / "evaluation.txt"),
+        **course(run / "train_loss.txt", run / "evaluation.txt"),
         "epoch_patches_per_sec": [float(m[2]) for m in rates],
         "epoch_io_percent": [int(m[4]) for m in rates],
         "val_seconds": [int(m[2]) for m in map(VAL_SUMMARY.search, lines) if m],
@@ -309,7 +373,9 @@ def run_training(leg: Leg, root: Path, out: Path, overrides=(), device: str = "c
     }
     if peaks:
         record["epoch_peak_memory_bytes"] = peaks
-    ckpt = run / f"model_epoch{cfg.trainer.epochs}" / "state"
+    if epochs >= 3:
+        record["critic_class"] = critic_class(record["d_loss"], record["val_psnr_by_epoch"])
+    ckpt = root / record["checkpoint"]
     del trainer
     if cuda:
         torch.cuda.empty_cache()
@@ -319,11 +385,12 @@ def run_training(leg: Leg, root: Path, out: Path, overrides=(), device: str = "c
 def run_serving(leg: Leg, ckpt: Path, root: Path, out: Path, overrides=(),
                 device: str = "cuda", log=print) -> dict:
     """Leg 4 for one training leg: its checkpoint over the channel's
-    training and held-out scenes, the per-scene files printed."""
+    training and held-out scenes, the per-scene files printed (in
+    `<out>/<model>/`, a seed leg's in `<out>/<model>/<leg>/`)."""
     from pixel_heal_thyself_tpu_torch import inference
     from pixel_heal_thyself_tpu_torch.training.trainer import kernel_launches
 
-    folder = out / leg.model
+    folder = out / leg.model / leg.name if leg in SEED_LEGS else out / leg.model
     folder.mkdir(parents=True, exist_ok=True)
     before = kernel_launches()
     t0 = time.perf_counter()
@@ -337,6 +404,7 @@ def run_serving(leg: Leg, ckpt: Path, root: Path, out: Path, overrides=(),
         show(f, log)
     heldout = {s: scenes[s][0] for s in HELDOUT_SCENES if s in scenes}
     return {
+        "scene_psnr": scene_deltas(scenes, R5_DIR / leg.model),
         "served_scenes": len(scenes),
         "full_frame_psnr": full_frame_mean(folder),
         "full_frame_1_ssim": float(np.mean([v for _, v in scenes.values()])),
@@ -368,17 +436,20 @@ def summary(out: str | Path, card: str | None = None, device: str | None = None)
 
 def run(root: str | Path = ".", out: str | Path = "reports/port_r5_quality", legs=LEGS,
         overrides=(), device: str = "cuda", size: int = 512, n_scenes: int | None = None,
-        log=print) -> dict:
+        replay: bool = False, log=print) -> dict:
     """Legs `legs` (of LEGS) under `root` (relative paths: the working
     directory's), reports in `out` (relative: under `root`). `size` and
     `n_scenes` cut leg 1's datasets for a quick check. Leg 4 serves the
-    legs of SERVED trained in this call, and their diagnostic variants.
+    legs of SERVED trained in this call, and their diagnostic variants;
+    with `replay`, each served Mamba leg's checkpoint also goes through
+    `tools.tpu_rounding` (its record in `out/replay/<leg>.json`).
     Returns the summary, which is also printed as the last line."""
-    unknown = set(legs) - set(LEGS) - {leg.name for leg in DIAGNOSTIC}
+    unknown = set(legs) - set(LEGS) - {leg.name for leg in DIAGNOSTIC + SEED_LEGS}
     if unknown:
-        raise ValueError(f"unknown legs {sorted(unknown)}: the card's legs are {LEGS} and the "
-                         f"diagnostic {[leg.name for leg in DIAGNOSTIC]} "
-                         "(leg 5 runs alone, on the CPU)")
+        raise ValueError(f"unknown legs {sorted(unknown)}: the card's legs are {LEGS}, the "
+                         f"diagnostic {[leg.name for leg in DIAGNOSTIC]} and the seed legs "
+                         f"{[leg.name for leg in SEED_LEGS]} (leg 5 runs alone, on the CPU; so "
+                         "does spread)")
     resolve_device(device, "quality_campaign")
     root = Path(root).resolve()
     root.mkdir(parents=True, exist_ok=True)
@@ -387,7 +458,7 @@ def run(root: str | Path = ".", out: str | Path = "reports/port_r5_quality", leg
     card = card_line(device)
     if card:
         log(f"[campaign] {card}")
-    training = [leg for leg in TRAINING + DIAGNOSTIC if leg.name in legs]
+    training = [leg for leg in TRAINING + DIAGNOSTIC + SEED_LEGS if leg.name in legs]
     with contextlib.chdir(root):  # run directories go to root/outputs/runs
         if "1" in legs:
             make_datasets(root, sorted({leg.channel for leg in training} or CHANNELS),
@@ -396,12 +467,131 @@ def run(root: str | Path = ".", out: str | Path = "reports/port_r5_quality", leg
             record, ckpt = run_training(leg, root, out, overrides, device, log)
             if "4" in legs and (leg.base or leg.name) in SERVED:
                 record.update(run_serving(leg, ckpt, root, out, overrides, device, log))
+                if replay and leg.model == "mamba":
+                    from pixel_heal_thyself_tpu_torch.tools import tpu_rounding
+
+                    rec = tpu_rounding.run(ckpt, leg.name, root, overrides, device, log=log)
+                    (out / "replay").mkdir(exist_ok=True)
+                    (out / "replay" / f"{leg.name}.json").write_text(
+                        json.dumps(rec, indent=1) + "\n")
             record["card"] = card
             (out / "legs" / f"{leg.name}.json").write_text(json.dumps(record, indent=1) + "\n")
             log(f"[campaign] leg {leg.name} done in {record['seconds']:.1f} s; {card}")
     result = summary(out, card, device)
     log(json.dumps(result))
     return result
+
+
+# seed 990819's legs, the configs' own seed (trained by the seed legs'
+# training code), under the campaign's reports: the 12-epoch 2b with the
+# float32 critic and with the bf16 one, and the 3-epoch 2a with the bf16
+# critic and with the float32 one
+SEED_990819 = ("legs/2b.json", "diagnostic_d16_2b/legs/2b-d16.json",
+               "diagnostic_e/legs/2a.json", "diagnostic_d32/legs/2a-d32.json")
+
+
+def _seed_record(path: Path) -> dict:
+    """A leg's record with its course and its scenes against round 5's
+    (from its text files when the record predates those keys)."""
+    rec = json.loads(path.read_text())
+    out = path.parent.parent
+    if "d_loss" not in rec:
+        prefix = out / rec["run"]
+        rec.update(course(f"{prefix}_train_loss.txt", f"{prefix}_evaluation.txt"))
+    if "scene_psnr" not in rec and rec.get("served_scenes"):
+        rec["scene_psnr"] = scene_deltas(scene_metrics(out / rec["model"]), R5_DIR / rec["model"])
+    rec.setdefault("seed", 990819)
+    return rec
+
+
+def spread(out: str | Path = "reports/port_r5_quality/seeds",
+           seed_runs: str | Path | None = None, log=print) -> dict:
+    """The seed legs in `out/legs/` with seed 990819's (SEED_990819 under
+    `seed_runs`, by default `out`'s parent), on the CPU: for each critic, 2b's full-frame means over
+    the seeds (mean, sample SD, range), where round 5's number lies among
+    them, Welch's t-test between the critics (scipy), 2b's validation;
+    and each 2a seed's critic class. Writes `out/spread.json` and
+    `out/report.md`, which gives every leg's ±0.3 dB band verdicts as
+    `summary` states them and the seed reading beside them."""
+    from scipy import stats
+
+    out = Path(out)
+    seed_runs = out.parent if seed_runs is None else seed_runs
+    recs = [_seed_record(f) for f in sorted((out / "legs").glob("*.json"))]
+    recs += [_seed_record(Path(seed_runs) / f) for f in SEED_990819
+             if (Path(seed_runs) / f).is_file()]
+    ref = REFERENCE["2b"]["full_frame_psnr"][0]
+    result = {"round5_full_frame_psnr": ref, "2b": {}, "2a": {}}
+    for rec in recs:
+        base = rec.get("base") or rec["leg"]
+        critic = rec["critic_dtype"]
+        if base == "2b":
+            row = result["2b"].setdefault(critic, {"seeds": {}})
+            row["seeds"][str(rec["seed"])] = {
+                "full_frame_psnr": rec["full_frame_psnr"], "val_psnr": rec["val_psnr"],
+                "scene_delta_range": ([min(d for *_, d in rec["scene_psnr"].values()),
+                                       max(d for *_, d in rec["scene_psnr"].values())]
+                                      if rec.get("scene_psnr") else None)}
+        elif base == "2a" and rec["epochs"] == 3:
+            result["2a"].setdefault(critic, {})[str(rec["seed"])] = {
+                "d_loss": rec["d_loss"], "val_psnr_by_epoch": rec["val_psnr_by_epoch"],
+                "class": critic_class(rec["d_loss"], rec["val_psnr_by_epoch"])}
+    means = {}
+    for critic, row in result["2b"].items():
+        ff = np.array([v["full_frame_psnr"] for v in row["seeds"].values()])
+        val = np.array([v["val_psnr"] for v in row["seeds"].values()])
+        sd = float(ff.std(ddof=1)) if len(ff) > 1 else float("nan")
+        means[critic] = ff
+        row.update({"n": len(ff), "mean": float(ff.mean()), "sd": sd,
+                    "range": [float(ff.min()), float(ff.max())],
+                    "round5_z": (ref - float(ff.mean())) / sd,
+                    "round5_below_all": bool(ref < ff.min()),
+                    "val_mean": float(val.mean()),
+                    "val_sd": float(val.std(ddof=1)) if len(val) > 1 else float("nan")})
+    if {"float32", "bfloat16"} <= set(means):
+        t = stats.ttest_ind(means["float32"], means["bfloat16"], equal_var=False)
+        result["welch"] = {"t": float(t.statistic), "p": float(t.pvalue),
+                           "float32_minus_bfloat16": float(means["float32"].mean()
+                                                           - means["bfloat16"].mean())}
+    (out / "spread.json").write_text(json.dumps(result, indent=1) + "\n")
+    bands = summary(out)["legs"]
+    lines = ["# Seed legs of the round-5 quality campaign", "",
+             "Each leg's ±0.3 dB band verdicts as the campaign states them, and "
+             "the seed reading beside them (`spread.json`).", "",
+             "| leg | seed | critic | final val PSNR | in band | full-frame mean | in band "
+             "| scene − round 5 (dB) | 2a class |", "|---|---|---|---|---|---|---|---|---|"]
+    for name, rec in bands.items():
+        deltas = [d for *_, d in rec.get("scene_psnr", {}).values()]
+        lines.append("| " + " | ".join([
+            name, str(rec["seed"]), rec["critic_dtype"], f"{rec['val_psnr']:.4f}",
+            str(rec["val_psnr_in_band"]),
+            f"{rec['full_frame_psnr']:.4f}" if "full_frame_psnr" in rec else "—",
+            str(rec.get("full_frame_in_band")) if "full_frame_psnr" in rec else "—",
+            f"{min(deltas):+.4f} to {max(deltas):+.4f}" if deltas else "—",
+            critic_class(rec["d_loss"], rec["val_psnr_by_epoch"]) if rec["epochs"] == 3
+            else "—"]) + " |")
+    lines += ["", *spread_lines(result)]
+    (out / "report.md").write_text("\n".join(lines) + "\n")
+    log(json.dumps(result))
+    return result
+
+
+def spread_lines(result: dict) -> list[str]:
+    """`spread`'s reading as markdown lines."""
+    lines = [f"2b's full-frame mean over the seeds against round 5's "
+             f"{result['round5_full_frame_psnr']}:"]
+    for critic, row in result["2b"].items():
+        lines.append(f"- {critic} critic, {row['n']} seeds: mean {row['mean']:.4f}, SD "
+                     f"{row['sd']:.4f}, range {row['range'][0]:.4f}–{row['range'][1]:.4f}; "
+                     f"round 5 at {row['round5_z']:+.1f} SD; validation {row['val_mean']:.4f}"
+                     f" (SD {row['val_sd']:.4f})")
+    if "welch" in result:
+        lines.append(f"- Welch's t-test, float32 against bf16: t {result['welch']['t']:.3f}, "
+                     f"p {result['welch']['p']:.4g}")
+    for critic, seeds in result["2a"].items():
+        lines.append(f"- 2a, {critic} critic: " + ", ".join(
+            f"{s} {v['class']}" for s, v in sorted(seeds.items())))
+    return lines
 
 
 def analyse(out: str | Path = "reports/port_r5_quality",
@@ -456,6 +646,10 @@ def analyse(out: str | Path = "reports/port_r5_quality",
         else:
             cells += ["—"] * 6
         lines.append("| " + " | ".join(cells) + " |")
+    seeds = out / "seeds" / "spread.json"
+    if seeds.is_file():
+        lines += ["", "Beside the band verdicts above (`seeds/report.md`, `--legs spread`): the "
+                  "seed legs' spread.", *spread_lines(json.loads(seeds.read_text()))]
     lines += ["", "Per-scene comparison: `comparison/report.md`, `comparison/summary.txt`; "
               "training curves: `training_analysis/metrics_report.txt`, "
               "`training_analysis/runs_data.csv`; each leg's record: `legs/<leg>.json`."]
@@ -468,8 +662,9 @@ def main(argv=None) -> dict | None:
                                      description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--legs", default=",".join(LEGS),
-                        help="comma-separated legs: of 1,2a,2b,3,4 (the card's) and the "
-                             "diagnostic 2a-d32,2a-d16,2a-abc,2b-d16, or 5 alone")
+                        help="comma-separated legs: of 1,2a,2b,3,4 (the card's), the "
+                             "diagnostic 2a-d32,2a-d16,2a-abc,2b-d16 and the seed legs "
+                             "(SEED_LEGS), or 5 or spread alone")
     parser.add_argument("--root", default=".", help="where data/ and outputs/ go")
     parser.add_argument("--out", default="reports/port_r5_quality",
                         help="the reports' directory (relative: under --root)")
@@ -477,13 +672,19 @@ def main(argv=None) -> dict | None:
     parser.add_argument("--baseline", default="reports/r5_quality",
                         help="leg 5: the campaign to compare with")
     parser.add_argument("--header", default=None, help="leg 5: report.md's header line")
+    parser.add_argument("--replay", action="store_true",
+                        help="also run each served Mamba leg's checkpoint through "
+                             "tools.tpu_rounding")
     parser.add_argument("overrides", nargs="*", help="key=value appended to every leg")
     args = parser.parse_intermixed_args(argv)
     legs = tuple(args.legs.split(","))
+    if legs == ("spread",):
+        spread(Path(args.root, args.out))
+        return None
     if legs == ("5",):
         analyse(Path(args.root, args.out), args.baseline, args.header)
         return None
-    return run(args.root, args.out, legs, args.overrides, args.device)
+    return run(args.root, args.out, legs, args.overrides, args.device, replay=args.replay)
 
 
 if __name__ == "__main__":

@@ -502,8 +502,29 @@ class BaseTrainer:
         checkpoints.save_checkpoint(current_save_path and Path(current_save_path) / "state",
                                     state, epoch)
 
-        avg_psnr = avg_ssim = avg_mrse = 0.0
         start = time.time()
+        avg_mrse, avg_psnr, avg_ssim = self.validate(eval_fn, val_loader, n_val,
+                                                     current_save_path, save_img_interval)
+        end = time.time()
+        logger.info(
+            f"[Val] epoch={epoch + 1} summary: avg_mrse={avg_mrse:.4f} "
+            f"avg_psnr={avg_psnr:.4f} avg_1-ssim={1 - avg_ssim:.4f} "
+            f"time={int(end - start)}s",
+        )
+        if self.is_main:
+            with open(os.path.join(root_save_path, "evaluation.txt"), "a") as f:
+                f.write(
+                    f"Validation: {epoch + 1} \tAvg MRSE: {avg_mrse:.4f} "
+                    f"\tAvg PSNR: {avg_psnr:.4f} \tAvg 1-SSIM: {1 - avg_ssim:.4f}\n",
+                )
+
+
+    def validate(self, eval_fn, val_loader, n_val: int, save_path: str | None = None,
+                 save_img_interval: int = 1) -> tuple[float, float, float]:
+        """The validation pass: (mean RMSE, PSNR, SSIM) over `val_loader`'s
+        `n_val` samples; rank 0 writes every `save_img_interval`-th sample's
+        panels into `save_path` when it is given."""
+        avg_psnr = avg_ssim = avg_mrse = 0.0
         # the metric functions batch-SUM 4-d inputs (reference quirk) and
         # panels are keyed by global sample index, so any val batch size
         # gives the reference's batch-1 values and artifact set
@@ -516,31 +537,16 @@ class BaseTrainer:
             output_255 = tensor2img(output, post_spec=True)
             gt_255 = tensor2img(gt_lin)
 
-            for j in range(output_255.shape[0] if self.is_main else 0):
+            for j in range(output_255.shape[0] if self.is_main and save_path else 0):
                 idx = sample_base + j
                 if idx % save_img_interval == 0:
-                    save_img_group(current_save_path, idx, noisy_255[j], output_255[j], gt_255[j])
+                    save_img_group(save_path, idx, noisy_255[j], output_255[j], gt_255[j])
             sample_base += output_255.shape[0]
 
             avg_mrse += calculate_rmse(output_lin, gt_lin)
             avg_psnr += calculate_psnr(output_255, gt_255)
             avg_ssim += calculate_ssim(output_255, gt_255)
-
-        end = time.time()
-        avg_mrse /= n_val
-        avg_psnr /= n_val
-        avg_ssim /= n_val
-        logger.info(
-            f"[Val] epoch={epoch + 1} summary: avg_mrse={avg_mrse:.4f} "
-            f"avg_psnr={avg_psnr:.4f} avg_1-ssim={1 - avg_ssim:.4f} "
-            f"time={int(end - start)}s",
-        )
-        if self.is_main:
-            with open(os.path.join(root_save_path, "evaluation.txt"), "a") as f:
-                f.write(
-                    f"Validation: {epoch + 1} \tAvg MRSE: {avg_mrse:.4f} "
-                    f"\tAvg PSNR: {avg_psnr:.4f} \tAvg 1-SSIM: {1 - avg_ssim:.4f}\n",
-                )
+        return avg_mrse / n_val, avg_psnr / n_val, avg_ssim / n_val
 
 
 class AFGSATrainer(BaseTrainer):

@@ -30,6 +30,7 @@ import json
 import math
 import re
 import shlex
+import shutil
 from pathlib import Path
 
 import pytest
@@ -269,3 +270,79 @@ def test_diagnostic_legs_change_one_thing_and_restore(tmp_path):
          qc.TRAINING[1].overrides)
     with pytest.raises(ValueError, match="diagnostic"):
         qc.run(tmp_path, legs=("2a-x",), device="cpu")
+
+
+def test_seed_legs_change_only_the_seed_and_the_critic():
+    """The seed list fixed before any seed leg ran, and each leg its base
+    but for `seed=` and the critic's dtype."""
+    assert qc.SEEDS == (990820, 990821, 990822)
+    want = {f"2b-s{s}-{c}" for s in qc.SEEDS for c in ("d16", "d32")}
+    want |= {f"2a-s{s}-{c}" for s in qc.SEEDS[:2] for c in ("d16", "d32")}
+    assert {leg.name for leg in qc.SEED_LEGS} == want and len(qc.SEED_LEGS) == 10
+    base = {leg.name: leg for leg in qc.TRAINING}
+    for leg in qc.SEED_LEGS:
+        b = base[leg.base]
+        seed = int(leg.name.split("-s")[1].split("-")[0])
+        assert (leg.model, leg.config, leg.channel, leg.arithmetic) == \
+            (b.model, b.config, b.channel, ())
+        assert leg.overrides == b.overrides + (f"seed={seed}",)
+        assert leg.critic_dtype == {"d16": torch.bfloat16, "d32": torch.float32}[
+            leg.name[-3:]]
+
+
+def test_seed_legs_sample_their_own_store(tmp_path):
+    """A seed leg's command line composes the base leg's config but for
+    the seed and its own patch store; the datasets are the base's."""
+    pregister()
+    (leg,) = [leg for leg in qc.SEED_LEGS if leg.name == "2b-s990821-d32"]
+    base = qc.TRAINING[1]
+    cfgs = []
+    for spec in (base, leg):
+        argv = qc.train_argv(spec, tmp_path, device="cpu")
+        assert argv[-2:] == ["--device", "cpu"]
+        cfgs.append(pcompose(argv[1], argv[2:-2] + [f"paths.output_dir={tmp_path}"]))
+    assert cfgs[1]["seed"] == 990821 and cfgs[0]["seed"] == 990819
+    store = Path(cfgs[1]["data"]["patches"]["dir"])
+    assert store.parent == Path(cfgs[0]["data"]["patches"]["dir"]).parent
+    assert store.name == Path(cfgs[0]["data"]["patches"]["dir"]).name + "_seed990821"
+    for cfg in cfgs:
+        cfg["seed"] = 0
+        cfg["data"]["patches"]["dir"] = None
+    assert cfgs[0] == cfgs[1]
+
+
+@pytest.mark.parametrize("d_loss, val, want", [
+    ((0.0329, 0.0113, 0.0341), (31.5304, 37.4999, 37.6807), "weak critic"),      # (e)
+    ((0.0390, -0.0075, 0.0012), (32.0295, 37.2943, 37.3424), "neither"),         # (d)
+    ((0.0402, 0.0097, 0.0031), (32.2878, 37.6985, 37.5641), "weak critic"),      # 2a-abc
+    ((0.0345, -0.0103, 0.0011), (31.7214, 37.6931, 37.4631), "reference-like"),  # 2a-d32
+    ((0.0239, -0.0170, 0.0002), (31.8894, 37.5451, 37.2630), "reference-like")])  # round 5
+def test_critic_class_reads_pr19s_legs_as_pr19(d_loss, val, want):
+    assert qc.critic_class(d_loss, val) == want
+
+
+def test_spread_of_the_recorded_seed_legs(tmp_path):
+    """`--legs spread` over the recorded seed legs and seed 990819's
+    records gives the recorded `spread.json`: each critic's four seeds,
+    their statistics and Welch's test as scipy computes them, and the
+    band verdicts of `summary` unchanged in `report.md`."""
+    from scipy import stats
+
+    seeds = REPO / "reports" / "port_r5_quality" / "seeds"
+    shutil.copytree(seeds / "legs", tmp_path / "legs")
+    got = qc.spread(tmp_path, REPO / "reports" / "port_r5_quality", log=lambda _: None)
+    assert json.loads(json.dumps(got)) == json.loads((seeds / "spread.json").read_text())
+    assert len(list((tmp_path / "legs").glob("*.json"))) == len(qc.SEED_LEGS)
+    means = {}
+    for critic, row in got["2b"].items():
+        assert sorted(row["seeds"]) == ["990819", *map(str, qc.SEEDS)]
+        means[critic] = [v["full_frame_psnr"] for v in row["seeds"].values()]
+        assert row["mean"] == pytest.approx(sum(means[critic]) / 4)
+    want = stats.ttest_ind(means["float32"], means["bfloat16"], equal_var=False)
+    assert got["welch"]["p"] == pytest.approx(want.pvalue)
+    for critic in ("float32", "bfloat16"):
+        assert sorted(got["2a"][critic]) == ["990819", *map(str, qc.SEEDS[:2])]
+    report = (tmp_path / "report.md").read_text()
+    for name, rec in qc.summary(tmp_path)["legs"].items():
+        row = next(line for line in report.splitlines() if line.startswith(f"| {name} |"))
+        assert f"| {rec['val_psnr_in_band']} |" in row
