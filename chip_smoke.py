@@ -241,6 +241,18 @@ exits non-zero. Phases:
    replay pass the reverse; every PSNR finite; the replay's frames lie
    above 0 and within REPLAY_RMS_REL (rms relative) of K7's. Prints the
    deltas and the phase's seconds.
+20. `trainer.deterministic` (the trainer's determinism settings, as the
+   reference's `set_determinism` makes them): in phase 11's directory (its
+   patch store and cut), `train.main -cn prod` twice and `-cn prod
+   model=mamba` twice, 1 epoch each, each in a fresh process (three at
+   a time): each pair's last checkpoint (G, D and both Adam states, by
+   `training.checkpoints.digest`) equal to the bit and its
+   `train_loss.txt` and `evaluation.txt` byte-equal. Prints the ops torch
+   warned of under `warn_only`, one control pair of AFGSA runs with the
+   settings left at torch's defaults (equal or not; not a condition),
+   each generator's prod GAN step (phases 5 and 8) as the median of 20
+   steps under the trainer's settings and of 20 under torch's defaults,
+   and the phase's seconds.
 
 Every kernel row states its bound (the least time the card could take:
 the larger of the bytes its function must move over 3.35 TB/s and its
@@ -1999,10 +2011,27 @@ def trainer_log():
             h.setLevel(level)
 
 
+# what `training.trainer.deterministic_algorithms` sets, as
+# `critic_numerics.set_switches` names it
+DETERMINISM_SWITCHES = ("cudnn_deterministic", "deterministic_algorithms")
+
+
+def determinism_kept():
+    """A block after which the process's determinism switches stand as
+    before it: a trainer built in the block sets them for the process
+    (`trainer.deterministic`), and the phases after it measure under
+    their own. TF32 is left as the trainer sets it."""
+    from pixel_heal_thyself_tpu_torch.tools.critic_numerics import arithmetic, switches_now
+
+    now = switches_now()
+    return arithmetic({k: now[k] for k in DETERMINISM_SWITCHES})
+
+
 def run_trainer(argv: list, kernels: tuple) -> tuple:
     """`train.main(argv)` from counts of 0 and a fresh run-dir pin, probing
     `kernels` = (the train step's, the validation forward's): (trainer,
-    probe record, log lines, launch counts, seconds, peak memory)."""
+    probe record, log lines, launch counts, seconds, peak memory). The
+    determinism switches are restored after it (`determinism_kept`)."""
     from pixel_heal_thyself_tpu_torch import train
     from pixel_heal_thyself_tpu_torch.config.run_dirs import reset_run_dirs_cache
 
@@ -2010,7 +2039,7 @@ def run_trainer(argv: list, kernels: tuple) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with trainer_probe(*kernels) as rec, trainer_log() as lines:
+    with trainer_probe(*kernels) as rec, trainer_log() as lines, determinism_kept():
         t0 = time.perf_counter()
         trainer = train.main(argv)
         torch.cuda.synchronize()
@@ -2062,9 +2091,9 @@ def check_trainer_run(tag: str, kernels: tuple, trainer, rec: dict, launches: di
     return run
 
 
-def phase_trainer(device, frame: dict, step_rates: dict, smi: str) -> None:
+def phase_trainer(device, frame: dict, step_rates: dict, smi: str, workdir: str) -> None:
     """Phase 11: the training CLI, `train.main`, for `-cn prod` and `-cn prod
-    model=mamba` in a temporary working directory: two epochs each, every
+    model=mamba` in `workdir` (phase 20 trains on its patch store): two epochs each, every
     step and validation forward through its kernels on their prod bodies,
     the first validation batch against the plain route, a resume from
     model_epoch1 to the bit, and model_epoch2 served through
@@ -2084,7 +2113,7 @@ def phase_trainer(device, frame: dict, step_rates: dict, smi: str) -> None:
     )
     from pixel_heal_thyself_tpu_torch.utils.images import tensor2img
 
-    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+    with contextlib.chdir(workdir):
         for model in ("afgsa", "mamba"):
             tag = f"trainer-{model}"
             base = ["-cn", TRAINER_CONFIG] + (["model=mamba"] if model == "mamba" else [])
@@ -3455,7 +3484,7 @@ def phase_critic(smi: str) -> None:
 
     t_phase = time.perf_counter()
     register_run_dirs_resolver()
-    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), determinism_kept():
         cfg = ConfigRegistry.create_config(compose(TRAINER_CONFIG, [f"paths.output_dir={tmp}"]))
         critic = AFGSATrainer(cfg, device="cuda").create_discriminator()
     torch.backends.cuda.matmul.allow_tf32 = False  # as main set them
@@ -3506,8 +3535,9 @@ def phase_replay(smi: str, tmp: str) -> None:
 
     t_phase = time.perf_counter()
     leg = json.loads(Path(tmp, "reports", "port_r5_quality", "legs", "2b.json").read_text())
-    rec = tpu_rounding.run(Path(tmp, leg["checkpoint"]), "2b", tmp, CAMPAIGN_OVERRIDES, "cuda",
-                           scenes=CAMPAIGN["scenes"], log=lambda _: None)
+    with determinism_kept():  # the tool's trainer sets them
+        rec = tpu_rounding.run(Path(tmp, leg["checkpoint"]), "2b", tmp, CAMPAIGN_OVERRIDES,
+                               "cuda", scenes=CAMPAIGN["scenes"], log=lambda _: None)
     k7, replay = rec["k7"], rec["replay"]
     name = counters()["K7"].__name__
     if not (k7["launches"].get(name, 0) > 0 and k7["replay_calls"] == 0):
@@ -3532,6 +3562,170 @@ def phase_replay(smi: str, tmp: str) -> None:
         f"{time.perf_counter() - t_phase:.2f} s; {smi}")
     torch.backends.cuda.matmul.allow_tf32 = False  # the trainer set them; as main did
     torch.backends.cudnn.allow_tf32 = False
+
+
+# phase 20: `trainer.deterministic` (the default) on the card. `train.main`
+# at phase 11's config and cut (its patch store, synthetic 512² scenes, 100
+# patches an image, batch 8 × 128², bf16, the kernels on, the float32
+# critic), 1 epoch, each run in a fresh process; the runs of a pair
+# repeat to the bit. The control pair trains with the determinism settings
+# left at torch's defaults (`training.trainer.deterministic_algorithms`
+# replaced by a no-op in its processes): the trainer as it ran before it
+# set them. Three processes share the card at a time.
+DETERMINISM = dict(epochs=1, parallel=3, blocks=4, steps=10, warmup=2)
+DETERMINISM_RUNS = (("afgsa", True), ("afgsa", True), ("mamba", True), ("mamba", True),
+                    ("afgsa", False), ("afgsa", False))
+DETERMINISM_MAIN = """
+import sys
+import pixel_heal_thyself_tpu_torch.training.trainer as trainer
+from pixel_heal_thyself_tpu_torch import _build, train
+if sys.argv[1] == "defaults":
+    trainer.deterministic_algorithms = lambda: None
+_build.lib()
+train.main(sys.argv[2:])
+"""
+WARNED_OP = re.compile(r"(\S+) does not have a deterministic implementation")
+
+
+def determinism_runs(workdir: str) -> list[dict]:
+    """DETERMINISM_RUNS in fresh processes in `workdir` (phase 11's), at
+    most DETERMINISM["parallel"] at a time (the first alone when the patch
+    store is not there yet): each run's directory, its output and its
+    seconds."""
+    repo = Path(__file__).resolve().parent
+    env = {k: v for k, v in os.environ.items() if k != "CUBLAS_WORKSPACE_CONFIG"}
+    env["PYTHONPATH"] = str(repo)
+    alone = not any(Path(workdir).glob("data/*/patches_*"))
+    runs, running = [], []
+
+    def finish(job):
+        proc, rec, t0 = job
+        if proc.wait(timeout=900) != 0:
+            raise AssertionError(f"[determinism] {rec['model']} run {rec['run_num']} exited "
+                                 f"{proc.returncode}:\n{Path(rec['log']).read_text()[-3000:]}")
+        rec["seconds"] = time.perf_counter() - t0
+        rec["output"] = Path(rec["log"]).read_text()
+
+    for i, (model, deterministic) in enumerate(DETERMINISM_RUNS):
+        if len(running) == DETERMINISM["parallel"] or (alone and i == 1):
+            finish(running.pop(0))
+        run_num = 20 + i
+        rec = {"model": model, "deterministic": deterministic, "run_num": run_num,
+               "log": str(Path(workdir, f"determinism_{run_num}.log"))}
+        argv = (["-cn", TRAINER_CONFIG] + (["model=mamba"] if model == "mamba" else [])
+                + TRAINER_ARGS + [f"trainer.epochs={DETERMINISM['epochs']}",
+                                  f"run_num={run_num}"])
+        with open(rec["log"], "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", DETERMINISM_MAIN,
+                 "trainer" if deterministic else "defaults", *argv],
+                stdout=out, stderr=subprocess.STDOUT, cwd=workdir, env=env)
+        running.append((proc, rec, time.perf_counter()))
+        runs.append(rec)
+    for job in running:
+        finish(job)
+    for rec in runs:
+        rec["dir"] = next(Path(workdir).glob(
+            f"outputs/runs/{rec['model']}_*/run{rec['run_num']:03d}"))
+    return runs
+
+
+def same_run(a: Path, b: Path) -> dict:
+    """Whether two run directories end equal: the last checkpoint's G, D
+    and Adam states (`checkpoints.digest`), and `train_loss.txt` and
+    `evaluation.txt` byte for byte."""
+    from pixel_heal_thyself_tpu_torch.training import checkpoints
+
+    ckpt = f"model_epoch{DETERMINISM['epochs']}/state"
+    da, db = checkpoints.digest(a / ckpt), checkpoints.digest(b / ckpt)
+    out = {part: da[part] == db[part] for part in da}
+    for name in ("train_loss.txt", "evaluation.txt"):
+        out[name] = (a / name).read_bytes() == (b / name).read_bytes()
+    return out
+
+
+def step_cost(device, smi: str) -> dict:
+    """The prod GAN step of each generator (phases 5 and 8: batch 8 ×
+    128², the float32 critic, TF32 on) under the trainer's determinism
+    settings and under torch's defaults, in DETERMINISM["blocks"] blocks of
+    DETERMINISM["steps"] timed steps (defaults, trainer, trainer,
+    defaults; each block after DETERMINISM["warmup"] steps): the median
+    seconds a step of each setting and the ops warned of. cuBLAS's
+    workspace stays as the process made it."""
+    import warnings
+
+    from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet, afgsa_prod_kwargs
+    from pixel_heal_thyself_tpu_torch.models.discriminators import GP_CRITIC_DTYPE
+    from pixel_heal_thyself_tpu_torch.models.mamba import MambaDenoiserNet, mamba_prod_kwargs
+    from pixel_heal_thyself_tpu_torch.tools.critic_numerics import (
+        arithmetic,
+        switches_now,
+        trainer_setting,
+    )
+    from pixel_heal_thyself_tpu_torch.training.trainer import deterministic_algorithms
+
+    with arithmetic(switches_now()):
+        deterministic_algorithms()
+        trainer = {**switches_now(), "tf32": True}
+    settings = {"torch defaults": trainer_setting(), "trainer": trainer}
+    order = ("torch defaults", "trainer", "trainer", "torch defaults")[:DETERMINISM["blocks"]]
+    out = {}
+    for name, net, kwargs in (("afgsa", AFGSANet, afgsa_prod_kwargs()),
+                              ("mamba", MambaDenoiserNet, mamba_prod_kwargs())):
+        g, d, data = _train_state(device, GP_CRITIC_DTYPE, kwargs, TRAIN["patch"], TRAIN["batch"],
+                                  seed=0, net=net)
+        step = make_step(g, d)
+        gen = torch.Generator(device=device).manual_seed(7)
+        secs = {k: [] for k in settings}
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for setting in order:
+                with arithmetic(settings[setting]):
+                    for i in range(DETERMINISM["warmup"] + DETERMINISM["steps"]):
+                        t0 = time.perf_counter()
+                        step(data, generator=gen)["d_loss"].item()
+                        if i >= DETERMINISM["warmup"]:
+                            secs[setting].append(time.perf_counter() - t0)
+        med = {k: float(np.median(v)) for k, v in secs.items()}
+        ops = sorted({m[1] for w in caught for m in [WARNED_OP.search(str(w.message))] if m})
+        out[name] = {"median_s": med, "cost": med["trainer"] / med["torch defaults"] - 1,
+                     "steps": {k: len(v) for k, v in secs.items()}, "warned_ops": ops}
+        log(f"[determinism] {name} prod GAN step (batch {TRAIN['batch']} × {TRAIN['patch']}², "
+            f"float32 critic, TF32 on): median {med['trainer']:.5f} s with the trainer's "
+            f"determinism settings {settings['trainer']}, {med['torch defaults']:.5f} s with "
+            f"torch's defaults ({len(secs['trainer'])} steps each, blocks {order}): "
+            f"{out[name]['cost'] * 100:+.2f}%; ops warned of {ops}; {smi}")
+        del g, d, data, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_determinism(device, smi: str, workdir: str) -> None:
+    """Phase 20: `trainer.deterministic` on the card. In `workdir`
+    (phase 11's, with its patch store), `train.main -cn prod` twice and
+    `-cn prod model=mamba` twice, 1 epoch each, each in a fresh process:
+    each pair's last checkpoint (G, D, both Adam states) equal to the bit
+    and its text files byte-equal. Prints the ops torch warned of, one
+    control pair with torch's default settings (equal or not; not a
+    condition), each generator's step-time cost of the settings
+    (`step_cost`) and the phase's seconds."""
+    t_phase = time.perf_counter()
+    runs = determinism_runs(workdir)
+    warned = sorted({m[1] for rec in runs if rec["deterministic"]
+                     for m in WARNED_OP.finditer(rec["output"])})
+    for a, b in zip(runs[::2], runs[1::2]):
+        same = same_run(a["dir"], b["dir"])
+        label = (f"{a['model']}, the trainer's settings" if a["deterministic"]
+                 else f"{a['model']}, control with torch's defaults")
+        log(f"[determinism] {label}: runs {a['run_num']} and {b['run_num']} "
+            f"({a['seconds']:.1f} s, {b['seconds']:.1f} s) equal: {same}")
+        if a["deterministic"] and not all(same.values()):
+            raise AssertionError(f"[determinism] {label}: two runs differ: {same}")
+    log(f"[determinism] ops torch warned of under warn_only in the trainer's runs: {warned}")
+    step_cost(device, smi)
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main set them
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[determinism] phase 20 {time.perf_counter() - t_phase:.2f} s; {smi}")
 
 
 def main() -> None:
@@ -3568,17 +3762,20 @@ def main() -> None:
     results.update(phase_literal_kernels(device))
     literal = phase_literal_path(device)
     phase_fold_qkv(device)
-    phase_trainer(device, frames[0], {"afgsa": afgsa_rate, "mamba": mamba_rate}, smi)
-    phase_gan_steps(device, frames[0], training, mamba_training, smi)
-    phase_gan_trainer(smi)
-    phase_export(device, frames, smi)
-    phase_sharded(device, frames[0], smi)
-    phase_dp_training(device, smi)
-    phase_tools(device, {"afgsa": afgsa_rate, "mamba": mamba_rate}, smi)
-    with tempfile.TemporaryDirectory() as tmp:
-        phase_campaign(smi, tmp)
-        phase_critic(smi)
-        phase_replay(smi, tmp)
+    rates = {"afgsa": afgsa_rate, "mamba": mamba_rate}
+    with tempfile.TemporaryDirectory() as trainer_dir:
+        phase_trainer(device, frames[0], rates, smi, trainer_dir)
+        phase_gan_steps(device, frames[0], training, mamba_training, smi)
+        phase_gan_trainer(smi)
+        phase_export(device, frames, smi)
+        phase_sharded(device, frames[0], smi)
+        phase_dp_training(device, smi)
+        phase_tools(device, rates, smi)
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_campaign(smi, tmp)
+            phase_critic(smi)
+            phase_replay(smi, tmp)
+        phase_determinism(device, smi, trainer_dir)
     # each kernel's count from the path it was ported for
     path = {"K1": serving, "K2": serving, "K3": serving, "K4": training, "K5": training,
             "K6": training, "K7": mamba, "K7e": mamba_training, "K8": mamba_training,

@@ -56,15 +56,18 @@ from pixel_heal_thyself_tpu_torch.utils.init import (
 # The dtype training builds the WGAN-GP critic (`DiscriminatorVGG`, its
 # GP's double backward and its loss terms) in, at every precision, with
 # TF32 products on the card under bf16: a numerics difference from the JAX
-# package, whose critic takes the run's dtype. At bf16 and the configs'
-# seed the port's AFGSA critic stayed weak (D loss positive at epoch 2, G
-# held at its L1 optimum, validation rising past round 5's band) where the
-# JAX package's on the TPU turned its D loss negative at epoch 2; with the
-# critic alone in float32 (G in bf16 through the kernels) the AFGSA run
-# follows round 5's course. At two other seeds the bf16 critic turned too,
-# and over four seeds the critic's precision does not move the Mamba run's
-# result (PERF.md §6, ROADMAP Queue 3 item 4): one constant serves both
-# generators. The multiscale critic (RaHinge, no GP) keeps the run's dtype.
+# package, whose critic takes the run's dtype. In 12-epoch AFGSA prod runs
+# (`tools.quality_campaign`'s 2a legs) the bf16 critic stayed weak at the
+# configs' seed 990819 (D loss positive from epoch 1, validation and the
+# served frames above round 5's bands) where the float32 one followed
+# round 5's course; at 990820 both followed it, the bf16 run leaving the
+# validation band below; at 990821 both stayed weak and above both bands.
+# The rule fixed before the runs at the new seeds gave the critic back
+# the run's dtype only if both bf16 legs there land in both bands: they
+# did not (PERF.md §6, `reports/port_r5_quality/seeds12/`). Over four
+# seeds the critic's precision does not move the Mamba run's result: one
+# constant serves both generators. The multiscale critic (RaHinge, no GP)
+# keeps the run's dtype.
 GP_CRITIC_DTYPE = torch.float32
 
 

@@ -61,22 +61,30 @@ SEED = 990819  # the configs' seed: G from it, D from seed + 1, as the trainer
 GP_W = 10.0  # the schema's gp_loss_w
 BATCH, PATCH = 8, 128
 # PyTorch's defaults, on which the trainer sets its own switches
-TORCH_DEFAULTS = {"tf32": False, "bf16_reduced_reduction": True, "cudnn_deterministic": False}
-TRUE_F32 = {"tf32": False, "bf16_reduced_reduction": False, "cudnn_deterministic": True}
+TORCH_DEFAULTS = {"tf32": False, "bf16_reduced_reduction": True, "cudnn_deterministic": False,
+                  "deterministic_algorithms": False}
+TRUE_F32 = {"tf32": False, "bf16_reduced_reduction": False, "cudnn_deterministic": True,
+            "deterministic_algorithms": False}
 
 
-def trainer_setting() -> dict[str, bool]:
-    """The switches a bf16 training run sets (TF32 on), on PyTorch's
-    defaults."""
+def trainer_setting() -> dict:
+    """The switches of a bf16 training run (TF32 on) on PyTorch's defaults,
+    as the trainer set them before `trainer.deterministic` took cuDNN's
+    deterministic algorithms (`training.trainer.deterministic_algorithms`):
+    the setting every reading of this tool was taken under."""
     return {**TORCH_DEFAULTS, "tf32": True}
 
 
-def set_switches(flags: dict[str, bool]) -> dict[str, bool]:
+def set_switches(flags: dict) -> dict:
     """Set the card's arithmetic switches named in `flags` and return their
     values before: `tf32` (cuBLAS's and cuDNN's float32 products in TF32),
     `bf16_reduced_reduction` (cuBLAS may sum a bf16 product's split-K
-    partials in bf16) and `cudnn_deterministic` (cuDNN's deterministic
-    algorithms, no autotuning)."""
+    partials in bf16), `cudnn_deterministic` (cuDNN's deterministic
+    algorithms, no autotuning) and `deterministic_algorithms`
+    (`torch.use_deterministic_algorithms`: False, True, or "warn_only" for
+    `warn_only=True`). Under deterministic algorithms every convolution
+    takes cuDNN's deterministic algorithms whatever `cudnn_deterministic`
+    says, so a setting that means PyTorch's defaults names both."""
     old = {}
     for name, on in flags.items():
         if name == "tf32":
@@ -89,20 +97,32 @@ def set_switches(flags: dict[str, bool]) -> dict[str, bool]:
             old[name] = torch.backends.cudnn.deterministic
             torch.backends.cudnn.deterministic = on
             torch.backends.cudnn.benchmark = False
+        elif name == "deterministic_algorithms":
+            old[name] = deterministic_algorithms_now()
+            torch.use_deterministic_algorithms(bool(on), warn_only=on == "warn_only")
         else:
             raise KeyError(f"unknown arithmetic switch {name!r}")
     return old
 
 
-def switches_now() -> dict[str, bool]:
+def deterministic_algorithms_now() -> bool | str:
+    """`torch.use_deterministic_algorithms`' state as `set_switches` names
+    it: False, True or "warn_only"."""
+    if not torch.are_deterministic_algorithms_enabled():
+        return False
+    return "warn_only" if torch.is_deterministic_algorithms_warn_only_enabled() else True
+
+
+def switches_now() -> dict:
     """The switches of `set_switches` as they stand."""
     return {"tf32": torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32,
             "bf16_reduced_reduction":
                 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
-            "cudnn_deterministic": torch.backends.cudnn.deterministic}
+            "cudnn_deterministic": torch.backends.cudnn.deterministic,
+            "deterministic_algorithms": deterministic_algorithms_now()}
 
 
-def settings() -> dict[str, dict[str, bool]]:
+def settings() -> dict[str, dict]:
     """Each named setting of the card's arithmetic: the trainer's, and it
     with one switch (or all three) moved toward true float32."""
     base = trainer_setting()
@@ -117,7 +137,7 @@ def settings() -> dict[str, dict[str, bool]]:
 
 
 @contextlib.contextmanager
-def arithmetic(flags: dict[str, bool]):
+def arithmetic(flags: dict):
     """`set_switches(flags)` while the block runs."""
     benchmark = torch.backends.cudnn.benchmark
     old = set_switches(flags)

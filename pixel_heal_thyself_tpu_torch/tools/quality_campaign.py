@@ -26,9 +26,10 @@ Port of the JAX package's `tools/r5_quality_campaign.sh`, with its legs:
   2b-s<seed>-d16, 2b-s<seed>-d32, 2a-s<seed>-d16, 2a-s<seed>-d32
       seed legs (`SEED_LEGS`, diagnostic too): 2b and 2a at another
       top-level `seed` (SEEDS), each with the bf16 and the float32 critic;
-      2a's are run for 3 epochs (`trainer.epochs=3`) and read by their
-      critic's course (`critic_class`). `--replay` also runs each served
-      2b leg's checkpoint through `tools.tpu_rounding`
+      2a's are read at 3 epochs (`trainer.epochs=3`) by their critic's
+      course (`critic_class`) and at the configs' 12, served, by 2a's
+      bands (`spread_2a12`). `--replay` also runs each served 2b leg's
+      checkpoint through `tools.tpu_rounding`
   5   the analysis tools (`tools/runs_analysis.py`,
       `tools/runs_inference_analysis.py`: pandas and matplotlib, which the
       card's machine lacks) over the text files of legs 2–4 against a
@@ -54,7 +55,7 @@ validation batch; and the card (`nvidia-smi` name and power limit).
     python -m pixel_heal_thyself_tpu_torch.tools.quality_campaign --legs 5 \
         [--out reports/port_r5_quality] [--baseline reports/r5_quality] [--header TEXT]
     python -m pixel_heal_thyself_tpu_torch.tools.quality_campaign --legs spread \
-        --out reports/port_r5_quality/seeds
+        --out reports/port_r5_quality/seeds      # or .../seeds12: 12-epoch 2a legs
 
 An override is appended to every leg's command line, training and
 serving.
@@ -308,10 +309,15 @@ def _per_call(total: dict, calls: int) -> dict:
 def run_training(leg: Leg, root: Path, out: Path, overrides=(), device: str = "cuda",
                  log=print) -> tuple[dict, Path]:
     """One training leg: `train.main`, then its text files copied to `out`
-    and printed. Returns (the leg's record, its run directory)."""
+    and printed. The process's arithmetic switches, the trainer's
+    determinism settings among them, are restored when it returns (the
+    record's `arithmetic` is what the leg trained under). Returns (the
+    leg's record, with its last checkpoint's digest, and the
+    checkpoint)."""
     from pixel_heal_thyself_tpu_torch import train
     from pixel_heal_thyself_tpu_torch.config.run_dirs import reset_run_dirs_cache
     from pixel_heal_thyself_tpu_torch.tools.critic_numerics import arithmetic, switches_now
+    from pixel_heal_thyself_tpu_torch.training import checkpoints
     from pixel_heal_thyself_tpu_torch.training.trainer import kernel_launches
 
     argv = train_argv(leg, root, overrides, device)
@@ -376,6 +382,7 @@ def run_training(leg: Leg, root: Path, out: Path, overrides=(), device: str = "c
     if epochs >= 3:
         record["critic_class"] = critic_class(record["d_loss"], record["val_psnr_by_epoch"])
     ckpt = root / record["checkpoint"]
+    record["checkpoint_digest"] = checkpoints.digest(ckpt)
     del trainer
     if cuda:
         torch.cuda.empty_cache()
@@ -488,6 +495,17 @@ def run(root: str | Path = ".", out: str | Path = "reports/port_r5_quality", leg
 # critic and with the float32 one
 SEED_990819 = ("legs/2b.json", "diagnostic_d16_2b/legs/2b-d16.json",
                "diagnostic_e/legs/2a.json", "diagnostic_d32/legs/2a-d32.json")
+# and the 12-epoch 2a of each critic, both trained before the trainer set
+# cuDNN's deterministic algorithms: the bf16 critic's run (its record
+# predates the key `critic_dtype`) and the float32 critic's
+SEED_990819_2A12 = {"bf16_critic/legs/2a.json": "bfloat16", "legs/2a.json": "float32"}
+# 2a's validation PSNR and full-frame mean against round 5's: the mean of
+# its two runs, and the band each of the critic's legs at a new seed must
+# land in for the critic to take the run's dtype again
+ROUND5_2A = {"val_psnr": float(np.mean(REFERENCE["2a"]["val_psnr"])),
+             "full_frame_psnr": float(np.mean(REFERENCE["2a"]["full_frame_psnr"]))}
+BANDS_2A = {"val_psnr": REFERENCE["2a"]["val_band"],
+            "full_frame_psnr": REFERENCE["2a"]["full_frame_band"]}
 
 
 def _seed_record(path: Path) -> dict:
@@ -504,24 +522,95 @@ def _seed_record(path: Path) -> dict:
     return rec
 
 
+def _kind(rec: dict) -> str | None:
+    """What a record adds to the spread: "2b", "2a3" (a 3-epoch 2a) or
+    "2a12" (a 12-epoch 2a)."""
+    base = rec.get("base") or rec["leg"]
+    if base == "2b":
+        return "2b"
+    if base == "2a" and rec["epochs"] in (3, 12):
+        return f"2a{rec['epochs']}"
+    return None
+
+
+def _stats(values) -> dict:
+    v = np.array(values, dtype=float)
+    return {"n": len(v), "mean": float(v.mean()),
+            "sd": float(v.std(ddof=1)) if len(v) > 1 else float("nan"),
+            "range": [float(v.min()), float(v.max())]}
+
+
+def spread_2a12(recs: list[dict]) -> dict:
+    """The 12-epoch 2a legs by critic: for each seed its validation PSNR
+    and full-frame mean, each in 2a's band or not, and whether it ran
+    before the trainer's determinism settings; for each critic the
+    statistics of both over its seeds with round 5's z; Welch's t-test
+    between the critics on each; and the rule fixed before the new legs
+    ran: the critic takes the run's dtype again if and only if both new
+    bf16 legs (seeds SEEDS[:2]) land in both bands."""
+    from scipy import stats
+
+    out: dict = {"round5": ROUND5_2A, "bands": BANDS_2A, "critics": {}}
+    for rec in recs:
+        row = out["critics"].setdefault(rec["critic_dtype"], {"seeds": {}})
+        row["seeds"][str(rec["seed"])] = {
+            **{k: rec[k] for k in BANDS_2A},
+            **{f"{k}_in_band": in_band(rec[k], band) for k, band in BANDS_2A.items()},
+            "before_repair": bool(rec.get("before_repair"))}
+    for row in out["critics"].values():
+        for key in BANDS_2A:
+            st = _stats([v[key] for v in row["seeds"].values()])
+            st["round5_z"] = (ROUND5_2A[key] - st["mean"]) / st["sd"]
+            row[key] = st
+    if {"float32", "bfloat16"} <= set(out["critics"]):
+        seeds = {c: out["critics"][c]["seeds"].values() for c in ("float32", "bfloat16")}
+        out["welch"] = {}
+        for key in BANDS_2A:
+            a, b = ([v[key] for v in seeds[c]] for c in ("float32", "bfloat16"))
+            t = stats.ttest_ind(a, b, equal_var=False)
+            out["welch"][key] = {"t": float(t.statistic), "p": float(t.pvalue),
+                                 "float32_minus_bfloat16": float(np.mean(a) - np.mean(b))}
+    new_bf16 = {s: v for s, v in out["critics"].get("bfloat16", {}).get("seeds", {}).items()
+                if s in map(str, SEEDS[:2])}
+    complete = sorted(new_bf16) == sorted(map(str, SEEDS[:2]))
+    returns = complete and all(v["val_psnr_in_band"] and v["full_frame_psnr_in_band"]
+                               for v in new_bf16.values())
+    out["rule"] = {"bf16_legs": sorted(new_bf16), "complete": complete,
+                   "critic": ("the run's dtype" if returns else "float32") if complete
+                   else "undecided"}
+    return out
+
+
 def spread(out: str | Path = "reports/port_r5_quality/seeds",
            seed_runs: str | Path | None = None, log=print) -> dict:
-    """The seed legs in `out/legs/` with seed 990819's (SEED_990819 under
-    `seed_runs`, by default `out`'s parent), on the CPU: for each critic, 2b's full-frame means over
-    the seeds (mean, sample SD, range), where round 5's number lies among
-    them, Welch's t-test between the critics (scipy), 2b's validation;
-    and each 2a seed's critic class. Writes `out/spread.json` and
-    `out/report.md`, which gives every leg's ±0.3 dB band verdicts as
+    """The seed legs in `out/legs/` with seed 990819's of the same kinds
+    (SEED_990819 and SEED_990819_2A12 under `seed_runs`, by default
+    `out`'s parent), on the CPU: for each critic, 2b's full-frame means
+    over the seeds (mean, sample SD, range), where round 5's number lies
+    among them, Welch's t-test between the critics (scipy), 2b's
+    validation; each 3-epoch 2a seed's critic class; and the 12-epoch 2a
+    legs' reading (`spread_2a12`, key `2a_12`). Writes `out/spread.json`
+    and `out/report.md`, which gives every leg's ±0.3 dB band verdicts as
     `summary` states them and the seed reading beside them."""
     from scipy import stats
 
     out = Path(out)
-    seed_runs = out.parent if seed_runs is None else seed_runs
+    seed_runs = Path(out.parent if seed_runs is None else seed_runs)
     recs = [_seed_record(f) for f in sorted((out / "legs").glob("*.json"))]
-    recs += [_seed_record(Path(seed_runs) / f) for f in SEED_990819
-             if (Path(seed_runs) / f).is_file()]
+    kinds = {_kind(rec) for rec in recs}  # seed 990819 joins the kinds run here
+    for f in SEED_990819:
+        if (seed_runs / f).is_file() and _kind(rec := _seed_record(seed_runs / f)) in kinds:
+            recs.append(rec)
+    if "2a12" in kinds:
+        for f, critic in SEED_990819_2A12.items():
+            if (seed_runs / f).is_file():
+                rec = _seed_record(seed_runs / f)
+                rec.setdefault("critic_dtype", critic)
+                recs.append(dict(rec, before_repair=True))
     ref = REFERENCE["2b"]["full_frame_psnr"][0]
     result = {"round5_full_frame_psnr": ref, "2b": {}, "2a": {}}
+    if "2a12" in kinds:
+        result["2a_12"] = spread_2a12([rec for rec in recs if _kind(rec) == "2a12"])
     for rec in recs:
         base = rec.get("base") or rec["leg"]
         critic = rec["critic_dtype"]
@@ -579,7 +668,7 @@ def spread(out: str | Path = "reports/port_r5_quality/seeds",
 def spread_lines(result: dict) -> list[str]:
     """`spread`'s reading as markdown lines."""
     lines = [f"2b's full-frame mean over the seeds against round 5's "
-             f"{result['round5_full_frame_psnr']}:"]
+             f"{result['round5_full_frame_psnr']}:"] if result["2b"] else []
     for critic, row in result["2b"].items():
         lines.append(f"- {critic} critic, {row['n']} seeds: mean {row['mean']:.4f}, SD "
                      f"{row['sd']:.4f}, range {row['range'][0]:.4f}–{row['range'][1]:.4f}; "
@@ -591,6 +680,28 @@ def spread_lines(result: dict) -> list[str]:
     for critic, seeds in result["2a"].items():
         lines.append(f"- 2a, {critic} critic: " + ", ".join(
             f"{s} {v['class']}" for s, v in sorted(seeds.items())))
+    if "2a_12" in result:
+        r = result["2a_12"]
+        lines.append(f"2a at 12 epochs against round 5's {r['round5']['val_psnr']:.4f} "
+                     f"(validation, band {r['bands']['val_psnr']}) and "
+                     f"{r['round5']['full_frame_psnr']:.4f} (full-frame mean, band "
+                     f"{r['bands']['full_frame_psnr']}); * ran before the trainer set cuDNN's "
+                     "deterministic algorithms:")
+        for critic, row in r["critics"].items():
+            lines.append(f"- {critic} critic, {row['full_frame_psnr']['n']} seeds: " + "; ".join(
+                f"{s}{'*' if v['before_repair'] else ''} {v['val_psnr']:.4f} / "
+                f"{v['full_frame_psnr']:.4f}" for s, v in sorted(row["seeds"].items())))
+            for key in BANDS_2A:
+                st = row[key]
+                lines.append(f"  - {key}: mean {st['mean']:.4f}, SD {st['sd']:.4f}, range "
+                             f"{st['range'][0]:.4f}–{st['range'][1]:.4f}; round 5 at "
+                             f"{st['round5_z']:+.1f} SD")
+        for key, w in r.get("welch", {}).items():
+            lines.append(f"- Welch's t-test on {key}, float32 against bf16: t {w['t']:.3f}, "
+                         f"p {w['p']:.4g}")
+        rule = r["rule"]
+        lines.append(f"- The rule (both new bf16 legs, seeds {list(SEEDS[:2])}, in both bands): "
+                     f"bf16 legs {rule['bf16_legs']}, the critic: {rule['critic']}")
     return lines
 
 

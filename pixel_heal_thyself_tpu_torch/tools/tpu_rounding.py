@@ -215,8 +215,10 @@ def run(checkpoint: str | Path, leg: str = "2b", root: str | Path = ".", overrid
     pairs = pairs[:scenes]
     eval_fn = make_eval_step(model)
     result = {}
-    # both passes under the same switches, cuDNN deterministic
-    with arithmetic({**switches_now(), "cudnn_deterministic": True}):
+    # both passes under the same switches, cuDNN deterministic; without
+    # the deterministic algorithms the trainer turned on, as before it did
+    with arithmetic({**switches_now(), "cudnn_deterministic": True,
+                     "deterministic_algorithms": False}):
         for name in ("k7", "replay"):
             before = kernel_launches()
             with replayed() if name == "replay" else contextlib.nullcontext() as calls:

@@ -12,7 +12,10 @@ comma-separated override values, each job in
 and overrides to `<run>/.hydra/{config,overrides}.yaml`.
 
 It trains on the card (`--device cuda`, the default) and raises when
-there is none; `--device cpu` trains on the CPU.
+there is none; `--device cpu` trains on the CPU. With
+`trainer.deterministic` (the default) the determinism settings of
+`training.trainer.deterministic_algorithms` are applied first, before
+anything touches the card, and stay set for the rest of the process.
 
 Several ranks: `python -m torch.distributed.run --nproc-per-node N -m
 pixel_heal_thyself_tpu_torch.train ... parallel.multihost=true
@@ -114,13 +117,18 @@ def main(argv: list[str] | None = None, **trainer_args):
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_intermixed_args(argv)  # --device may follow the overrides
-    from pixel_heal_thyself_tpu_torch.training.trainer import training_device
+    from pixel_heal_thyself_tpu_torch.training.trainer import (
+        deterministic_algorithms,
+        training_device,
+    )
 
     training_device(args.device)  # no card: raise before any run dir is made
     register_run_dirs_resolver()
     probe = _expand_multirun(args.overrides)[0] if args.multirun else args.overrides
-    multihost = compose(args.config_name, probe,
-                        resolve_interpolations=False)["parallel"]["multihost"]
+    head = compose(args.config_name, probe, resolve_interpolations=False)
+    if head["trainer"]["deterministic"]:
+        deterministic_algorithms()  # before the first cuBLAS handle; each trainer again
+    multihost = head["parallel"]["multihost"]
     own_group = not dist.is_initialized() and maybe_initialize_distributed(bool(multihost),
                                                                            args.device)
 

@@ -23,6 +23,7 @@ The JAX package's Orbax checkpoints reach the port through
 
 from __future__ import annotations
 
+import hashlib
 import os
 import tempfile
 from pathlib import Path
@@ -112,3 +113,32 @@ def restore_params(path: str | Path) -> dict:
     if path.is_dir():
         return torch.load(path / FILE, map_location="cpu", weights_only=True)["g"]
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def digest(path: str | Path) -> dict[str, str]:
+    """The sha256 of G (with any `u`), D and both Adam states in the
+    checkpoint in `path/`, each over its keys in order, every tensor's
+    dtype, shape and bytes and every other value's repr. Two runs that
+    repeat to the bit have equal digests."""
+    state = torch.load(Path(path) / FILE, map_location="cpu", weights_only=True)
+
+    def feed(h, key: str, value) -> None:
+        if isinstance(value, dict):
+            for k in sorted(value, key=str):
+                feed(h, f"{key}/{k}", value[k])
+        elif isinstance(value, (list, tuple)):
+            for i, v in enumerate(value):
+                feed(h, f"{key}/{i}", v)
+        elif isinstance(value, torch.Tensor):
+            v = value.detach().contiguous().reshape(-1)
+            h.update(f"{key}:{v.dtype}:{tuple(value.shape)}".encode())
+            h.update(v.view(torch.uint8).numpy().tobytes())
+        else:
+            h.update(f"{key}={value!r}".encode())
+
+    out = {}
+    for part in ("g", "d", "g_opt", "d_opt"):
+        h = hashlib.sha256()
+        feed(h, part, state[part])
+        out[part] = h.hexdigest()
+    return out

@@ -4,8 +4,13 @@ Port of `pixel_heal_thyself_tpu/training/trainer.py` (behavioural spec:
 reference `pht/models/base_trainer.py:83-595` and the per-model trainers
 `pht/models/afgsa/train.py:11-37`, `pht/models/mamba/train.py:13-45`):
 
-- determinism seeded from cfg.seed; padding replicate when deterministic,
-  else reflect;
+- determinism seeded from cfg.seed; with `trainer.deterministic` (the
+  default) also what the reference's `set_determinism` sets for torch
+  (`deterministic_algorithms`: `CUBLAS_WORKSPACE_CONFIG=:4096:8` unless
+  the caller set it, cuDNN's deterministic algorithms with no autotuning,
+  `torch.use_deterministic_algorithms(True, warn_only=True)`), so that a
+  run on the card repeats to the bit; padding replicate when
+  deterministic, else reflect;
 - the patch store built on first run (`data/store.py`), from synthetic
   scenes when `data.images.synthesize` and the image tree is missing;
 - the GAN step of `training/train_step.py` with Adam and the MultiStep
@@ -89,17 +94,41 @@ from pixel_heal_thyself_tpu_torch.utils.images import create_folder, save_img_gr
 _last_determinism_seed: list[int | None] = [None]
 
 
-def set_determinism(seed: int) -> None:
-    """Seed the host RNGs and torch's (reference `base_trainer.py:50-67`).
-    Re-applied whenever the seed changes, so every job of an in-process
+def set_determinism(seed: int, deterministic: bool) -> None:
+    """Seed the host RNGs and torch's (reference `base_trainer.py:50-67`),
+    then, when `deterministic`, `deterministic_algorithms()`. The seeding
+    is re-applied whenever the seed changes, so every job of an in-process
     `-m seed=1,2,3` sweep is seeded from its own value."""
-    if _last_determinism_seed[0] == seed:
-        return
-    _last_determinism_seed[0] = seed
-    random.seed(seed)
-    np.random.seed(seed)
-    torch.manual_seed(seed)
-    os.environ["PYTHONHASHSEED"] = str(seed)
+    if _last_determinism_seed[0] != seed:
+        _last_determinism_seed[0] = seed
+        random.seed(seed)
+        np.random.seed(seed)
+        torch.manual_seed(seed)
+        os.environ["PYTHONHASHSEED"] = str(seed)
+    if deterministic:
+        deterministic_algorithms()
+
+
+def deterministic_algorithms() -> None:
+    """What the reference's `set_determinism` sets for torch
+    (`base_trainer.py:50-80`): cuBLAS's deterministic workspace
+    (`CUBLAS_WORKSPACE_CONFIG=:4096:8`, unless the caller set a value of
+    its own), cuDNN's deterministic algorithms with no autotuning, and
+    `torch.use_deterministic_algorithms(True, warn_only=True)`, which
+    warns of each op that has no deterministic implementation and fills
+    every `torch.empty` with NaN (so a read of memory that no kernel wrote
+    shows). TF32 is left as the trainer sets it. These stay set for the
+    rest of the process; callers that run other work after a trainer
+    restore them (`tools.critic_numerics.arithmetic`). cuBLAS reads the
+    workspace setting when it makes its first handle, so it is set before
+    anything touches the card (`train.main`); set later, it is logged."""
+    if "CUBLAS_WORKSPACE_CONFIG" not in os.environ and torch.cuda.is_initialized():
+        logger.warning("CUBLAS_WORKSPACE_CONFIG is set to :4096:8 after CUDA was initialised: "
+                       "a cuBLAS handle made before keeps its own workspace")
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
 
 
 def training_device(device: torch.device | str) -> torch.device:
@@ -154,8 +183,9 @@ class BaseTrainer:
         self.device = training_device(device)
         self.deterministic = cfg.trainer.deterministic
         self.model_name = self.__class__.__name__.replace("Trainer", "")
-        set_determinism(cfg.seed)
-        # join the process group before the first device use; a rank's
+        set_determinism(cfg.seed, self.deterministic)
+        # join the process group before the first device use (and after
+        # the determinism settings, which every rank applies); a rank's
         # card is then the current one
         if maybe_initialize_distributed(cfg.parallel.multihost, self.device) and \
                 self.device.type == "cuda":
@@ -307,8 +337,9 @@ class BaseTrainer:
                                         prefetch=2, device=self.device)
         elif loader_kind == "grain":
             raise NotImplementedError(
-                "data.loader=grain is not ported to pixel_heal_thyself_tpu_torch "
-                "(ROADMAP.md Queue 1 item 10); use 'auto', 'device' or 'native'",
+                "data.loader=grain is not ported to pixel_heal_thyself_tpu_torch: the GPU "
+                "machine has neither grain nor h5py (ROADMAP.md, 'Not to port'); use 'auto', "
+                "'device' or 'native'",
             )
         else:
             raise ValueError(f"Unknown data.loader: {cfg.data.loader!r} "

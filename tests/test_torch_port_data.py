@@ -51,6 +51,21 @@ PATCH, NUM_PATCHES, SIZE, RATIO, SEED = 16, 8, 64, 0.5, 5
 SCENES = [f"scene{i}_0" for i in range(8)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _determinism_restored():
+    """A trainer sets torch's determinism switches and
+    CUBLAS_WORKSPACE_CONFIG for its process (`trainer.deterministic`):
+    restored when this file's tests end, so that the worker's next files
+    run under torch's defaults."""
+    import os
+    from unittest import mock
+
+    from pixel_heal_thyself_tpu_torch.tools.critic_numerics import arithmetic, switches_now
+
+    with arithmetic(switches_now()), mock.patch.dict(os.environ):
+        yield
+
+
 @pytest.fixture(autouse=True)
 def _port_run_dirs():
     reset_run_dirs_cache()
@@ -241,7 +256,7 @@ def test_loader_auto_resolution(stores1, tmp_cwd, limit_gb, kind):
 
 def test_grain_loader_is_refused(stores1, tmp_cwd):
     trainer = _trainer(tmp_cwd, [f"data.patches.dir={stores1[0]}", "data.loader=grain"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="Not to port"):
         trainer.setup_dataloaders()
 
 

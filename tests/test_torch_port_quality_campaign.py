@@ -63,6 +63,21 @@ NARROW_MAMBA = [*NARROW, "model.mamba.num_layers=1", "model.mamba.expansion=2",
                 "model.mamba.headdim=8", "model.mamba.d_state=8"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _determinism_restored():
+    """A trainer sets torch's determinism switches and
+    CUBLAS_WORKSPACE_CONFIG for its process (`trainer.deterministic`):
+    restored when this file's tests end, so that the worker's next files
+    run under torch's defaults."""
+    import os
+    from unittest import mock
+
+    from pixel_heal_thyself_tpu_torch.tools.critic_numerics import arithmetic, switches_now
+
+    with arithmetic(switches_now()), mock.patch.dict(os.environ):
+        yield
+
+
 @pytest.fixture(autouse=True)
 def _two_threads():
     n = torch.get_num_threads()
@@ -257,12 +272,15 @@ def test_diagnostic_legs_change_one_thing_and_restore(tmp_path):
     for rec in legs.values():
         assert rec["base"] == "2a" and rec["reference"] == qc.REFERENCE["2a"]
         assert rec["epochs"] == 1 and math.isfinite(rec["val_psnr"])
-    trainer_bf16 = {**before, "tf32": True}
+    # the trainer's bf16 arithmetic with its determinism settings
+    trainer_bf16 = {**before, "tf32": True, "cudnn_deterministic": True,
+                    "deterministic_algorithms": "warn_only"}
     assert legs["2a-d16"]["critic_dtype"] == "bfloat16"
     assert legs["2a-d16"]["arithmetic"] == trainer_bf16
     assert legs["2a-abc"]["critic_dtype"] == "float32"  # the trainer's critic
     assert legs["2a-abc"]["arithmetic"] == {"tf32": False, "bf16_reduced_reduction": False,
-                                            "cudnn_deterministic": True}
+                                            "cudnn_deterministic": True,
+                                            "deterministic_algorithms": "warn_only"}
     (d16,) = [leg for leg in qc.DIAGNOSTIC if leg.name == "2b-d16"]
     assert (d16.base, d16.critic_dtype, d16.arithmetic) == ("2b", torch.bfloat16, ())
     assert (d16.model, d16.config, d16.channel, d16.overrides) == \
@@ -346,3 +364,72 @@ def test_spread_of_the_recorded_seed_legs(tmp_path):
     for name, rec in qc.summary(tmp_path)["legs"].items():
         row = next(line for line in report.splitlines() if line.startswith(f"| {name} |"))
         assert f"| {rec['val_psnr_in_band']} |" in row
+
+
+def _leg_2a12(out: Path, seed: int, critic: str, val: float, full: float) -> None:
+    """A synthetic 12-epoch 2a seed leg's record in `out/legs/`."""
+    name = f"2a-s{seed}-{'d16' if critic == 'bfloat16' else 'd32'}"
+    rec = {"leg": name, "model": "afgsa", "config": "prod", "channel": "clean05",
+           "run": "afgsa_p128_n400_r1.0_run000", "epochs": 12, "base": "2a", "seed": seed,
+           "critic_dtype": critic, "val_psnr": val, "val_1_ssim": 0.04,
+           "d_loss": [0.03] * 12, "val_psnr_by_epoch": [val] * 12, "full_frame_psnr": full}
+    (out / "legs").mkdir(parents=True, exist_ok=True)
+    (out / "legs" / f"{name}.json").write_text(json.dumps(rec))
+
+
+@pytest.mark.parametrize("bf16, want", [
+    (((37.10, 37.60), (37.40, 37.90)), "the run's dtype"),  # both bf16 legs in both bands
+    (((37.10, 37.60), (38.05, 37.90)), "float32"),  # 990821's validation above its band
+    (((37.10, 37.60), (37.40, 38.00)), "float32"),  # 990821's full frame above its band
+])
+def test_spread_reads_12_epoch_2a_legs(tmp_path, bf16, want):
+    """`spread` over synthetic 12-epoch 2a legs at seeds 990820 and 990821
+    with seed 990819's recorded 12-epoch runs (`SEED_990819_2A12`, both
+    before the determinism settings): each critic's three
+    seeds, their statistics and round 5's z, Welch's test as scipy computes
+    it, and the rule fixed before the legs ran."""
+    import statistics
+
+    from scipy import stats
+
+    f32 = ((37.20, 37.70), (37.30, 37.50))
+    for seed, (val, full) in zip(qc.SEEDS[:2], bf16):
+        _leg_2a12(tmp_path, seed, "bfloat16", val, full)
+    for seed, (val, full) in zip(qc.SEEDS[:2], f32):
+        _leg_2a12(tmp_path, seed, "float32", val, full)
+    got = qc.spread(tmp_path, REPO / "reports" / "port_r5_quality", log=lambda _: None)
+    assert got["2b"] == {} and got["2a"] == {}  # no 2b or 3-epoch legs: none joined
+    r = got["2a_12"]
+    recorded = {"bfloat16": (37.832, 38.28939166666667), "float32": (37.1841, 37.662866666666666)}
+    values = {}
+    for critic, new in (("bfloat16", bf16), ("float32", f32)):
+        row = r["critics"][critic]
+        assert sorted(row["seeds"]) == ["990819", *map(str, qc.SEEDS[:2])]
+        assert row["seeds"]["990819"]["before_repair"]
+        assert not any(row["seeds"][str(s)]["before_repair"] for s in qc.SEEDS[:2])
+        values[critic] = [recorded[critic], *new]
+        for i, key in enumerate(("val_psnr", "full_frame_psnr")):
+            v = [x[i] for x in values[critic]]
+            mean, sd = statistics.mean(v), statistics.stdev(v)
+            assert row[key]["mean"] == pytest.approx(mean) and row[key]["sd"] == pytest.approx(sd)
+            assert row[key]["round5_z"] == pytest.approx((r["round5"][key] - mean) / sd)
+            band = qc.REFERENCE["2a"]["val_band" if i == 0 else "full_frame_band"]
+            for s, x in zip(["990819", *map(str, qc.SEEDS[:2])], v):
+                assert row["seeds"][s][f"{key}_in_band"] is (band[0] <= x <= band[1])
+    for i, key in enumerate(("val_psnr", "full_frame_psnr")):
+        t = stats.ttest_ind([x[i] for x in values["float32"]], [x[i] for x in values["bfloat16"]],
+                            equal_var=False)
+        assert r["welch"][key]["p"] == pytest.approx(t.pvalue)
+    assert r["round5"] == {"val_psnr": pytest.approx(37.13385),
+                           "full_frame_psnr": pytest.approx(37.6366)}
+    assert r["rule"] == {"bf16_legs": ["990820", "990821"], "complete": True, "critic": want}
+    report = (tmp_path / "report.md").read_text()
+    assert f"the critic: {want}" in report
+    assert "990819* 37.8320 / 38.2894" in report
+
+
+def test_spread_leaves_a_half_done_rule_undecided(tmp_path):
+    _leg_2a12(tmp_path, qc.SEEDS[0], "bfloat16", 37.1, 37.6)
+    got = qc.spread(tmp_path, REPO / "reports" / "port_r5_quality", log=lambda _: None)
+    assert got["2a_12"]["rule"] == {"bf16_legs": ["990820"], "complete": False,
+                                    "critic": "undecided"}

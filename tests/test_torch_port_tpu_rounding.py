@@ -45,6 +45,21 @@ SHAPE = (2, 256, 128, 16, 32, 128)
 SEEDS = (0, 1, 2, 3)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _determinism_restored():
+    """A trainer sets torch's determinism switches and
+    CUBLAS_WORKSPACE_CONFIG for its process (`trainer.deterministic`):
+    restored when this file's tests end, so that the worker's next files
+    run under torch's defaults."""
+    import os
+    from unittest import mock
+
+    from pixel_heal_thyself_tpu_torch.tools.critic_numerics import arithmetic, switches_now
+
+    with arithmetic(switches_now()), mock.patch.dict(os.environ):
+        yield
+
+
 def _inputs(seed, b, l, d_inner, d_state, headdim, k=4):
     """tests/test_ssd_mega.py `_make_inputs`, as numpy."""
     rng = np.random.default_rng(seed)

@@ -37,6 +37,21 @@ EVALUATION = re.compile(
     r"Validation: (\d+) \tAvg MRSE: ([-\d.]+) \tAvg PSNR: ([-\d.]+) \tAvg 1-SSIM: ([-\d.]+)\n")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _determinism_restored():
+    """A trainer sets torch's determinism switches and
+    CUBLAS_WORKSPACE_CONFIG for its process (`trainer.deterministic`):
+    restored when this file's tests end, so that the worker's next files
+    run under torch's defaults."""
+    import os
+    from unittest import mock
+
+    from pixel_heal_thyself_tpu_torch.tools.critic_numerics import arithmetic, switches_now
+
+    with arithmetic(switches_now()), mock.patch.dict(os.environ):
+        yield
+
+
 @pytest.fixture(autouse=True)
 def _port_run_dirs():
     reset_run_dirs_cache()
