@@ -14,17 +14,23 @@ exits non-zero. Phases:
 3. Kernels against their plain PyTorch versions at the prod shapes
    (8 × 128² × 256, 4 heads, halo 3), with TF32 off: attention K1 in bf16
    (its tensor-core body, checked by its body counter, beside its general
-   body and SDPA over pre-gathered windows) and fp32 (the general body,
-   its bound by operations at the f32 rate, beside SDPA over pre-gathered
-   fp32 windows), and at halo 8 (the tensor-core body's two passes, the general body's
-   key-chunked path), the pointwise GEMM K2
+   body and SDPA over pre-gathered windows) and fp32 (the float32 body,
+   checked by its counter, its bound by operations at the f32 rate, beside
+   the general body and SDPA over pre-gathered fp32 windows), and at halo 8
+   (the tensor-core body's two passes, the general body's key-chunked
+   path), the pointwise GEMM K2
    (n_aux's two operands; one operand, k = n·Wk; two operands with the
    backward's f32 residual, also equal to the bit across two calls), the
    3×3 conv K3, the whole TransformerBlock forward in the three padding
    modes; the attention backward K4 (bf16: the tensor-core body, equal to
    the bit across two calls, its device time per launch, beside the general
-   body and SDPA's autograd backward; fp32: the general body, beside
-   SDPA's autograd backward on the fp32 windows), the conv
+   body and SDPA's autograd backward; fp32: the float32 body, equal to
+   the bit across two calls, its device time per launch, beside the
+   general body and SDPA's autograd backward on the fp32 windows); K1 and
+   K4 in fp32 at halos 1–8 (1 × 64² × 256), both bodies within TOL["fp32"],
+   the f32 body's K4 equal to the bit across two calls; the fp32
+   TransformerBlock of the literal route (K1 and K4 between cuDNN convs) in
+   the three padding modes, kernel route against plain route; the conv
    input gradient K5 (also equal to the bit across two calls), the weight
    gradient K6 (9
    taps and 1 tap, each also equal to the bit across two calls) and the whole
@@ -54,8 +60,8 @@ exits non-zero. Phases:
    through the kernel route and the plain route on the card, beside the
    witnesses of the bf16 flip floor that set STEP_GRAD_TOL.
 6. A small fp32 literal-route step (2 blocks, 64² patches, batch 2): K1
-   fp32 forward and K4 backward through `BlockHaloAttentionFn`, against
-   the plain route.
+   fp32 forward and K4 backward through `BlockHaloAttentionFn`, every
+   launch on their float32 body (`FP32_BODIES`), against the plain route.
 7. Mamba serving: the fused Mamba2 interior K7 against its plain version
    at the prod serving shape (8 windows of 128² = 16,384 tokens, d_inner
    1024, d_state 64, 16 heads, chunk 128) in bf16 and fp32, beside a
@@ -112,7 +118,7 @@ exits non-zero. Phases:
    the folded run took its tensor-core body.
 11. Trainer: the training CLI, `train.main`, for `-cn prod` and `-cn prod
    model=mamba` in a temporary working directory (synthetic 512² scenes,
-   `trainer.epochs=2`, num_patches 100, batch 8 × 128², bf16, the
+   `trainer.epochs=2`, num_patches 50, batch 8 × 128², bf16, the
    kernels on; the patch
    store built on the first run): `data.loader=auto` resolved to
    `device`, `train_loss.txt` and `evaluation.txt` one finite line per
@@ -211,7 +217,7 @@ exits non-zero. Phases:
    `data.inspect` and `resize_exrs` on its EXRs. Prints the phase's seconds.
 17. The quality campaign (`tools.quality_campaign.run`, the port of the JAX
    package's `tools/r5_quality_campaign.sh`) in a temporary directory, cut
-   to 2 scenes of 256² a dataset directory, 100 patches an image and 1
+   to 2 scenes of 256² a dataset directory, 50 patches an image and 1
    epoch (CAMPAIGN): legs 1,
    2a and 4 (`-cn prod`, AFGSA), then legs 1, 2b and 4 (`-cn stag
    model=mamba`); every train step launched K1–K6 (AFGSA) or K7-emit and
@@ -253,14 +259,26 @@ exits non-zero. Phases:
    each generator's prod GAN step (phases 5 and 8) as the median of 20
    steps under the trainer's settings and of 20 under torch's defaults,
    and the phase's seconds.
+21. The fp32 route (the reference's own numerics: true float32, TF32 off;
+   AFGSA on the literal route, K1 and K4 on their float32 body in every
+   block): `train.main -cn prod trainer.precision=fp32` in phase 11's
+   directory and cut (1 epoch; every step timed between synchronizations,
+   its median printed with the epoch rate, peak memory and K1/K4 launches
+   by body; every launch on the float32 body; the run in deterministic
+   mode), `-cn ci` for AFGSA and for Mamba (the route its gate picks at 32²
+   patches, printed) as the config stands, each checked as phase 11 checks
+   a run, and one fp32 512² frame served through the device tiler (K1 40
+   launches a frame on the float32 body) against the plain path
+   (FRAME_TOL). Prints the phase's seconds.
 
 Every kernel row states its bound (the least time the card could take:
 the larger of the bytes its function must move over 3.35 TB/s and its
 operations over the peak rate of their type, `measure.bound` of the
 port) and, where one PyTorch call
 computes the same function, that call's time. Before the last line it
-prints one JSON line of per-kernel results; the last line is
-`{"ok": true, "device": {...}}`.
+prints one JSON line of per-kernel results (K1's and K4's float32 bodies
+as rows of their own, their launches from phase 21's fp32 trainer run);
+the last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -427,8 +445,14 @@ KERNELS = {
     "K10": ("fused_causal_conv1d_silu_bwd (K10)", _SRC + "conv_silu.cu",
             _TPU + "conv_pallas.py:158"),
     "K11": ("ssd_pallas (K11)", _SRC + "ssd_scan.cu", _TPU + "ssd.py:324"),
+    # the float32 bodies of K1 and K4 (fp32 route, phase 21)
+    "K1 f32": ("block_halo_attention_fwd, float32 body (K1)", _SRC + "attention_fwd.cu",
+               _TPU + "attention_pallas.py:217"),
+    "K4 f32": ("block_halo_attention_bwd, float32 body (K4)", _SRC + "attention_bwd.cu",
+               _TPU + "attention_pallas.py:383"),
 }
-KERNEL_NAMES = tuple(KERNELS)
+# the kernels with a launch counter (the f32 rows are bodies of K1 and K4)
+KERNEL_NAMES = tuple(name for name in KERNELS if " " not in name)
 
 
 def log(msg: str) -> None:
@@ -531,25 +555,30 @@ def read_counts() -> dict:
 # 16-byte aligned window), K11 the tensor-core body (bf16, chunk 128)
 PROD_BODIES = {"K1": "tc", "K2": "sm90", "K3": "sm90", "K4": "tc", "K5": "sm90", "K6": "sm90",
                "K7": "tc", "K7e": "tc", "K8": "tc", "K9": "vec", "K10": "vec", "K11": "tc"}
+# ... and in fp32: K1 and K4 the float32 body (head_ch 64, block 8), the
+# others as in bf16
+FP32_BODIES = dict(PROD_BODIES, K1="f32", K4="f32")
 # the kernels whose first launch is K7's prologue, and the body every prod
 # prologue must take (the 16-byte aligned xBC window)
 PROLOGUE_BODIES = {"K7": "vec", "K7e": "vec", "K8": "vec"}
 
 
-def check_bodies(tag: str, launches: dict, quiet: bool = False) -> None:
-    """The launches of each kernel of PROD_BODIES by body, and of each
-    prologue of PROLOGUE_BODIES: every one must have taken its prod body,
-    none the general one. `quiet` logs nothing when they all did."""
+def check_bodies(tag: str, launches: dict, bodies: dict = PROD_BODIES,
+                 quiet: bool = False) -> None:
+    """The launches of each kernel of `bodies` (PROD_BODIES, or FP32_BODIES
+    for a float32 run) by body, and of each prologue of PROLOGUE_BODIES:
+    every one must have taken its prod body, none the general one. `quiet`
+    logs nothing when they all did."""
     fns = counters()
-    for attr, want in (("body_launches", PROD_BODIES),
+    for attr, want in (("body_launches", bodies),
                        ("prologue_body_launches", PROLOGUE_BODIES)):
         for name, body in want.items():
-            bodies = dict(getattr(fns[name], attr))
+            taken = dict(getattr(fns[name], attr))
             if not quiet:
-                log(f"[{tag}] {name} {attr.replace('_', ' ')}: {bodies} (total {launches[name]})")
-            if bodies["general"] or bodies[body] != launches[name]:
-                raise AssertionError(f"[{tag}] {name}: {bodies['general']} prod-shape launches "
-                                     f"took the general body ({attr} {bodies})")
+                log(f"[{tag}] {name} {attr.replace('_', ' ')}: {taken} (total {launches[name]})")
+            if taken["general"] or taken[body] != launches[name]:
+                raise AssertionError(f"[{tag}] {name}: {launches[name] - taken[body]} prod-shape "
+                                     f"launches took another body than {body} ({attr} {taken})")
 
 
 def expect_body(name: str, body: str, run):
@@ -594,7 +623,8 @@ def sdpa_windows(x, bs: int, halo: int, heads: int, keys: bool = False, rel=None
 
 
 # K4's launches by name fragment (first match wins) for its per-launch times
-K4_LAUNCHES = [("attention_bwd_tc", "main (tc body)"), ("attention_bwd_kernel", "main (general)"),
+K4_LAUNCHES = [("attention_bwd_tc", "main (tc body)"), ("attention_bwd_f32", "main (f32 body)"),
+               ("attention_bwd_kernel", "main (general)"),
                ("attention_bwd_gather", "dk/dv gather"), ("attention_bias_reduce", "bias reduce"),
                ("sum_splits", "bias group sum"), ("reduce", "drel_h/drel_w sums")]
 
@@ -644,6 +674,105 @@ def assert_deterministic(name: str, fn) -> None:
     if not all(torch.equal(f, s) for f, s in zip(first, second)):
         raise AssertionError(f"{name}: two calls differ")
     log(f"[kernels] {name}: two calls equal to the bit")
+
+
+# phase 3's fp32 attention at every halo (both bodies at 1 × 64² × 256, 4
+# heads) and the fp32 TransformerBlock of the literal route in each padding
+# mode (prod width, LITERAL's batch and patch)
+F32_HALO_SHAPE = (1, 64, 64, 256)
+
+
+def f32_halos(device, rand) -> None:
+    """K1 and K4 in fp32 at halos 1..8: the f32 body (every launch counted
+    on it) and the general body against the plain versions within
+    TOL["fp32"], the f32 body's K4 equal to the bit across two calls."""
+    from pixel_heal_thyself_tpu_torch.ops.attention import (
+        block_halo_attention_bwd_torch,
+        block_halo_attention_torch,
+    )
+    from pixel_heal_thyself_tpu_torch.ops.attention_cuda import (
+        attention_body_launch,
+        attention_f32_plan,
+        block_halo_attention_bwd_cuda,
+        block_halo_attention_cuda,
+    )
+
+    f32 = torch.float32
+    c = F32_HALO_SHAPE[-1]
+    for halo in range(1, BS + 1):
+        q, k, v, do, res = (rand(F32_HALO_SHAPE, dtype=f32) for _ in range(5))
+        rel = [rand((BS + 2 * halo, c // HEADS // 2), dtype=f32) for _ in range(2)]
+        att = dict(block_size=BS, halo_size=halo, num_heads=HEADS)
+        ref = block_halo_attention_torch(q, k, v, *rel, **att, residual=res)
+        ref_g = block_halo_attention_bwd_torch(q, k, v, *rel, do, **att)
+
+        def both():
+            return (block_halo_attention_cuda(q, k, v, *rel, **att, residual=res),
+                    block_halo_attention_bwd_cuda(q, k, v, *rel, do, **att))
+
+        out, grads = expect_body("K1", "f32", lambda: expect_body("K4", "f32", both))
+        again = block_halo_attention_bwd_cuda(q, k, v, *rel, do, **att)
+        gen = attention_body_launch("general", q, k, v, *rel, **att, residual=res)
+        gen_g = attention_body_launch("general", q, k, v, *rel, do, **att)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(grads, again, strict=True)):
+            raise AssertionError(f"K4 fp32 (f32 body) halo {halo}: two calls differ")
+        devs = {}
+        for name, got, want in (("K1 f32", out, ref), ("K1 general", gen, ref),
+                                ("K4 f32", grads, ref_g), ("K4 general", gen_g, ref_g)):
+            devs[name] = deviation(got, want)
+            check(f"{name} fp32 halo {halo}", devs[name], TOL["fp32"])
+        plan = attention_f32_plan(BS, halo, c // HEADS)
+        log(f"[kernels] fp32 halo {halo} (key chunks of the f32 body: K1 {plan.chunks_fwd} × "
+            f"{8 * plan.slots_fwd} slots, K4 {plan.chunks_bwd} × {16 * plan.slots_bwd}), "
+            f"{F32_HALO_SHAPE}: " + ", ".join(
+                f"{n} max_rel {d['max_rel']:.3e} rms_rel {d['rms_rel']:.3e}"
+                for n, d in devs.items()) + "; K4 f32 equal to the bit across two calls")
+
+
+def f32_padding_modes(device) -> None:
+    """The fp32 TransformerBlock (prod width, the literal route: K1 and K4
+    between cuDNN convs) in each padding mode, kernel route against plain
+    route from the same weights under deterministic cuDNN: the output within
+    TOL["fp32"], every gradient within WGRAD_TOL (f32 sums over every pixel
+    in another order); one f32-body launch of K1 and of K4 a block call."""
+    from pixel_heal_thyself_tpu_torch.models.afgsa import TransformerBlock, afgsa_prod_kwargs
+
+    kw = afgsa_prod_kwargs()
+    c, patch, batch = kw["base_ch"], LITERAL["patch"], LITERAL["batch"]
+    g = torch.Generator(device=device).manual_seed(77)
+    x, a, dy = (torch.randn((batch, patch, patch, c), generator=g, device=device)
+                for _ in range(3))
+    for mode in MODES:
+        blocks = [TransformerBlock(c, block_size=BS, halo_size=HALO, num_heads=HEADS,
+                                   padding_mode=mode, use_kernels=use, dtype=torch.float32,
+                                   generator=torch.Generator().manual_seed(5)).to(device)
+                  for use in (True, False)]
+        blocks[1].load_state_dict(blocks[0].state_dict())
+        outs, grads = [], []
+        with deterministic_cudnn():
+            for blk in blocks:
+                xi, ai = x.clone().requires_grad_(), a.clone().requires_grad_()
+                reset_counts()
+                out, _ = blk(xi, ai)
+                out.backward(dy)
+                fns = counters()
+                got = (fns["K1"].body_launches["f32"], fns["K4"].body_launches["f32"])
+                want = (1, 1) if blk.use_kernels else (0, 0)
+                if got != want or read_counts()["K1"] != want[0]:
+                    raise AssertionError(f"fp32 block {mode}: f32-body launches {got}, want {want}")
+                outs.append(out.detach())
+                grads.append([xi.grad, ai.grad] + [prm.grad for prm in blk.parameters()])
+        torch.cuda.synchronize()
+        dev = deviation(outs[0], outs[1])
+        check(f"fp32 TransformerBlock {mode}", dev, TOL["fp32"])
+        gdev = deviation(grads[0], grads[1])
+        check(f"fp32 TransformerBlock {mode} gradients", gdev, WGRAD_TOL)
+        log(f"[kernels] fp32 TransformerBlock {mode} (literal route, {batch} × {patch}² × {c}), "
+            f"kernel vs plain route: output max_rel {dev['max_rel']:.3e} rms_rel "
+            f"{dev['rms_rel']:.3e} (bound {TOL['fp32']}); gradients worst max_rel "
+            f"{gdev['max_rel']:.3e} rms_rel {gdev['rms_rel']:.3e} (bound {WGRAD_TOL})")
+        del blocks, outs, grads
 
 
 def phase_kernels(device) -> dict:
@@ -732,13 +861,19 @@ def phase_kernels(device) -> dict:
     kwf = sdpa_windows(kf, BS, HALO, HEADS, keys=True, rel=rels)
     vwf = sdpa_windows(vf, BS, HALO, HEADS, keys=True)
     f32 = torch.float32
-    expect_body("K1", "general", lambda: compare(
-        "K1 attention fp32 (general body; library: SDPA on pre-gathered fp32 windows)",
+    res["K1 f32"] = expect_body("K1", "f32", lambda: compare(
+        "K1 attention fp32 (f32 body; library: SDPA on pre-gathered fp32 windows)",
         lambda: block_halo_attention_cuda(qf, kf, vf, *rels, **att),
         lambda: block_halo_attention_torch(qf, kf, vf, *rels, **att),
         TOL["fp32"], work=(nbytes(qf, kf, vf, *rels, qf), attn_flops, f32),
         library=lambda: F.scaled_dot_product_attention(qwf, kwf, vwf),
     ))
+    compare(
+        "K1 attention fp32, general body",
+        lambda: attention_body_launch("general", qf, kf, vf, *rels, **att),
+        lambda: block_halo_attention_torch(qf, kf, vf, *rels, **att),
+        TOL["fp32"], plain_iters=1, work=(nbytes(qf, kf, vf, *rels, qf), attn_flops, f32),
+    )
     # halo 8 at head_ch 64: 36 key tiles, which the tensor-core body walks in
     # two passes; the general body's one-stage plan exceeds 227 KB in both
     # dtypes, so it walks the keys in chunks
@@ -836,16 +971,30 @@ def phase_kernels(device) -> dict:
     qg, kg, vg = (t.detach().requires_grad_() for t in (qwf, kwf, vwf))
     og = F.scaled_dot_product_attention(qg, kg, vg)
     dow = sdpa_windows(dof, BS, HALO, HEADS)
-    expect_body("K4", "general", lambda: compare(
-        "K4 attention backward fp32 (general body; library: SDPA's backward on pre-gathered "
-        "fp32 windows)",
+    k4f_work = (nbytes(qf, kf, vf, dof, *ab) + nbytes(qf, kf, vf, *ab), attn_flops * 5 // 2, f32)
+    res["K4 f32"] = expect_body("K4", "f32", lambda: compare(
+        "K4 attention backward fp32 (f32 body; library: SDPA's backward on pre-gathered fp32 "
+        "windows)",
         lambda: block_halo_attention_bwd_cuda(qf, kf, vf, *ab, dof, **att),
         lambda: block_halo_attention_bwd_torch(qf, kf, vf, *ab, dof, **att),
-        TOL["fp32"], iters=5, plain_iters=2,
-        work=(nbytes(qf, kf, vf, dof, *ab) + nbytes(qf, kf, vf, *ab), attn_flops * 5 // 2, f32),
+        TOL["fp32"], iters=5, plain_iters=2, work=k4f_work,
         library=lambda: torch.autograd.grad(og, (qg, kg, vg), dow, retain_graph=True),
     ))
     del qg, kg, vg, og, dow, qwf, kwf, vwf
+    expect_body("K4", "f32", lambda: assert_deterministic(
+        "K4 attention backward fp32 (f32 body)",
+        lambda: block_halo_attention_bwd_cuda(qf, kf, vf, *ab, dof, **att)))
+    log_per_launch("K4 attention backward fp32 (f32 body)",
+                   lambda: block_halo_attention_bwd_cuda(qf, kf, vf, *ab, dof, **att), K4_LAUNCHES)
+    compare(
+        "K4 attention backward fp32, general body",
+        lambda: attention_body_launch("general", qf, kf, vf, *ab, dof, **att),
+        lambda: block_halo_attention_bwd_torch(qf, kf, vf, *ab, dof, **att),
+        TOL["fp32"], iters=2, plain_iters=1, work=k4f_work,
+    )
+    del qf, kf, vf, dof
+    f32_halos(device, rand)
+    f32_padding_modes(device)
     dg = (do, a, wts["w2"], "replicate", x)
     res["K5"] = compare(
         "K5 conv3x3 input gradient (replicate, ReLU mask, residual)",
@@ -890,12 +1039,12 @@ def phase_kernels(device) -> dict:
 SERVE = dict(size=512, frames=3, tile=64, margin=32, batch=8)
 
 
-def serve_frames(device, frames, apply_fn, tag: str) -> tuple:
+def serve_frames(device, frames, apply_fn, tag: str, bodies: dict = PROD_BODIES) -> tuple:
     """Denoise `frames` with `apply_fn` (a model, or a loaded serving
     artifact) through the device tiler, the path `inference.run_inference`
     takes, from counts of 0: checks the outputs and that every launch took
-    its prod body. Returns (outputs, launch counts, steady s/frame, peak
-    memory)."""
+    its prod body (`bodies`). Returns (outputs, launch counts, steady
+    s/frame, peak memory)."""
     from pixel_heal_thyself_tpu_torch.inference import denoise_frame_fused, make_fused_frame_apply
 
     size, tile, margin, batch = (SERVE[k] for k in ("size", "tile", "margin", "batch"))
@@ -910,7 +1059,7 @@ def serve_frames(device, frames, apply_fn, tag: str) -> tuple:
         outs.append(denoise_frame_fused(fused, data, device=device))  # syncs: copies to host
         secs.append(time.perf_counter() - t0)
     launches = read_counts()
-    check_bodies(tag, launches)
+    check_bodies(tag, launches, bodies)
     peak = torch.cuda.max_memory_allocated()
     for out in outs:
         if out.shape != (size, size, 3) or not np.isfinite(out).all():
@@ -922,12 +1071,13 @@ def serve_frames(device, frames, apply_fn, tag: str) -> tuple:
     return outs, launches, steady, peak
 
 
-def serve(device, frames, net, kwargs, layers: int, names: tuple, tag: str) -> dict:
+def serve(device, frames, net, kwargs, layers: int, names: tuple, tag: str,
+          bodies: dict = PROD_BODIES) -> dict:
     """Denoise `frames` with `net(**kwargs)` (seeded random weights) through
-    the device tiler (`serve_frames`): checks that each kernel in `names`
-    ran for every one of `layers` layers of every batch (launch counters),
-    and frame 0 against the model's plain path on the card. Returns the
-    launch counts."""
+    the device tiler (`serve_frames`, every launch on its body of `bodies`):
+    checks that each kernel in `names` ran for every one of `layers` layers
+    of every batch (launch counters), and frame 0 against the model's plain
+    path on the card. Returns the launch counts."""
     from pixel_heal_thyself_tpu_torch.inference import denoise_frame_fused, make_fused_frame_apply
     from pixel_heal_thyself_tpu_torch.models.afgsa import count_params
 
@@ -935,7 +1085,7 @@ def serve(device, frames, net, kwargs, layers: int, names: tuple, tag: str) -> d
     model = net(**kwargs, device=device, generator=torch.Generator().manual_seed(0)).eval()
     log(f"[{tag}] {net.__name__} prod width: {count_params(model)} params, "
         f"{len(frames)} synthetic {size}² frames, tile {tile} + margin {margin}, batch {batch}")
-    outs, launches, _, _ = serve_frames(device, frames, model, tag)
+    outs, launches, _, _ = serve_frames(device, frames, model, tag, bodies)
 
     n_batches = math.ceil((size // tile) ** 2 / batch)
     need = layers * n_batches * len(frames)
@@ -1497,6 +1647,7 @@ def phase_literal(device) -> dict:
     for name in ("K1", "K4"):
         if launches[name] < kwargs["num_sa"]:
             raise AssertionError(f"{name} launched {launches[name]} times < {kwargs['num_sa']}")
+    check_bodies("literal", launches, FP32_BODIES)
     if not all(math.isfinite(val) for val in metrics.values()):
         raise AssertionError(f"non-finite losses {metrics}")
 
@@ -1873,12 +2024,13 @@ def phase_fold_qkv(device) -> dict:
 # The default synthetic_size 128 leaves no room for 128² patches
 # (`importance_sampling` raises "too small" in both packages), so the
 # scenes are 512²; the rest is prod: 4 scene pairs, batch 8 × 128², bf16,
-# the kernels on, val batch 8. Cut: 2 epochs (prod 12), num_patches 100
+# the kernels on, val batch 8. Cut: 2 epochs (prod 12), num_patches 50
 # (prod 400, at which this phase's four runs took 520 s of the script's
-# 1186 s on an NVIDIA H100 80GB HBM3 at 700.00 W).
+# 1186 s on an NVIDIA H100 80GB HBM3 at 700.00 W; at 100 they took 153 s
+# of 1066 s with phase 21, which trains on this store as phase 20 does).
 TRAINER_CONFIG = "prod"
 TRAINER_ARGS = ["data.images.synthesize=true", "data.images.synthetic_size=512",
-                "data.patches.num_patches=100", "trainer.epochs=2", "--device", "cuda"]
+                "data.patches.num_patches=50", "trainer.epochs=2", "--device", "cuda"]
 # per model: the kernels every train step and every validation forward run
 TRAINER_KERNELS = {"afgsa": (("K1", "K2", "K3", "K4", "K5", "K6"), ("K1", "K2", "K3")),
                    "mamba": (("K7e", "K8"), ("K7",))}
@@ -1936,17 +2088,19 @@ def _snapshot(state) -> dict:
 
 
 @contextlib.contextmanager
-def trainer_probe(train_names: tuple, eval_names: tuple):
+def trainer_probe(train_names: tuple, eval_names: tuple, timed: bool = False):
     """Wrap the trainer's step factories and checkpoint functions for one
     run. Records each train step's and each validation forward's launches
     of its kernels (counter deltas around the call), the first validation
     batch with its output and G's weights then, the state each save wrote
-    and the state each restore left."""
+    and the state each restore left; with `timed`, each train step's
+    seconds (host clock between synchronizations around the call)."""
     from pixel_heal_thyself_tpu_torch.training import checkpoints
     from pixel_heal_thyself_tpu_torch.training import trainer as trainer_mod
 
     fns = counters()
-    rec = {"train": [], "eval": [], "first_eval": None, "saved": {}, "restored": None}
+    rec = {"train": [], "eval": [], "first_eval": None, "saved": {}, "restored": None,
+           "step_s": []}
 
     def counted(kind: str, names: tuple, make):
         def make_counted(*args, **kwargs):
@@ -1954,7 +2108,14 @@ def trainer_probe(train_names: tuple, eval_names: tuple):
 
             def run(*a, **k):
                 before = {n: fns[n].launches for n in names}
-                out = fn(*a, **k)
+                if timed and kind == "train":
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = fn(*a, **k)
+                    torch.cuda.synchronize()
+                    rec["step_s"].append(time.perf_counter() - t0)
+                else:
+                    out = fn(*a, **k)
                 rec[kind].append({n: fns[n].launches - before[n] for n in names})
                 if kind == "eval" and rec["first_eval"] is None:
                     rec["first_eval"] = (_clone(a[0]), out[0].detach().clone(),
@@ -2027,11 +2188,12 @@ def determinism_kept():
     return arithmetic({k: now[k] for k in DETERMINISM_SWITCHES})
 
 
-def run_trainer(argv: list, kernels: tuple) -> tuple:
+def run_trainer(argv: list, kernels: tuple, timed: bool = False) -> tuple:
     """`train.main(argv)` from counts of 0 and a fresh run-dir pin, probing
-    `kernels` = (the train step's, the validation forward's): (trainer,
-    probe record, log lines, launch counts, seconds, peak memory). The
-    determinism switches are restored after it (`determinism_kept`)."""
+    `kernels` = (the train step's, the validation forward's), each step
+    timed with `timed` (`trainer_probe`): (trainer, probe record, log
+    lines, launch counts, seconds, peak memory). The determinism switches
+    are restored after it (`determinism_kept`)."""
     from pixel_heal_thyself_tpu_torch import train
     from pixel_heal_thyself_tpu_torch.config.run_dirs import reset_run_dirs_cache
 
@@ -2039,7 +2201,8 @@ def run_trainer(argv: list, kernels: tuple) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with trainer_probe(*kernels) as rec, trainer_log() as lines, determinism_kept():
+    with trainer_probe(*kernels, timed=timed) as rec, trainer_log() as lines, \
+            determinism_kept():
         t0 = time.perf_counter()
         trainer = train.main(argv)
         torch.cuda.synchronize()
@@ -2048,9 +2211,9 @@ def run_trainer(argv: list, kernels: tuple) -> tuple:
 
 
 def check_trainer_run(tag: str, kernels: tuple, trainer, rec: dict, launches: dict,
-                      epochs: list, layers: int) -> Path:
-    """A run's artifacts and launches (`kernels` as `run_trainer`'s);
-    returns its run directory."""
+                      epochs: list, layers: int, bodies: dict = PROD_BODIES) -> Path:
+    """A run's artifacts and launches (`kernels` as `run_trainer`'s, every
+    launch on its body of `bodies`); returns its run directory."""
     run = Path(trainer.cfg.paths.output_dir)
     if trainer.loader_kind != "device":
         raise AssertionError(f"[{tag}] data.loader=auto resolved to {trainer.loader_kind!r}")
@@ -2084,7 +2247,7 @@ def check_trainer_run(tag: str, kernels: tuple, trainer, rec: dict, launches: di
         if short or not rec[kind]:
             raise AssertionError(f"[{tag}] {kind} calls with fewer than {layers} launches of a "
                                  f"kernel: {short[:3]} ({len(rec[kind])} calls)")
-    check_bodies(tag, launches)
+    check_bodies(tag, launches, bodies)
     log(f"[{tag}] {len(rec['train'])} train steps each launched ≥ {layers} of "
         f"{', '.join(kernels[0])}; {len(rec['eval'])} validation forwards each "
         f"≥ {layers} of {', '.join(kernels[1])}; launches {launches}")
@@ -3376,10 +3539,10 @@ def phase_tools(device, step_rates: dict, smi: str) -> None:
 
 
 # phase 17: the quality campaign's legs 1, 2a/2b and 4 through its `run`,
-# cut to 2 scenes of 256² a dataset directory, 100 patches an image and 1
+# cut to 2 scenes of 256² a dataset directory, 50 patches an image and 1
 # epoch (the validation split is a whole scene: at the configs' 400 / 200
 # patches an image it took 22 s of the AFGSA leg's 50)
-CAMPAIGN = dict(size=256, scenes=2, patches=100, epochs=1)
+CAMPAIGN = dict(size=256, scenes=2, patches=50, epochs=1)
 CAMPAIGN_OVERRIDES = [f"trainer.epochs={CAMPAIGN['epochs']}",
                       f"data.patches.num_patches={CAMPAIGN['patches']}"]
 SCENE_FILE = re.compile(r"RMSE: (\S+)\nPSNR: (\S+)\n1-SSIM: (\S+)\n")
@@ -3565,7 +3728,7 @@ def phase_replay(smi: str, tmp: str) -> None:
 
 
 # phase 20: `trainer.deterministic` (the default) on the card. `train.main`
-# at phase 11's config and cut (its patch store, synthetic 512² scenes, 100
+# at phase 11's config and cut (its patch store, synthetic 512² scenes, 50
 # patches an image, batch 8 × 128², bf16, the kernels on, the float32
 # critic), 1 epoch, each run in a fresh process; the runs of a pair
 # repeat to the bit. The control pair trains with the determinism settings
@@ -3728,6 +3891,109 @@ def phase_determinism(device, smi: str, workdir: str) -> None:
     log(f"[determinism] phase 20 {time.perf_counter() - t_phase:.2f} s; {smi}")
 
 
+# phase 21: the fp32 route on the card. `trainer.precision=fp32` is the
+# reference's own numerics (it has no AMP), and `-cn ci` the config that
+# ships with it. In fp32 the AFGSA blocks take the literal route (the
+# whole-block kernels are bf16 only): every block runs K1 and K4 on their
+# float32 body between cuDNN convs, TF32 off. (a) `-cn prod` in phase 11's
+# directory and cut (its patch store, 4 synthetic 512² scenes, 50 patches
+# an image), 1 epoch; (b) `-cn ci` as the config stands (patch 32, batch
+# 2, 2 epochs, synthesized scenes) for each generator; (c) one 512² frame
+# served in fp32 (seeded prod weights, the device tiler).
+FP32_PROD_ARGS = TRAINER_ARGS + ["trainer.precision=fp32", "trainer.epochs=1"]
+FP32_CI = ["-cn", "ci", "--device", "cuda"]
+# the kernels of each generator's fp32 train step and validation forward
+# (Mamba: the fused route, which its gate takes at 32² patches too)
+FP32_KERNELS = {"afgsa": (("K1", "K4"), ("K1",)), "mamba": (("K7e", "K8"), ("K7",))}
+
+
+def check_fp32_trainer(tag: str, trainer, epochs: int, lines: list, secs: float,
+                       peak: int, smi: str) -> None:
+    """What every fp32 trainer run must have been: float32 throughout, TF32
+    off, the trainer's determinism settings on; logs its epoch rates."""
+    if trainer.compute_dtype != torch.float32 or trainer.cfg.trainer.precision != "fp32":
+        raise AssertionError(f"[{tag}] compute dtype {trainer.compute_dtype}")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError(f"[{tag}] the fp32 trainer left TF32 on")
+    if not trainer.deterministic:
+        raise AssertionError(f"[{tag}] the fp32 run was not in deterministic mode")
+    for m in (EPOCH_SUMMARY.search(line) for line in lines):
+        if m:
+            log(f"[{tag}] epoch {m[1]}: {m[2]} patches/s with the loader and host syncs in the "
+                f"loop, io {m[3]} s = {m[4]}% (the trainer's summary); {smi}")
+    log(f"[{tag}] run of {epochs} epoch(s) {secs:.2f} s in deterministic mode, TF32 off; "
+        f"peak memory {peak} B ({peak / 2**30:.3f} GiB); {smi}")
+
+
+def phase_fp32(device, frame: dict, smi: str, workdir: str) -> dict:
+    """Phase 21: the fp32 route on the card (see FP32_PROD_ARGS). Returns
+    the launch counts of (a)."""
+    from pixel_heal_thyself_tpu_torch.models.afgsa import AFGSANet, afgsa_prod_kwargs
+
+    t_phase = time.perf_counter()
+    fns = counters()
+    with contextlib.chdir(workdir):
+        tag = "fp32-prod"
+        trainer, rec, lines, launches, secs, peak = run_trainer(
+            ["-cn", TRAINER_CONFIG] + FP32_PROD_ARGS + ["run_num=40"], FP32_KERNELS["afgsa"],
+            timed=True)
+        cfg = trainer.cfg
+        patch, batch = cfg.data.patches.patch_size, cfg.trainer.batch_size
+        if trainer.state.g.block_route(batch, patch, patch):
+            raise AssertionError(f"[{tag}] the fp32 AFGSANet took the whole-block route")
+        bodies = {n: dict(fns[n].body_launches) for n in ("K1", "K4")}
+        check_trainer_run(tag, FP32_KERNELS["afgsa"], trainer, rec, launches, [1],
+                          cfg.model.self_attention.num_layers, FP32_BODIES)
+        check_fp32_trainer(tag, trainer, 1, lines, secs, peak, smi)
+        steps = rec["step_s"]
+        log(f"[{tag}] `-cn prod trainer.precision=fp32` (AFGSANet base_ch "
+            f"{cfg.model.feature_map_channels}, {batch} × {patch}², the float32 critic): "
+            f"{len(steps)} steps, median {float(np.median(steps)):.5f} s/step (min "
+            f"{min(steps):.5f}, max {max(steps):.5f}; each between synchronizations); K1/K4 "
+            f"launches by body {bodies} "
+            f"({launches['K1']} / {launches['K4']}: "
+            f"{launches['K1'] / len(rec['train']):.1f} / {launches['K4'] / len(rec['train']):.1f}"
+            f" a step with the validation forwards); {smi}")
+        prod_launches = launches
+        del trainer, rec
+        torch.cuda.empty_cache()
+
+        for model in ("afgsa", "mamba"):
+            tag = f"fp32-ci-{model}"
+            argv = FP32_CI + (["model=mamba"] if model == "mamba" else []) + ["run_num=41"]
+            kernels = FP32_KERNELS[model]
+            trainer, rec, lines, launches, secs, peak = run_trainer(argv, kernels)
+            cfg = trainer.cfg
+            g, patch = trainer.state.g, cfg.data.patches.patch_size
+            if model == "mamba":
+                fused = all(blk.mamba.fused_route(patch * patch) for blk in g.blocks)
+                route = "fused (K7e / K8, K7)" if fused else "literal (no kernel)"
+                kernels = kernels if fused else ((), ())
+                layers = cfg.model.num_layers
+            else:
+                route = "literal (K1 / K4 on the f32 body)"
+                layers = cfg.model.self_attention.num_layers
+            if cfg.trainer.precision != "fp32" or not trainer.use_kernels:
+                raise AssertionError(f"[{tag}] precision {cfg.trainer.precision}, kernels "
+                                     f"{trainer.use_kernels}")
+            check_trainer_run(tag, kernels, trainer, rec, launches,
+                              list(range(1, cfg.trainer.epochs + 1)), layers, FP32_BODIES)
+            check_fp32_trainer(tag, trainer, cfg.trainer.epochs, lines, secs, peak, smi)
+            log(f"[{tag}] `-cn ci{' model=mamba' if model == 'mamba' else ''}` (patch {patch}, "
+                f"batch {cfg.trainer.batch_size}, {cfg.trainer.epochs} epochs, fp32): route "
+                f"{route}; launches {launches}")
+            del trainer, rec, g
+            torch.cuda.empty_cache()
+
+    kwargs = dict(afgsa_prod_kwargs(), dtype=torch.float32)
+    serve(device, [frame, frame], AFGSANet, kwargs, kwargs["num_sa"], ("K1",), "fp32-serve",
+          FP32_BODIES)
+    torch.backends.cuda.matmul.allow_tf32 = False  # as main set them
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[fp32] phase 21 {time.perf_counter() - t_phase:.2f} s; {smi}")
+    return prod_launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card")
@@ -3776,10 +4042,12 @@ def main() -> None:
             phase_critic(smi)
             phase_replay(smi, tmp)
         phase_determinism(device, smi, trainer_dir)
+        fp32 = phase_fp32(device, frames[0], smi, trainer_dir)
     # each kernel's count from the path it was ported for
     path = {"K1": serving, "K2": serving, "K3": serving, "K4": training, "K5": training,
             "K6": training, "K7": mamba, "K7e": mamba_training, "K8": mamba_training,
-            "K9": literal, "K10": literal, "K11": literal}
+            "K9": literal, "K10": literal, "K11": literal,
+            "K1 f32": {"K1 f32": fp32["K1"]}, "K4 f32": {"K4 f32": fp32["K4"]}}
     line = []
     for name, info in KERNELS.items():
         res = results[name]

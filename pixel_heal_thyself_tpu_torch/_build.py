@@ -55,6 +55,11 @@ _SIGNATURES = {
     "pht_attention_bwd_tc": [_P] * 12 + [_I] * 9 + [_F, _P],
     # which (0 K1, 1 K4), bs, halo, head_ch: a tensor-core CTA's shared memory
     "pht_attention_tc_smem": [_I] * 4,
+    # the same as pht_attention_fwd / _bwd (K1's and K4's float32 bodies)
+    "pht_attention_fwd_f32": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "pht_attention_bwd_f32": [_P] * 12 + [_I] * 9 + [_F, _P],
+    # which (0 K1, 1 K4), bs, halo: a float32-body CTA's shared memory
+    "pht_attention_f32_smem": [_I] * 3,
     # a1, w1, k1, a2, w2, k2, bias, relu, pre_residual, out, M, N, stream
     "pht_pointwise_gemm": [_P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P],
     # the same (K2's Hopper body)

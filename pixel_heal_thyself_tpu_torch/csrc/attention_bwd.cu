@@ -34,7 +34,7 @@
 //      the heads, and `pht_sum_splits` (block_bwd.cu) sums the groups.
 // A rerun on the card gives the same bits.
 //
-// Two main kernels. The tensor-core body (`attention_bwd_tc_kernel`, bf16,
+// Three main kernels. The tensor-core body (`attention_bwd_tc_kernel`, bf16,
 // head_ch a multiple of 16 up to 64, block 4 or 8; the prod shape) is what
 // the H100 runs. Its five window products (q.k_eff^T, do.v^T, dl.k_eff,
 // dl^T.q, round(P)^T.do) are 5 x 64 x 196 x 64 multiply-adds a (window,
@@ -60,10 +60,29 @@
 // memory. Key-tile counts other than 3, 4, 7, 9, 13 and 16 (halo >= 5 at
 // block 8) take the same body in three passes over the key tiles (row max
 // and sum online, D, the gradients), recomputing the logits and dattn.
-// fp32 takes the general body (K1's header says why).
 //
-// The general body (`attention_bwd_kernel`: fp32, and shapes the
-// tensor-core body does not take) runs the five products as scalar f32
+// The float32 body (`attention_bwd_f32_kernel`: fp32, head_ch a multiple of
+// 4 up to 64, block 4 or 8, every halo) runs the five products in true f32
+// FMAs, register-tiled (`attention_f32.cuh`): 8 warps, two a row group of 16
+// query rows, each warp half of a chunk of up to 208 keys, each lane 4 rows
+// x 13 slots. At the prod shape the window's 196 keys are one chunk, so it
+// takes one pass: a lane turns its logits into P with the row statistics
+// (shuffles over its 8 lanes, the two warps' halves exchanged through shared
+// memory in a fixed order), computes dattn = do . v^T into as many
+// registers, D = sum dattn * P the same way and dl = P (dattn - D) in place;
+// dq = dl . k_eff is summed per lane 8 channels at a time and
+// reduce-scattered over the 8 lanes into registers, the halves added at
+// the end; P (over v's rows) and dl go to shared memory as [row][slot], and
+// dk_w = dl^T . q * scale and dv_w = P^T . do come from one tile of 8 keys x
+// 8 channels of both a thread, into the f32 partials (218 KB of shared
+// memory, one CTA an SM). Windows of more than 208 keys (halo >= 4 at block 8) take
+// three passes over their chunks (the row statistics online, D, the
+// gradients), recomputing the logits and dattn. Its partials cost, at fp32
+// as at bf16, 2 x 411 MB written here and read back by the gather (0.49 ms
+// of the card's memory rate at prod).
+//
+// The general body (`attention_bwd_kernel`: shapes neither other body
+// takes) runs the five products as scalar f32
 // FMAs from shared memory: q, do, k_eff and v staged (rows padded to an
 // odd word stride), the f32 probabilities and dattn/dl for all keys (bf16
 // halo 3: 186 KB, one CTA per SM). When that plan does not fit (fp32, or
@@ -71,6 +90,7 @@
 // the row sums of dattn * P, then the gradients), recomputing each chunk's
 // logits. Only f32 summation order differs between the bodies.
 
+#include "attention_f32.cuh"
 #include "attention_tc.cuh"
 #include "common.cuh"
 
@@ -525,6 +545,253 @@ __global__ void __launch_bounds__(128, 2) attention_bwd_tc_kernel(
   attn::store_rows(g, dqa, scale, s_q, nullptr, dq);
 }
 
+// ---- the float32 body ------------------------------------------------------
+
+// TC > 0: TC key slots a lane (the prod shape); TC == 0: any count up to
+// f32a::kMaxSlots
+template <int TC>
+__global__ void __launch_bounds__(256, 1) attention_bwd_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ rel_h, const float* __restrict__ rel_w,
+    const float* __restrict__ dout, float* __restrict__ dq, float* __restrict__ dk_part,
+    float* __restrict__ dv_part, int H, int W, int C, int bs, int halo, int heads,
+    float scale) {
+  using f32a::kLd;
+  using f32a::kMaxSlots;
+  using f32a::kPass;
+  using f32a::kRows;
+  constexpr int kPasses = f32a::kMaxHead / kPass;
+  const attn::Win g = attn::win_geom(H, W, C, bs, halo, heads);
+  const int T = TC > 0 ? TC : f32a::slots(g.nk, 2), ck = 16 * T, nc = f32a::chunks(g.nk, 2);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_q = reinterpret_cast<float*>(smem);  // [nq][kLd]
+  float* s_do = s_q + g.nq * kLd;               // [nq][kLd]
+  float* s_k = s_do + g.nq * kLd;               // [ck][kLd] k, then k_eff
+  float* s_v = s_k + ck * kLd;                  // [ck][kLd] v, then P [nq][ck]
+  float* s_dl = s_v + ck * kLd;                 // [nq][ck] dl
+  float* s_dq = s_dl + g.nq * ck;               // [nq][kLd] the second half's dq
+  float* s_x = s_dq + g.nq * kLd;               // [2 halves][3][nq] row statistics
+  float* s_p = s_v;
+  // warp: its row group and the half of each chunk's slots it holds
+  const int groups = g.nq / 16, warp = threadIdx.x >> 5;
+  const int half = warp / groups, lane = threadIdx.x & 31, lk = lane & 7;
+  const int r = 16 * (warp - half * groups) + (lane >> 3);  // rows r, r + 4, r + 8, r + 12
+  const int slot0 = half * 8 * T + lk;  // the lane's first slot of a chunk
+  const int npass = (g.hd + kPass - 1) / kPass;
+
+  f32a::stage_queries(g, q, s_q);
+  f32a::stage_queries(g, dout, s_do);
+  // chunk j0's keys (and values, still in flight on return), after every
+  // reader of the last chunk
+  auto stage = [&](int j0, bool values) {
+    __syncthreads();
+    f32a::stage_keys(g, k, j0, ck, s_k);
+    sm90::cp_async_commit();
+    if (values) {
+      f32a::stage_keys(g, v, j0, ck, s_v);
+      sm90::cp_async_commit();
+      sm90::cp_async_wait<1>();
+    } else {
+      sm90::cp_async_wait<0>();
+    }
+    __syncthreads();
+    f32a::add_bias(g, rel_h, rel_w, j0, ck, s_k);
+    __syncthreads();
+  };
+  // the sum of a row value over the two halves, in a fixed order (which: the
+  // exchange slot; every thread calls it, a barrier inside)
+  auto both_halves = [&](float (&x)[kRows], int which, bool is_max) {
+    if (lk == 0)
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) s_x[(half * 3 + which) * g.nq + r + 4 * i] = x[i];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const float a = s_x[which * g.nq + r + 4 * i], b = s_x[(3 + which) * g.nq + r + 4 * i];
+      x[i] = is_max ? fmaxf(a, b) : a + b;
+    }
+  };
+
+  float m[kRows], l[kRows], dsum[kRows], dqa[kRows][kPasses];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    m[i] = -INFINITY;
+    l[i] = dsum[i] = 0.f;
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) dqa[i][p] = 0.f;
+  }
+  float s[kRows][kMaxSlots], da[kRows][kMaxSlots];
+  // one chunk: one pass; more: 0 the row statistics, 1 D, 2 the gradients
+  for (int pass = nc == 1 ? 2 : 0; pass < 3; ++pass) {
+    for (int c = 0; c < nc; ++c) {
+      const int j0 = c * ck, n = min(ck, g.nk - j0);
+      stage(j0, pass > 0);
+      f32a::dots<TC>(s_q, s_k + slot0 * kLd, r, T, g.hd, scale, s);
+      f32a::mask_slots<TC>(slot0, T, n, s);
+      if (pass == 0 || nc == 1) {  // the statistics, online over the chunks
+        float mt[kRows], sum[kRows];
+        f32a::row_max<TC>(s, T, mt);
+        both_halves(mt, 0, true);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          mt[i] = fmaxf(m[i], mt[i]);
+          l[i] *= expf(m[i] - mt[i]);
+          m[i] = mt[i];
+        }
+        f32a::exp_rows<TC>(s, T, m, sum);  // s = exp(s - m)
+        both_halves(sum, 1, false);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) l[i] += sum[i];
+      }
+      if (pass == 0) continue;
+      // P from the final statistics (0 on the padded slots; one chunk: s
+      // holds exp(s - m) already), dattn (0 there: v's padded rows are zero)
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float inv = 1.f / l[i];
+#pragma unroll
+        for (int t = 0; t < kMaxSlots; ++t)
+          if (f32a::live<TC>(t, T)) s[i][t] = (nc == 1 ? s[i][t] : expf(s[i][t] - m[i])) * inv;
+      }
+      sm90::cp_async_wait<0>();  // v
+      __syncthreads();
+      f32a::dots<TC>(s_do, s_v + slot0 * kLd, r, T, g.hd, 1.f, da);
+      if (pass == 1 || nc == 1) {  // D = sum over the keys of dattn * P
+        float part[kRows];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          float x = 0.f;
+#pragma unroll
+          for (int t = 0; t < kMaxSlots; ++t)
+            if (f32a::live<TC>(t, T)) x += da[i][t] * s[i][t];
+          part[i] = f32a::group_sum(x);
+        }
+        both_halves(part, 2, false);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) dsum[i] += part[i];
+      }
+      if (pass == 1) continue;
+      // dl = P (dattn - D) in place
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int t = 0; t < kMaxSlots; ++t)
+          if (f32a::live<TC>(t, T)) da[i][t] = s[i][t] * (da[i][t] - dsum[i]);
+      __syncthreads();  // every warp's dattn has read v's rows: P goes there
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+        for (int t = 0; t < kMaxSlots; ++t) {
+          if (f32a::live<TC>(t, T)) {
+            s_p[(r + 4 * i) * ck + slot0 + 8 * t] = s[i][t];
+            s_dl[(r + 4 * i) * ck + slot0 + 8 * t] = da[i][t];
+          }
+        }
+      }
+      // dq += dl . k_eff: the lane's slots, reduce-scattered over the row
+#pragma unroll
+      for (int p = 0; p < kPasses; ++p) {
+        if (p < npass) {
+          float acc[kRows][kPass], part[kRows];
+          f32a::times_keys<TC>(da, s_k + slot0 * kLd, T, kPass * p, g.hd, acc);
+          f32a::reduce_scatter(acc, lk, part);
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) dqa[i][p] += part[i];
+        }
+      }
+      __syncthreads();  // P and dl are complete
+      // dk_w = dl^T . q * scale and dv_w = P^T . do: a thread takes both
+      // products' tiles of 8 keys x 8 channels (4 dg.. and 32 + 4 dg..),
+      // over the rows
+      const int ngk = PHT_F32_DIAG == 1 || PHT_F32_DIAG == 3 ? 0 : ck / 8;
+      for (int tile = threadIdx.x; tile < ngk * 8; tile += blockDim.x) {
+        const int dg = tile & 7, jj = 8 * (tile >> 3), d0 = 4 * dg, d1 = 32 + 4 * dg;
+        if (jj >= n || d0 >= g.hd) continue;
+        const bool hi = d1 < g.hd;
+        float ak[8][8], av[8][8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+#pragma unroll
+          for (int f = 0; f < 8; ++f) ak[e][f] = av[e][f] = 0.f;
+#pragma unroll 2  // 1 ran as fast, 4 slower (PERF.md)
+        for (int rr = 0; rr < g.nq; ++rr) {
+          const float* wl = s_dl + rr * ck + jj;
+          const float* wp = s_p + rr * ck + jj;
+          const float4 l0 = *reinterpret_cast<const float4*>(wl);
+          const float4 l1 = *reinterpret_cast<const float4*>(wl + 4);
+          const float4 p0 = *reinterpret_cast<const float4*>(wp);
+          const float4 p1 = *reinterpret_cast<const float4*>(wp + 4);
+          const float4 q0 = *reinterpret_cast<const float4*>(s_q + rr * kLd + d0);
+          const float4 o0 = *reinterpret_cast<const float4*>(s_do + rr * kLd + d0);
+          const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+          const float4 q1 = hi ? *reinterpret_cast<const float4*>(s_q + rr * kLd + d1) : zero;
+          const float4 o1 = hi ? *reinterpret_cast<const float4*>(s_do + rr * kLd + d1) : zero;
+          const float wk[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
+          const float wv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+          const float xq[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+          const float xo[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+#pragma unroll
+            for (int f = 0; f < 8; ++f) {
+              ak[e][f] = fmaf(wk[e], xq[f], ak[e][f]);
+              av[e][f] = fmaf(wv[e], xo[f], av[e][f]);
+            }
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (jj + e >= n) break;
+          const size_t row = ((size_t)g.win * g.nk + j0 + jj + e) * g.C + g.c0;
+          float* rk = dk_part + row;
+          float* rv = dv_part + row;
+          *reinterpret_cast<float4*>(rk + d0) = make_float4(
+              ak[e][0] * scale, ak[e][1] * scale, ak[e][2] * scale, ak[e][3] * scale);
+          *reinterpret_cast<float4*>(rv + d0) = make_float4(av[e][0], av[e][1], av[e][2], av[e][3]);
+          if (hi) {
+            *reinterpret_cast<float4*>(rk + d1) = make_float4(
+                ak[e][4] * scale, ak[e][5] * scale, ak[e][6] * scale, ak[e][7] * scale);
+            *reinterpret_cast<float4*>(rv + d1) =
+                make_float4(av[e][4], av[e][5], av[e][6], av[e][7]);
+          }
+        }
+      }
+    }
+  }
+  // dq = (the first half's dl . k_eff + the second's) * scale
+  if (half == 1)
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int p = 0; p < kPasses; ++p)
+        if (p < npass) s_dq[(r + 4 * i) * kLd + kPass * p + lk] = dqa[i][p];
+  __syncthreads();
+  if (half == 0) {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int64_t row = attn::query_pixel(g, r + 4 * i) * g.C + g.c0;
+#pragma unroll
+      for (int p = 0; p < kPasses; ++p) {
+        const int d = kPass * p + lk;
+        if (d < g.hd) dq[row + d] = (dqa[i][p] + s_dq[(r + 4 * i) * kLd + d]) * scale;
+      }
+    }
+  }
+}
+
+template <int TC>
+int launch_f32_main(const float* q, const float* k, const float* v, const float* rel_h,
+                    const float* rel_w, const float* dout, float* dq, float* dk_part,
+                    float* dv_part, int nwin, int H, int W, int C, int bs, int halo, int heads,
+                    float scale, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_f32_kernel<TC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_f32_kernel<TC><<<dim3((unsigned)nwin, (unsigned)heads), 4 * bs * bs, smem,
+                                 stream>>>(q, k, v, rel_h, rel_w, dout, dq, dk_part, dv_part, H,
+                                           W, C, bs, halo, heads, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int NT>
 int launch_tc_main(const bf16* q, const bf16* k, const bf16* v, const float* rel_h,
                    const float* rel_w, const bf16* dout, bf16* dq, float* dk_part,
@@ -745,6 +1012,44 @@ int pht_attention_bwd_tc(const void* q, const void* k, const void* v, const void
   if (err != 0) return err;
   return reduce_partials<bf16>(kp, vp, static_cast<float*>(bias_part), bias_group, dk, dv, B,
                                H, W, C, bs, halo, heads, s);
+}
+
+// The float32 body: the same arguments as pht_attention_bwd. Refuses
+// (cudaErrorInvalidValue, before any launch) a dtype, shape, alignment or
+// shared memory the body does not take.
+int pht_attention_bwd_f32(const void* q, const void* k, const void* v, const void* rel_h,
+                          const void* rel_w, const void* dout, void* dq, void* dk, void* dv,
+                          void* dk_part, void* dv_part, void* bias_part, int bias_group, int B,
+                          int H, int W, int C, int bs, int halo, int heads, int is_bf16,
+                          float scale, void* stream) {
+  if (is_bf16 || !f32a::admits(bs, halo, C / heads, C)) return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k, v, rel_h, rel_w, dout, static_cast<const void*>(dq),
+                        static_cast<const void*>(dk), static_cast<const void*>(dv),
+                        static_cast<const void*>(dk_part), static_cast<const void*>(dv_part)})
+    if (!aligned16(p)) return (int)cudaErrorInvalidValue;
+  const size_t smem = f32a::bwd_smem(bs, halo);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* rh = static_cast<const float*>(rel_h);
+  const float* rw = static_cast<const float*>(rel_w);
+  const float* dot = static_cast<const float*>(dout);
+  float* dqt = static_cast<float*>(dq);
+  float* kp = static_cast<float*>(dk_part);
+  float* vp = static_cast<float*>(dv_part);
+  const int nwin = B * (H / bs) * (W / bs);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool fast = f32a::slots(f32a::window_keys(bs, halo), 2) == f32a::kFastSlots &&
+                    PHT_F32_DIAG != 4;
+  const int err = fast ? launch_f32_main<f32a::kFastSlots>(qt, kt, vt, rh, rw, dot, dqt, kp, vp,
+                                                           nwin, H, W, C, bs, halo, heads, scale,
+                                                           smem, s)
+                       : launch_f32_main<0>(qt, kt, vt, rh, rw, dot, dqt, kp, vp, nwin, H, W, C,
+                                            bs, halo, heads, scale, smem, s);
+  if (err != 0) return err;
+  return reduce_partials<float>(kp, vp, static_cast<float*>(bias_part), bias_group, dk, dv, B,
+                                H, W, C, bs, halo, heads, s);
 }
 
 }  // extern "C"

@@ -23,7 +23,7 @@
 // owning channels [h*hd, (h+1)*hd). The TPU kernel's W-halo-padded layout
 // existed only for sublane alignment and is not needed here.
 //
-// Two bodies. The tensor-core body (`attention_fwd_tc_kernel`, bf16, head_ch
+// Three bodies. The tensor-core body (`attention_fwd_tc_kernel`, bf16, head_ch
 // a multiple of 16 up to 64, block 4 or 8; the prod shape) is what the
 // H100 runs. At the prod shape a (window, head) does 2 x 64 x 196 x 64
 // multiply-adds against 58 KB of bf16 operands, most of them re-read from
@@ -46,12 +46,28 @@
 // tiles: the exact row max and sum (online over tiles), then the logits
 // again, the probabilities rounded from the final statistics, and P.v. (An
 // online rescale of rounded probabilities would not be the same function.)
-// fp32 takes the general body: a 3xTF32 tensor-core body ran no faster at
-// 1 CTA an SM (130 KB of f32 rows) and its deviations, though within the
-// fp32 kernel bounds, moved the fp32 training step past its bound.
 //
-// The general body (the two scalar-FMA kernels below: fp32, and shapes the
-// tensor-core body does not take) stages the key window transposed and the
+// The float32 body (`attention_fwd_f32_kernel`: fp32, head_ch a multiple of
+// 4 up to 64, block 4 or 8, every halo; the prod fp32 shape) runs both
+// products in true f32 FMAs, register-tiled (`attention_f32.cuh` says what
+// bounds it and how), in the plain version's own order on the card, so its
+// outputs are the plain version's: each logit one FMA chain over the
+// channels, the row max, exp(s - max) summed as PyTorch's warp softmax sums
+// a row (lane L the keys j = L mod 32 in order, then a butterfly 16..1),
+// P = that / sum, and P . v one FMA chain a value over the keys in order, as
+// cuBLAS sums it. (The fp32 training step amplifies any other order: the
+// critic's near-zero gradients flip sign under Adam's first step, which
+// moved the step's G gradients by 4.6e-3 where the bound is 1e-3, PERF.md.)
+// 4 warps of 16 query rows; a lane's 4 rows x 13 key slots of a chunk of up
+// to 104 keys, the two chunks of the prod window both in registers (74 KB of
+// shared memory: three CTAs an SM); P goes to shared memory as [key][row],
+// and each thread sums 4 rows x 8 channels of P . v over the keys; more
+// keys take three passes (the max, the sums, P . v), recomputing the logits.
+// (A 3xTF32 tensor-core fp32 body ran no faster and moved the fp32 training
+// step past its bound too: PERF.md.)
+//
+// The general body (the two scalar-FMA kernels below: shapes neither other
+// body takes) stages the key window transposed and the
 // f32 logits (64 x 196 = 50 KB) in shared memory and runs both products as
 // scalar FMAs register-blocked over 8 query rows. Windows whose one-stage
 // plan exceeds 227 KB (bf16 halo >= 7 or fp32 halo >= 5 at head_ch 64)
@@ -61,6 +77,7 @@
 // in f32 in shared memory. Only f32 summation order differs between the
 // plans and the bodies.
 
+#include "attention_f32.cuh"
 #include "attention_tc.cuh"
 #include "common.cuh"
 
@@ -441,6 +458,229 @@ int launch_tc(const bf16* q, const bf16* k, const bf16* v, const float* rel_h,
   return (int)cudaGetLastError();
 }
 
+// ---- the float32 body ------------------------------------------------------
+
+// the row sums of the softmax in the plain version's order on the card (a
+// warp a row, lane L summing the keys j = L mod 32 in order, then a
+// butterfly over lanes 16, 8, 4, 2, 1): each lane keeps the four "lanes"
+// L = lk + 8a of its slots (key 8u + lk has a = u mod 4) in p[a], whose
+// first two butterfly steps stay in the lane
+__device__ __forceinline__ float torch_row_sum(const float (&p)[4]) {
+  float v = (p[0] + p[2]) + (p[1] + p[3]);
+  v += __shfl_xor_sync(f32a::kFull, v, 4);
+  v += __shfl_xor_sync(f32a::kFull, v, 2);
+  return v + __shfl_xor_sync(f32a::kFull, v, 1);
+}
+
+// TC > 0: TC key slots a lane (the prod shape); TC == 0: any count up to
+// f32a::kMaxSlots. Same arithmetic as the plain version on the card: each
+// logit one FMA chain over the channels, the row max, exp(s - max) summed in
+// the softmax's order (`torch_row_sum`), P = that / sum, and P . v one FMA
+// chain a value over the keys in order; so the outputs are those of the
+// plain version.
+template <int TC>
+__global__ void __launch_bounds__(128, PHT_F32_FWD_CTAS) attention_fwd_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ rel_h, const float* __restrict__ rel_w,
+    const float* __restrict__ res, float* __restrict__ out, int H, int W, int C, int bs,
+    int halo, int heads, float scale) {
+  using f32a::kLd;
+  using f32a::kMaxSlots;
+  using f32a::kRows;
+  constexpr int kRes = 2 * kMaxSlots;  // the slots of two chunks, held in registers
+  const attn::Win g = attn::win_geom(H, W, C, bs, halo, heads);
+  const int T = TC > 0 ? TC : f32a::slots(g.nk, 1), ck = 8 * T, nc = f32a::chunks(g.nk, 1);
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_q = reinterpret_cast<float*>(smem);  // [nq][kLd]
+  float* s_a = s_q + g.nq * kLd;                // [ck][kLd] k_eff, v, or P as [slot][row]
+  float* s_b = s_a + ck * kLd;                  // [ck][kLd] the same
+  const int lane = threadIdx.x & 31, lk = lane & 7;
+  const int r = 16 * (threadIdx.x >> 5) + (lane >> 3);  // rows r, r + 4, r + 8, r + 12
+  // P . v: this thread's 4 rows x 8 channels (4 cg.. and 32 + 4 cg..)
+  const int rg = 4 * (threadIdx.x >> 3), cg = 4 * (threadIdx.x & 7);
+  const bool c_lo = cg < g.hd, c_hi = 32 + cg < g.hd;
+
+  // chunk c's k_eff into dst (after the wait, a barrier and the bias)
+  auto stage_k = [&](int c, float* dst) { f32a::stage_keys(g, k, c * ck, ck, dst); };
+  auto bias_k = [&](int c, float* dst) { f32a::add_bias(g, rel_h, rel_w, c * ck, ck, dst); };
+  float acc[4][8];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int f = 0; f < 8; ++f) acc[e][f] = 0.f;
+  // acc += P . v over chunk c's keys in order, P as [slot][row] in pp, v in pv
+  auto times_v = [&](int c, const float* pp, const float* pv) {
+    const int n = min(ck, g.nk - c * ck);
+#if PHT_F32_DIAG == 1 || PHT_F32_DIAG == 3
+    acc[0][0] += pp[rg] * pv[cg];
+    return;
+#endif
+    if (!c_lo) return;
+#pragma unroll 4
+    for (int jj = 0; jj < n; ++jj) {
+      const float4 pw = *reinterpret_cast<const float4*>(pp + jj * kLd + rg);
+      const float4 v0 = *reinterpret_cast<const float4*>(pv + jj * kLd + cg);
+      const float4 v1 = c_hi ? *reinterpret_cast<const float4*>(pv + jj * kLd + 32 + cg)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float pr[4] = {pw.x, pw.y, pw.z, pw.w};
+      const float vc[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int f = 0; f < 8; ++f) acc[e][f] = fmaf(pr[e], vc[f], acc[e][f]);
+    }
+  };
+  // the lane's P of one chunk into dst as [slot][row]
+  auto put_p = [&](const float (&p)[kRows][kRes], int off, float* dst) {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int t = 0; t < kMaxSlots; ++t)
+        if (f32a::live<TC>(t, T)) dst[(lk + 8 * t) * kLd + r + 4 * i] = p[i][off + t];
+  };
+
+  f32a::stage_queries(g, q, s_q);
+  float s[kRows][kRes], m[kRows], part[kRows][4], l[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) part[i][a] = 0.f;
+  }
+  // e = exp(s - m) of slot t of chunk c into part[.][a], a = (c T + t) mod 4
+  auto add_exp = [&](int i, int c, int t, float e) {
+    const int a = (c * T + t) & 3;
+#pragma unroll
+    for (int q4 = 0; q4 < 4; ++q4) part[i][q4] += q4 == a ? e : 0.f;
+  };
+
+  if (nc <= 2) {
+    // ---- the logits of the window's (one or two) chunks in registers ----
+    stage_k(0, s_a);
+    if (nc > 1) stage_k(1, s_b);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<0>();
+    __syncthreads();
+    bias_k(0, s_a);
+    if (nc > 1) bias_k(1, s_b);
+    __syncthreads();
+    f32a::dots<TC, 0>(s_q, s_a + lk * kLd, r, T, g.hd, scale, s);
+    f32a::mask_slots<TC, 0>(lk, T, min(ck, g.nk), s);
+    if (nc > 1) {
+      f32a::dots<TC, kMaxSlots>(s_q, s_b + lk * kLd, r, T, g.hd, scale, s);
+      f32a::mask_slots<TC, kMaxSlots>(lk, T, g.nk - ck, s);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int t = 0; t < kMaxSlots; ++t) s[i][kMaxSlots + t] = -INFINITY;
+    }
+    __syncthreads();  // every warp's logits are done: v's first chunk goes to s_a
+    f32a::stage_keys(g, v, 0, ck, s_a);
+    sm90::cp_async_commit();
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+      for (int t = 0; t < kRes; ++t) m[i] = fmaxf(m[i], s[i][t]);
+      m[i] = f32a::group_max(m[i]);
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int t = 0; t < kMaxSlots; ++t) {
+          float& x = s[i][c * kMaxSlots + t];
+          x = expf(x - m[i]);
+          if (c < nc && f32a::live<TC>(t, T)) add_exp(i, c, t, x);
+        }
+      l[i] = torch_row_sum(part[i]);
+#pragma unroll
+      for (int t = 0; t < kRes; ++t) s[i][t] = s[i][t] / l[i];
+    }
+    put_p(s, 0, s_b);
+    sm90::cp_async_wait<0>();
+    __syncthreads();
+    times_v(0, s_b, s_a);
+    if (nc > 1) {
+      __syncthreads();  // chunk 0's P and v are read
+      f32a::stage_keys(g, v, ck, ck, s_a);
+      sm90::cp_async_commit();
+      put_p(s, kMaxSlots, s_b);
+      sm90::cp_async_wait<0>();
+      __syncthreads();
+      times_v(1, s_b, s_a);
+    }
+  } else {
+    // ---- more chunks: the max, the sums, then P and P . v, one pass each --
+    for (int pass = 0; pass < 3; ++pass) {
+      for (int c = 0; c < nc; ++c) {
+        __syncthreads();  // the last chunk's readers are done
+        stage_k(c, s_a);
+        if (pass == 2) f32a::stage_keys(g, v, c * ck, ck, s_b);
+        sm90::cp_async_commit();
+        sm90::cp_async_wait<0>();
+        __syncthreads();
+        bias_k(c, s_a);
+        __syncthreads();
+        f32a::dots<TC, 0>(s_q, s_a + lk * kLd, r, T, g.hd, scale, s);
+        f32a::mask_slots<TC, 0>(lk, T, g.nk - c * ck, s);
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+          for (int t = 0; t < kMaxSlots; ++t) {
+            if (pass == 0) {
+              m[i] = fmaxf(m[i], s[i][t]);
+            } else {
+              s[i][t] = expf(s[i][t] - m[i]);
+              if (pass == 1 && f32a::live<TC>(t, T)) add_exp(i, c, t, s[i][t]);
+              if (pass == 2) s[i][t] = s[i][t] / l[i];
+            }
+          }
+        }
+        if (pass < 2) continue;
+        __syncthreads();  // every warp's logits are done: P takes k_eff's rows
+        put_p(s, 0, s_a);
+        __syncthreads();
+        times_v(c, s_a, s_b);
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        if (pass == 0) m[i] = f32a::group_max(m[i]);
+        if (pass == 1) l[i] = torch_row_sum(part[i]);
+      }
+    }
+  }
+  if (!c_lo) return;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int64_t row = attn::query_pixel(g, rg + e) * g.C + g.c0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 1 && !c_hi) continue;
+      const int d = 32 * h + cg;
+      float4 o = make_float4(acc[e][4 * h], acc[e][4 * h + 1], acc[e][4 * h + 2],
+                             acc[e][4 * h + 3]);
+      if (res != nullptr) {
+        const float4 rv = __ldg(reinterpret_cast<const float4*>(res + row + d));
+        o = make_float4(rv.x + o.x, rv.y + o.y, rv.z + o.z, rv.w + o.w);
+      }
+      *reinterpret_cast<float4*>(out + row + d) = o;
+    }
+  }
+}
+
+template <int TC>
+int launch_f32(const float* q, const float* k, const float* v, const float* rel_h,
+               const float* rel_w, const float* res, float* out, int B, int H, int W, int C,
+               int bs, int halo, int heads, float scale, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_f32_kernel<TC>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(B * (H / bs) * (W / bs)), (unsigned)heads);
+  attention_fwd_f32_kernel<TC><<<grid, 2 * bs * bs, smem, stream>>>(
+      q, k, v, rel_h, rel_w, res, out, H, W, C, bs, halo, heads, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* rel_h,
            const float* rel_w, const void* res, void* out, int B, int H, int W,
@@ -526,6 +766,40 @@ int pht_attention_fwd_tc(const void* q, const void* k, const void* v, const void
     default: return PHT_FWD_TC(0);
   }
 #undef PHT_FWD_TC
+}
+
+// The float32 body: the same arguments as pht_attention_fwd. Refuses
+// (cudaErrorInvalidValue, before any launch) a dtype, shape, alignment or
+// shared memory the body does not take.
+int pht_attention_fwd_f32(const void* q, const void* k, const void* v, const void* rel_h,
+                          const void* rel_w, const void* res, void* out, int B, int H, int W,
+                          int C, int bs, int halo, int heads, int is_bf16, float scale,
+                          void* stream) {
+  if (is_bf16 || !f32a::admits(bs, halo, C / heads, C)) return (int)cudaErrorInvalidValue;
+  for (const void* p : {q, k, v, rel_h, rel_w, res, static_cast<const void*>(out)})
+    if (p != nullptr && !aligned16(p)) return (int)cudaErrorInvalidValue;
+  const size_t smem = f32a::fwd_smem(bs, halo);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* rh = static_cast<const float*>(rel_h);
+  const float* rw = static_cast<const float*>(rel_w);
+  const float* rt = static_cast<const float*>(res);
+  float* ot = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool fast = f32a::slots(f32a::window_keys(bs, halo), 1) == f32a::kFastSlots &&
+                    PHT_F32_DIAG != 4;
+  if (fast)
+    return launch_f32<f32a::kFastSlots>(qt, kt, vt, rh, rw, rt, ot, B, H, W, C, bs, halo, heads,
+                                        scale, smem, s);
+  return launch_f32<0>(qt, kt, vt, rh, rw, rt, ot, B, H, W, C, bs, halo, heads, scale, smem, s);
+}
+
+// dynamic shared memory of one CTA of the float32 body: K1 (which 0) or K4's
+// main kernel (which 1)
+int pht_attention_f32_smem(int which, int bs, int halo) {
+  return (int)(which ? f32a::bwd_smem(bs, halo) : f32a::fwd_smem(bs, halo));
 }
 
 // dynamic shared memory of one CTA of the tensor-core body: K1 (which 0) or

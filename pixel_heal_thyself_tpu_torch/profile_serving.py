@@ -47,7 +47,8 @@ GROUPS = [
     ("ssd_state_pass", "K7 state pass"), ("ssd_prologue", "K7 prologue"),
     ("gated_rmsnorm", "K7 gated RMSNorm"),
     # K1 and K4: the tensor-core bodies (attention_fwd_tc_kernel,
-    # attention_bwd_tc_kernel), the general ones, K4's gather and bias reduce
+    # attention_bwd_tc_kernel), the float32 and general ones, K4's gather
+    # and bias reduce
     ("attention_fwd", "K1 attention"), ("attention_bwd", "K4 attention backward"),
     ("attention_bias_reduce", "K4 attention backward"),
     # K5: its Hopper body (conv3x3_dgrad_sm90_kernel) and general body, its

@@ -285,13 +285,17 @@ def test_gather_order_is_the_overlap_add():
 
 def test_body_gate():
     """"tc" for bf16, head_ch a multiple of 16 up to 64, block 4 or 8 and
-    16-byte aligned tensors; fp32, other widths and blocks, or an operand
-    off 16 bytes take the general body."""
+    16-byte aligned tensors; fp32 at those blocks and head_ch a multiple of
+    4 up to 64 takes the float32 body ("f32"), other fp32 shapes the general
+    one; other widths and blocks, or an operand off 16 bytes take the
+    general body."""
     x = torch.zeros(64, dtype=torch.bfloat16)
     assert attention_body(torch.bfloat16, 256, 4, 8, 3, x) == "tc"  # prod
     for halo in range(1, 9):
         assert attention_body(torch.bfloat16, 256, 4, 8, halo) == "tc"
-        assert attention_body(torch.float32, 256, 4, 8, halo) == "general"
+        assert attention_body(torch.float32, 256, 4, 8, halo) == "f32"
+    assert attention_body(torch.float32, 256, 2, 8, 3) == "general"  # fp32 head_ch 128
+    assert attention_body(torch.float32, 256, 4, 16, 3) == "general"  # fp32 block 16
     assert attention_body(torch.bfloat16, 32, 2, 8, 3) == "tc"  # head_ch 16
     assert attention_body(torch.bfloat16, 64, 2, 4, 4) == "tc"
     assert attention_body(torch.float16, 256, 4, 8, 3) == "general"
@@ -335,7 +339,7 @@ def test_wrappers_count_launches_by_body():
     fns = (attention_cuda.block_halo_attention_cuda,
            attention_cuda.block_halo_attention_bwd_cuda)
     for fn in fns:
-        assert set(fn.body_launches) == {"tc", "general"}
+        assert set(fn.body_launches) == {"tc", "f32", "general"}
         assert isinstance(fn.launches, int)
     q = torch.zeros(1, 8, 8, 32, dtype=torch.bfloat16)
     rel = torch.zeros(14, 8)

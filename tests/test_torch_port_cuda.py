@@ -398,7 +398,7 @@ def test_attention_bwd_kernel(dev, dtype, halo, heads, c):
 
 # (block, halo, heads, C): every halo 1..8 at block 8 (halo ≤ 4 keeps the
 # logits / probabilities in registers, halo ≥ 5 walks the key tiles in
-# passes), head_ch 16/32/48/64, block 4; fp32 takes the general body
+# passes), head_ch 16/32/48/64, block 4; fp32 takes the float32 body
 TC_CASES = [(8, 1, 2, 64), (8, 2, 4, 128), (8, 3, 4, 256), (8, 4, 2, 96), (8, 5, 4, 256),
             (8, 6, 2, 64), (8, 7, 4, 256), (8, 8, 4, 128), (4, 2, 2, 64), (4, 4, 2, 32)]
 
@@ -407,10 +407,10 @@ TC_CASES = [(8, 1, 2, 64), (8, 2, 4, 128), (8, 3, 4, 256), (8, 4, 2, 96), (8, 5,
 @pytest.mark.parametrize("bs,halo,heads,c", TC_CASES)
 def test_attention_tc_bodies(dev, dtype, bs, halo, heads, c):
     """K1's and K4's bodies (the gate's: the tensor-core body in bf16, the
-    general one in fp32) against the plain versions, and the general body
+    float32 one in fp32) against the plain versions, and the general body
     on the same inputs, at the dtype's bounds; K4 equal to the bit across
     two calls; the body counters: each wrapper call counts one launch of
-    the body the gate picked."""
+    the body the gate picked and none of the others."""
     rng = np.random.default_rng(bs * 10 + halo)
     b, h, w = 2, 4 * bs, 6 * bs
     q, k, v, do, res = (_rand(rng, (b, h, w, c), dev, dtype) for _ in range(5))
@@ -419,17 +419,17 @@ def test_attention_tc_bodies(dev, dtype, bs, halo, heads, c):
     rel_w = _rand(rng, (window, c // heads // 2), dev, torch.float32)
     kw = dict(block_size=bs, halo_size=halo, num_heads=heads)
     body = attention_cuda.attention_body(dtype, c, heads, bs, halo)
-    assert body == ("tc" if dtype == torch.bfloat16 else "general")
+    assert body == ("tc" if dtype == torch.bfloat16 else "f32")
     fwd, bwd = block_halo_attention_cuda, block_halo_attention_bwd_cuda
     before = (fwd.launches, dict(fwd.body_launches), bwd.launches, dict(bwd.body_launches))
     got = fwd(q, k, v, rel_h, rel_w, **kw, residual=res)
     grads = bwd(q, k, v, rel_h, rel_w, do, **kw)
     again = bwd(q, k, v, rel_h, rel_w, do, **kw)
-    other = "general" if body == "tc" else "tc"
-    assert fwd.launches == before[0] + 1 and fwd.body_launches[body] == before[1][body] + 1
-    assert fwd.body_launches[other] == before[1][other]
-    assert bwd.launches == before[2] + 2 and bwd.body_launches[body] == before[3][body] + 2
-    assert bwd.body_launches[other] == before[3][other]
+    assert fwd.launches == before[0] + 1 and bwd.launches == before[2] + 2
+    for name in fwd.body_launches:
+        added = int(name == body)
+        assert fwd.body_launches[name] == before[1][name] + added, name
+        assert bwd.body_launches[name] == before[3][name] + 2 * added, name
     general = attention_cuda.attention_body_launch("general", q, k, v, rel_h, rel_w, **kw,
                                                    residual=res)
     general_grads = attention_cuda.attention_body_launch("general", q, k, v, rel_h, rel_w, do,
@@ -447,10 +447,11 @@ def test_attention_tc_bodies(dev, dtype, bs, halo, heads, c):
 
 
 def test_attention_tc_gate_and_smem(dev):
-    """Shapes the tensor-core body does not take (fp32, head_ch 8) run the
-    general body, counted so; the tensor-core entries refuse them; their
-    shared memory is `attention_tc_plan`'s at every block, halo and head_ch
-    they take."""
+    """Shapes neither fast body takes (fp32 head_ch 6, bf16 head_ch 8) run
+    the general body, counted so; the tensor-core and float32 entries
+    refuse them; each fast body's shared memory is its plan's
+    (`attention_tc_plan`, `attention_f32_plan`) at every block, halo and
+    head_ch it takes."""
     from pixel_heal_thyself_tpu_torch import _build
 
     lib = _build.lib()
@@ -460,8 +461,11 @@ def test_attention_tc_gate_and_smem(dev):
                 plan = attention_cuda.attention_tc_plan(bs, halo, hd)
                 assert lib.pht_attention_tc_smem(0, bs, halo, hd) == plan.smem_fwd
                 assert lib.pht_attention_tc_smem(1, bs, halo, hd) == plan.smem_bwd
+            plan = attention_cuda.attention_f32_plan(bs, halo, 64)
+            assert lib.pht_attention_f32_smem(0, bs, halo) == plan.smem_fwd
+            assert lib.pht_attention_f32_smem(1, bs, halo) == plan.smem_bwd
     rng = np.random.default_rng(9)
-    for dtype, c, heads in ((torch.float32, 128, 2), (torch.bfloat16, 32, 4)):
+    for dtype, c, heads in ((torch.float32, 12, 2), (torch.bfloat16, 32, 4)):
         q, do = (_rand(rng, (1, 16, 16, c), dev, dtype) for _ in range(2))
         rel = _rand(rng, (14, c // heads // 2), dev, torch.float32)
         kw = dict(block_size=8, halo_size=3, num_heads=heads)
@@ -472,8 +476,85 @@ def test_attention_tc_gate_and_smem(dev):
         block_halo_attention_bwd_cuda(q, q, q, rel, rel, do, **kw)
         assert block_halo_attention_bwd_cuda.body_launches["general"] == gen + 1
         for grad in (None, do):
-            with pytest.raises(RuntimeError, match="tc body"):
-                attention_cuda.attention_body_launch("tc", q, q, q, rel, rel, grad, **kw)
+            for body in ("tc", "f32"):
+                with pytest.raises(RuntimeError, match=f"{body} body"):
+                    attention_cuda.attention_body_launch(body, q, q, q, rel, rel, grad, **kw)
+
+
+@pytest.mark.parametrize("mode", ["replicate", "reflect", "zeros"])
+@pytest.mark.parametrize("halo", range(1, 9))
+def test_attention_f32_bodies(dev, halo, mode):
+    """K1's and K4's float32 body (one chunk of keys at halo ≤ 3, two or
+    three chunks beyond) and the general body against the plain versions
+    at every halo 1..8 (block 8, head_ch 64 and 16), within the fp32
+    bounds; K4 equal to the bit across two calls; each call counted on the
+    f32 body. Then a float32 TransformerBlock on the literal route in the
+    padding mode (K1 and K4 between cuDNN convs) against the same block on
+    the plain route, forward at the fp32 attention bounds and every gradient
+    at 1e-4 / 1e-5 (f32 sums over every pixel in another order, as the
+    weight gradients' bound); cuDNN deterministic, so that the convs add
+    nothing of their own."""
+    rng = np.random.default_rng(100 + 10 * halo + len(mode))
+    bs, heads = 8, 4
+    window = bs + 2 * halo
+    fwd, bwd = block_halo_attention_cuda, block_halo_attention_bwd_cuda
+    for c in (256, 64):
+        q, k, v, do, res = (_rand(rng, (2, 24, 32, c), dev, torch.float32) for _ in range(5))
+        rel_h = _rand(rng, (window, c // heads // 2), dev, torch.float32)
+        rel_w = _rand(rng, (window, c // heads // 2), dev, torch.float32)
+        kw = dict(block_size=bs, halo_size=halo, num_heads=heads)
+        assert attention_cuda.attention_body(torch.float32, c, heads, bs, halo, q) == "f32"
+        before = (dict(fwd.body_launches), dict(bwd.body_launches))
+        got = fwd(q, k, v, rel_h, rel_w, **kw, residual=res)
+        grads = bwd(q, k, v, rel_h, rel_w, do, **kw)
+        again = bwd(q, k, v, rel_h, rel_w, do, **kw)
+        assert fwd.body_launches["f32"] == before[0]["f32"] + 1
+        assert bwd.body_launches["f32"] == before[1]["f32"] + 2
+        general = attention_cuda.attention_body_launch("general", q, k, v, rel_h, rel_w, **kw,
+                                                       residual=res)
+        general_grads = attention_cuda.attention_body_launch("general", q, k, v, rel_h, rel_w,
+                                                             do, **kw)
+        ref = block_halo_attention_torch(q, k, v, rel_h, rel_w, **kw, residual=res)
+        ref_grads = block_halo_attention_bwd_torch(q, k, v, rel_h, rel_w, do, **kw)
+        torch.cuda.synchronize()
+        _assert_close(got, ref, 1e-5, 1e-6)
+        _assert_close(general, ref, 1e-5, 1e-6)
+        for g, a, gg, r in zip(grads, again, general_grads, ref_grads, strict=True):
+            _assert_close(g, r, 1e-5, 1e-6)
+            _assert_close(gg, r, 1e-5, 1e-6)
+            assert torch.equal(g, a)  # deterministic: no float atomics
+
+    from pixel_heal_thyself_tpu_torch.models.afgsa import TransformerBlock
+
+    c = 64
+    blocks = []
+    for use_kernels in (True, False):
+        blk = TransformerBlock(c, block_size=bs, halo_size=halo, num_heads=heads,
+                               padding_mode=mode, use_kernels=use_kernels, dtype=torch.float32,
+                               generator=torch.Generator().manual_seed(halo))
+        blocks.append(blk.to(dev))
+    blocks[1].load_state_dict(blocks[0].state_dict())
+    x, a, dy = (_rand(rng, (2, 24, 32, c), dev, torch.float32) for _ in range(3))
+    outs, grads = [], []
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for blk in blocks:
+            xi, ai = x.clone().requires_grad_(), a.clone().requires_grad_()
+            before = fwd.body_launches["f32"], bwd.body_launches["f32"]
+            out, _ = blk(xi, ai)
+            out.backward(dy)
+            launched = (fwd.body_launches["f32"] - before[0], bwd.body_launches["f32"] - before[1])
+            assert launched == ((1, 1) if blk.use_kernels else (0, 0)), launched
+            outs.append(out.detach())
+            grads.append([xi.grad, ai.grad] + [p.grad for p in blk.parameters()])
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    torch.cuda.synchronize()
+    _assert_close(outs[0], outs[1], 1e-5, 1e-6)
+    for g, r in zip(grads[0], grads[1], strict=True):
+        assert g is not None and r is not None
+        _assert_close(g, r, 1e-4, 1e-5)
 
 
 @pytest.mark.parametrize("mode", ["zeros", "reflect", "replicate"])
