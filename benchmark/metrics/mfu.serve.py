@@ -1,0 +1,12 @@
+"""mfu.serve: the served frames' model FLOP per second over the card's dense bf16
+peak, in %. The FLOP are the benchmark's own count (`benchmark/counts.py`):
+the generator's forward over the windows a frame needs, times the frames per
+second of the traced run's frames before its first traced stretch."""
+
+from benchmark.counts import PEAK_FLOPS
+
+
+def read(readings: dict):
+    if readings.get("kind") != "serve" or "items_per_s" not in readings:
+        return None
+    return 100.0 * readings["flops_per_item"] * readings["items_per_s"] / PEAK_FLOPS["bf16"]
